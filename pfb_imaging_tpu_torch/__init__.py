@@ -1,0 +1,48 @@
+"""PyTorch/CUDA port of pfb_imaging_tpu for NVIDIA Hopper (H100).
+
+The JAX package ``pfb_imaging_tpu`` beside this one is the reference; this
+package mirrors its layout (``ops/``, ``opt/``, ``prox/``, ``deconv/``,
+``core/``) and function names so each counterpart is easy to find.
+
+Idiom: plain functions on tensors (the band axis written out where JAX
+vmapped it), Python loops where JAX used ``lax.while_loop``, an explicit
+``device`` argument wherever tensors are created, explicit
+``torch.Generator`` objects for randomness.
+
+Dtype policy: f64 on the CPU (parity with the JAX x64 tests), f32 on CUDA.
+TF32 is switched off for matmuls AND cuDNN convolutions at import: the
+SARA wavelet convs feed the dot/hdot adjoint that primal-dual relies on,
+and cuDNN's TF32 default (~3 decimal digits) would break it — Hopper's
+version of the bf16-conv trap that ops/wavelets.py fixed on the TPU.
+
+Hand-written CUDA kernels live in ``csrc/`` and are built at first use by
+``kernels/build.py``; no kernel is built or imported at module import.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__version__ = "0.1.0"
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def real_dtype(device) -> torch.dtype:
+    """The working real dtype on ``device``: f64 on CPU, f32 on CUDA."""
+    return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
+def complex_dtype(real: torch.dtype) -> torch.dtype:
+    return torch.complex64 if real == torch.float32 else torch.complex128
+
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64, torch.int64: np.int64}
+
+
+def to_device(a, device, dtype: torch.dtype) -> torch.Tensor:
+    """Array-like -> tensor on ``device`` in ``dtype``, cast on the host
+    first so a single copy of the final size crosses to the device."""
+    return torch.from_numpy(np.array(a, dtype=_NP_DTYPE[dtype])).to(device)

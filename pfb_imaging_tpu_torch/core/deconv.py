@@ -1,0 +1,212 @@
+"""``deconv``: the PFB major cycle on a .dt tree (port of
+pfb_imaging_tpu/core/deconv.py, single device).
+
+Behaviour kept from the JAX ``deconv``:
+  * lambda schedule ``lam = (init_factor if iter0 == 0 and k == 0 else 1)
+    * rmsfactor * rms`` (design D5);
+  * checkpoint/resume through the tree: band nodes carry niters/rms/rmax/
+    hess_norm attrs and MODEL/UPDATE/RESIDUAL/MODEL_BEST/DUAL arrays;
+    the PD dual warm-starts from DUAL; ``hess_norm`` is cached in attrs;
+  * divergence counting (consecutive rms-and-rmax rises) and best-model
+    tracking;
+  * the component-model fit to .mds and the model re-evaluation from it.
+The exact residual runs band by band (the JAX per-band fallback route);
+the multiband residual, the device mesh and multi-host are not ported.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from pfb_imaging_tpu.utils.logging import get_logger
+from pfb_imaging_tpu.utils.modelspec import eval_coeffs_to_cube, fit_image_cube, save_mds
+from pfb_imaging_tpu.utils.store import TreeStore, require_complete
+
+from .. import real_dtype, to_device
+from ..deconv.presets import PRESETS
+from .imager import residual_from_parts
+
+log = get_logger("DECONV")
+
+# per-cycle telemetry of the last ``deconv`` call (read by chip_smoke.py):
+# one dict per major cycle with seconds, rms, rmax, lam and iteration counts
+CYCLE_STATS: list = []
+
+
+def deconv(
+    dt_path,
+    preset: str = "sara",
+    niter: int = 5,
+    rmsfactor: float = 1.0,
+    init_factor: float = 1.0,
+    gamma: float = 1.0,
+    eta: float = 1e-5,
+    bases: str = "self,db1,db2",
+    nlevels: int = 2,
+    positivity: int = 1,
+    cg_tol: float = 1e-4,
+    cg_maxit: int = 100,
+    pd_tol: float = 1e-5,
+    pd_maxit: int = 500,
+    l1_reweight_from: int = 5,
+    fit_mds: bool = True,
+    nbasisf: int | None = None,
+    epsilon: float = 1e-7,
+    do_wgridding: bool = True,
+    diverge_count: int = 3,
+    hess_norm: float | None = None,
+    opts_extra: dict | None = None,
+    *,
+    device,
+):
+    """Run the major cycle in place on the tree. Returns (model, residual)
+    as numpy arrays. Solver state lives on ``device`` (f64 on the CPU, f32
+    on CUDA)."""
+    dev = torch.device(device)
+    rdt = real_dtype(dev)
+    CYCLE_STATS.clear()
+    dt = TreeStore(dt_path, mode="w")
+    require_complete(dt)
+    attrs = dt.attrs
+    nx, ny = attrs["nx"], attrs["ny"]
+    nx_psf, ny_psf = attrs["nx_psf"], attrs["ny_psf"]
+    band_nodes = [k for k in dt.groups() if k.startswith("band")]
+    nband_f = int(attrs["nband"])
+    ntime = int(attrs.get("ntime", 1))
+    nband = len(band_nodes)
+    if nband != nband_f * ntime:
+        raise ValueError(f"{nband} band nodes != nband {nband_f} x ntime {ntime}")
+    freq_attr = np.asarray(attrs["freq_out"], dtype=float)
+    node_times, node_freqs = [], []
+    for key in band_nodes:
+        na = dt.group(key).attrs
+        node_times.append(float(na.get("time_out", 0.0)))
+        node_freqs.append(float(na.get("freq_out", freq_attr.ravel()[0])))
+    freq_out = np.asarray(node_freqs)
+
+    wsums = np.zeros(nband)
+    residual = np.zeros((nband, nx, ny))
+    model = np.zeros((nband, nx, ny))
+    update = np.zeros((nband, nx, ny))
+    abspsfhat, beams = [], []
+    iter0 = 0
+    for b, key in enumerate(band_nodes):
+        node = dt.group(key)
+        wsums[b] = float(np.asarray(node.read("WSUM"))[0])
+        residual[b] = np.asarray(node.read("RESIDUAL" if node.has("RESIDUAL") else "DIRTY"))
+        if node.has("MODEL"):
+            model[b] = np.asarray(node.read("MODEL"))
+        if node.has("UPDATE"):
+            update[b] = np.asarray(node.read("UPDATE"))
+        iter0 = max(iter0, int(node.attrs.get("niters", 0)))
+        parts = node.groups()
+        # |PSFHAT| per partition (abs taken at load)
+        if parts:
+            abspsfhat.append(np.stack([np.abs(np.asarray(node.group(p).read("PSFHAT"))) for p in parts]))
+        else:
+            abspsfhat.append(np.abs(np.asarray(node.read("PSFHAT")))[None])
+        if parts and all(node.group(p).has("BEAM") for p in parts):
+            beams.append(np.stack([np.asarray(node.group(p).read("BEAM")) for p in parts]))
+        else:
+            beams.append(None)
+    abspsfhat = np.stack(abspsfhat)
+    beam_per_band = np.stack(beams) if all(bm is not None for bm in beams) else None
+    band_beam = None
+    if beam_per_band is not None:
+        band_beam = np.stack([
+            np.asarray(dt.group(key).read("BEAM")) if dt.group(key).has("BEAM") else beam_per_band[b].mean(0)
+            for b, key in enumerate(band_nodes)
+        ])
+    wsum = wsums.sum()
+
+    opts = dict(
+        bases=bases, nlevels=nlevels, eta=eta, gamma=gamma, positivity=positivity, cg_tol=cg_tol,
+        cg_maxit=cg_maxit, pd_tol=pd_tol, pd_maxit=pd_maxit, rmsfactor=rmsfactor,
+        l1_reweight_from=l1_reweight_from, hess_norm=hess_norm if hess_norm is not None else attrs.get("hess_norm"),
+        verbosity=1,
+    )
+    if opts_extra:
+        opts.update(opts_extra)
+    geometry = dict(nx=nx, ny=ny, nx_psf=nx_psf, ny_psf=ny_psf)
+    solver = PRESETS[preset](abspsfhat, wsums, geometry, model, update, opts, beam_per_band=beam_per_band,
+                             device=dev)
+    del abspsfhat
+    dt.set_attrs(hess_norm=solver.hess_norm)
+
+    # warm-start the PD dual from the checkpoint when every band has one
+    bwd = solver.backward_alg
+    dual0 = [np.asarray(dt.group(key).read("DUAL")) for key in band_nodes if dt.group(key).has("DUAL")]
+    if len(dual0) == nband:
+        bwd._v = to_device(np.stack(dual0), dev, rdt)
+        log.info("warm-started PD dual from checkpoint")
+
+    best_rms = np.inf
+    best_model = model.copy()
+    mfs = residual.sum(axis=0) / wsum
+    rms, rmax = float(np.std(mfs)), float(np.abs(mfs).max())
+    diverge = 0
+    log.info("start: iter0=%d rms=%.3e rmax=%.3e", iter0, rms, rmax)
+
+    for k in range(iter0, iter0 + niter):
+        t0 = time.perf_counter()
+        rin = residual if band_beam is None else residual * band_beam
+        solver.first(to_device(rin / wsum, dev, rdt))
+        update = solver.forward(None).cpu().numpy().astype(np.float64)
+        lam = (init_factor if (iter0 == 0 and k == 0) else 1.0) * rmsfactor * rms  # D5
+        model = solver.backward(lam).cpu().numpy().astype(np.float64)
+        solver.last()
+        t_minor = time.perf_counter() - t0
+
+        if fit_mds and model.any():
+            times_u = np.asarray(node_times).reshape(nband_f, ntime)[0]
+            freqs_u = freq_out.reshape(nband_f, ntime)[:, 0]
+            mcube = model.reshape(nband_f, ntime, nx, ny).transpose(1, 0, 2, 3)
+            coeffs, ix, iy, mattrs = fit_image_cube(times_u, freqs_u, mcube, nbasisf=nbasisf or nband_f,
+                                                    nbasist=min(ntime, 2))
+            save_mds(TreeStore(str(dt.path).replace(".dt", ".mds"), mode="w"), coeffs, ix, iy, mattrs)
+            mcube = eval_coeffs_to_cube(times_u, freqs_u, coeffs, ix, iy, mattrs)
+            model = mcube.transpose(1, 0, 2, 3).reshape(nband, nx, ny)
+
+        t1 = time.perf_counter()
+        for b, key in enumerate(band_nodes):
+            residual[b] = residual_from_parts(dt.group(key), model[b], epsilon=epsilon, do_wgridding=do_wgridding,
+                                              device=dev)
+        t_resid = time.perf_counter() - t1
+
+        rms_p, rmax_p = rms, rmax
+        mfs = residual.sum(axis=0) / wsum
+        rms, rmax = float(np.std(mfs)), float(np.abs(mfs).max())
+        stats = dict(iter=k + 1, seconds=time.perf_counter() - t0, minor_seconds=t_minor, residual_seconds=t_resid,
+                     lam=lam, rms=rms, rmax=rmax, cg_iters=int(getattr(solver.forward_alg, "niter_last", -1)),
+                     pd_iters=int(getattr(bwd, "niter_last", -1)))
+        CYCLE_STATS.append(stats)
+        log.info("iter %d: lam=%.3e rms=%.3e rmax=%.3e cg=%d pd=%d (%.2f s)", k + 1, lam, rms, rmax,
+                 stats["cg_iters"], stats["pd_iters"], stats["seconds"])
+
+        if rms < best_rms:
+            best_rms = rms
+            best_model = model.copy()
+
+        dual_ck = bwd._v.cpu().numpy() if getattr(bwd, "_v", None) is not None else None
+        for b, key in enumerate(band_nodes):
+            node = dt.group(key)
+            node.write("MODEL", model[b])
+            node.write("UPDATE", update[b])
+            node.write("RESIDUAL", residual[b])
+            node.write("MODEL_BEST", best_model[b])
+            if dual_ck is not None:
+                node.write("DUAL", dual_ck[b])
+            node.set_attrs(niters=k + 1, rms=rms, rmax=rmax, hess_norm=solver.hess_norm)
+
+        if rms > rms_p and rmax > rmax_p:
+            diverge += 1
+            if diverge >= diverge_count:
+                log.info("Algorithm is diverging, terminating")
+                break
+        else:
+            diverge = 0
+
+    return model, residual

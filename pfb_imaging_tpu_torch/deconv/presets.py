@@ -1,0 +1,70 @@
+"""Minor-cycle preset factories (port of pfb_imaging_tpu/deconv/presets.py;
+``make_sara`` only). Kept: nu = len(bases) (design D3) and total-wsum
+normalisation with per-band eta (design D4, inside HessianCube.build)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import real_dtype, to_device
+from ..ops.hessian import HessianCube
+from ..ops.psi import Psi
+from ..opt.pcg import PCG
+from ..opt.primal_dual import PrimalDual
+from ..prox.l21 import L21
+from ..prox.positivity import positivity_prox
+from .pfb import PFBSolver
+
+DEFAULT_OPTS = dict(
+    bases="self,db1,db2",
+    nlevels=2,
+    eta=1e-5,
+    gamma=1.0,
+    hess_norm=None,
+    rmsfactor=1.0,
+    alpha=2.0,
+    positivity=1,
+    opt_backend="primal-dual",
+    cg_tol=1e-3,
+    cg_maxit=100,
+    cg_minit=1,
+    pd_tol=1e-5,
+    pd_maxit=1000,
+    pd_verbose=0,
+    l1_reweight_from=5,
+    pm_tol=1e-3,
+    pm_maxit=100,
+    verbosity=1,
+)
+
+
+def make_sara(abspsfhat_per_band, wsums, geometry, model, update, opts=None, beam_per_band=None, *, device):
+    """SARA: l21 over the wavelet dictionary, primal-dual backward.
+
+    abspsfhat_per_band: (nband, npart, nx_psf, ny_psf//2+1) numpy |PSFHAT|;
+    wsums: (nband,) raw per-band weight sums; geometry: dict with nx, ny,
+    nx_psf, ny_psf; model, update: (nband, nx, ny) numpy warm starts.
+    """
+    merged = dict(DEFAULT_OPTS)
+    merged.update(opts or {})
+    opts = merged
+    if opts["opt_backend"] != "primal-dual":
+        raise NotImplementedError(f"opt_backend {opts['opt_backend']!r}: only primal-dual is ported")
+    dtype = real_dtype(device)
+    nband = model.shape[0]
+    bases = tuple(opts["bases"].split(",")) if isinstance(opts["bases"], str) else tuple(opts["bases"])
+    psi = Psi(nband, geometry["nx"], geometry["ny"], bases=bases, nlevel=opts["nlevels"], device=device)
+    reg = L21(psi, nu=len(bases), rmsfactor=opts["rmsfactor"], alpha=opts["alpha"])
+    hess = HessianCube.build(abspsfhat_per_band, np.asarray(wsums, dtype=float), opts["eta"], geometry["nx_psf"],
+                             geometry["ny_psf"], beam=beam_per_band, device=device)
+    fwd = PCG(tol=opts["cg_tol"], maxit=opts["cg_maxit"], minit=opts["cg_minit"])
+    bwd = PrimalDual(tol=opts["pd_tol"], maxit=opts["pd_maxit"], verbosity=opts["pd_verbose"], gamma=opts["gamma"],
+                     primal_prox=positivity_prox(opts["positivity"]))
+    return PFBSolver(
+        hess, fwd, bwd, reg, model=to_device(model, device, dtype), update=to_device(update, device, dtype),
+        gamma=opts["gamma"], hessnorm=opts["hess_norm"], l1_reweight_from=opts["l1_reweight_from"],
+        pm_tol=opts["pm_tol"], pm_maxit=opts["pm_maxit"], verbosity=opts["verbosity"],
+    )
+
+
+PRESETS = {"sara": make_sara}

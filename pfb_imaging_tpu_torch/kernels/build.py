@@ -1,0 +1,90 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+At first use, ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+-shared -Xcompiler -fPIC`` compiles every ``csrc/*.cu`` into one shared
+library with a plain C interface, which is loaded with ``ctypes``
+(pointers and the stream pass as ``c_void_p``). The library's name carries
+a hash of the sources, so an edited kernel is rebuilt. Output goes to
+``build/torch_kernels/`` at the repository root (``PFB_TORCH_BUILD_DIR``
+overrides it). A failed build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_LIB = None
+
+
+def build_dir() -> Path:
+    env = os.environ.get("PFB_TORCH_BUILD_DIR")
+    return Path(env) if env else CSRC.parent.parent / "build" / "torch_kernels"
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"libpfb_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load():
+    """The loaded kernel library (built at first call), with its C signatures."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.pfb_patches_from_vals.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
+        lib.pfb_patches_from_vals.restype = i
+        lib.pfb_vals_from_patches.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
+        lib.pfb_vals_from_patches.restype = i
+        lib.pfb_error_string.argtypes = [i]
+        lib.pfb_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch returned a non-zero cudaGetLastError()."""
+    if code != 0:
+        msg = "unsupported subgrid" if code == -1 else load().pfb_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} (code {code})")

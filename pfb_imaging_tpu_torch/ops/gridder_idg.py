@@ -1,0 +1,763 @@
+"""Image-domain gridding (IDG), chirp mode (port of
+pfb_imaging_tpu/ops/gridder_idg.py, ``w_support == 1`` only).
+
+Host planning (numpy, f64): visibilities are bucketed into ``half``-cell uv
+tiles and w-bins (native OpenMP pass from ``pfb_imaging_tpu.native`` where
+it loads, a vectorised numpy pass otherwise); each <= G visibility chunk of
+a bucket becomes a group whose footprint fits an S x S subgrid. Per slot
+the plan keeps only the angles ``scal`` = [2 pi du/S, phi_u, 2 pi dv/S,
+phi_v]; the taper-DFT factors ``wcu``/``wcv`` = W diag(c) come from the
+free-taper fit (``fit_taper``, copied with its disk cache). The image
+arrays (n-1, the 1/(Tu Tv) correction, the w-bin screens) are computed
+directly in f64 and cast to the working dtype.
+
+Runtime (torch, per w-bin loop):
+  adjoint  vis -> group values (one gather) -> patches (CUDA kernel B1,
+           ``idg_fused.patches_from_vals``) -> ``index_add_`` onto the
+           bucket lattice -> shifted-slice placement + periodic fold ->
+           ifft2 -> crop -> screen -> sum over bins -> correction;
+  forward  its exact transpose: correction -> screen -> fft2 -> periodic
+           window extraction -> patches -> group values (kernel B2,
+           ``idg_fused.vals_from_patches``).
+The production major cycle keeps weights in group layout
+(``to_group_layout``) so ``hessian_vis_idg`` runs gather-free.
+
+Left out, because the card does not need them: the TPU's one-hot assembly
+matmuls, the batched/compact/``lax.scan`` bin variants, bf16 and Veltkamp
+splits, split-f32 phase evaluation (phases are f64 on the host), and the
+windowed wplanes layout (see ROADMAP.md: wplanes planning is still to be
+ported, and a layout that needs it raises ``NotImplementedError``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pfb_imaging_tpu.constants import LIGHTSPEED
+
+from .. import complex_dtype, real_dtype, to_device
+from ..geometry import conventions_signs, good_size
+from . import idg_fused
+
+__all__ = ["IDGPlan", "plan_idg", "vis2dirty_idg", "vis2dirty_idg_grouped", "dirty2vis_idg_grouped",
+           "to_group_layout", "hessian_vis_idg", "delivered_accuracy", "plan_from_jax", "IDG_MIN_EPS"]
+
+IDG_MIN_EPS = 1e-8  # tightest epsilon the adaptive-subgrid fit covers
+CHIRP_BUDGET = 0.1  # max |image chirp phase| (rad) the taper fit absorbs
+W_RESID_FRACTION = 1.0  # fraction of epsilon budgeted to the w-phase residual
+# cache the per-bin w screens on the device up to this many bytes
+_SCREEN_CACHE_BYTES = 256 << 20
+_MAX_BINS = 4096
+
+
+# ── free-taper separable fit (numpy, copied from the JAX package) ────
+
+_FIT_CACHE: dict = {}
+
+
+def _fit_rows(S, xis, dus, phis, xc, ks, F):
+    """Demodulated response rows: R(xi; du, phi) = row . c."""
+    blocks = []
+    for xi in xis:
+        M = np.exp(2j * np.pi * ks * xi) @ F
+        rows = []
+        for du in dus:
+            for phi in phis:
+                a = np.exp(2j * np.pi * xc * du / S + 1j * phi * xc**2)
+                demod = np.exp(-2j * np.pi * du * xi - 1j * phi * (xi * S) ** 2)
+                rows.append(M * a * demod)
+        blocks.append(np.array(rows))
+    return blocks
+
+
+def fit_taper(S: int, half: int, ximax: float, chirp_max: float = CHIRP_BUDGET, tol: float | None = None):
+    """Joint (taper c, band response T) optimisation; returns (c, T_of_xi, err).
+
+    Minimises the deviation of the patch's demodulated image response from
+    a separable band response T(xi) over the offset range, image band and
+    chirp budget, in the SVD subspace of the smallest deviation directions;
+    with ``tol`` it bisects a flatness penalty to the flattest taper whose
+    deviation stays <= tol (see the JAX ``fit_taper`` for the derivation).
+    """
+    key = (S, half, round(ximax, 4), round(chirp_max, 4),
+           None if tol is None else float(np.format_float_scientific(tol, 2)))
+    if key in _FIT_CACHE:
+        return _FIT_CACHE[key]
+    disk = _fit_disk_load().get(key)
+    if disk is not None:
+        c, err = disk
+        _FIT_CACHE[key] = (c, _make_T(S, half, c), err)
+        return _FIT_CACHE[key]
+    import scipy.linalg as sla
+
+    k0_off = (S - half) // 2
+    xc = np.fft.fftfreq(S) * S
+    ks = np.arange(S)
+    F = np.exp(-2j * np.pi * np.outer(ks, xc) / S)
+    nxi = 2 * int(S * ximax * 4) + 9
+    xis = np.linspace(-ximax, ximax, nxi)
+    dus = np.linspace(k0_off, k0_off + half, 33)
+    phimax = chirp_max / (S * ximax) ** 2 if chirp_max > 0 else 0.0
+    phis = np.linspace(-phimax, phimax, 7) if chirp_max > 0 else [0.0]
+    blocks = _fit_rows(S, xis, dus, phis, xc, ks, F)
+    C = np.concatenate([B - B.mean(axis=0) for B in blocks], axis=0)
+    Mn = np.array([B.mean(axis=0) for B in blocks])
+    ksub = min(10, S)
+    _, sv, Vh = np.linalg.svd(C, full_matrices=False)
+    Vk = Vh[-ksub:].conj().T
+    Hk = np.diag(sv[-ksub:] ** 2)
+    MV = Mn @ Vk
+    Gk = MV.conj().T @ MV
+    Gk = 0.5 * (Gk + Gk.conj().T)
+    Dk = MV - MV.mean(axis=0)[None]
+    Qk = Dk.conj().T @ Dk
+    Qk = 0.5 * (Qk + Qk.conj().T)
+    Greg = Gk + 1e-30 * np.eye(ksub)
+
+    def _solve(lam):
+        A = lam * Hk + Qk
+        _, Y = sla.eigh(0.5 * (A + A.conj().T), Greg)
+        return Vk @ Y[:, 0]
+
+    dus_v = np.linspace(k0_off + 0.0137, k0_off + half - 0.0119, 71)
+    phis_v = np.linspace(-phimax, phimax, 11) if chirp_max > 0 else [0.0]
+    xis_v = np.linspace(-ximax * 0.999, ximax * 0.999, 2 * nxi + 7)
+    vblocks = _fit_rows(S, xis_v, dus_v, phis_v, xc, ks, F)
+
+    def _validate(c):
+        errs, Ts = [], []
+        for B in vblocks:
+            r = B @ c
+            Ts.append(r.mean())
+            errs.append(np.abs(r - r.mean()).max())
+        return max(errs) / np.abs(Ts).max(), Ts
+
+    _, Y = sla.eigh(Hk, Greg)
+    c = Vk @ Y[:, 0]
+    err, Ts = _validate(c)
+    if tol is not None and err <= tol:
+        lo, hi = -2.0, 16.0  # log10(lam) bracket
+        for _ in range(18):
+            mid = 0.5 * (lo + hi)
+            cm = _solve(10.0**mid)
+            em, Tm = _validate(cm)
+            if em <= tol:
+                hi, c, err, Ts = mid, cm, em, Tm
+            else:
+                lo = mid
+    c = c / Ts[len(Ts) // 2]  # T(0) ~ 1
+    _FIT_CACHE[key] = (c, _make_T(S, half, c), err)
+    _fit_disk_put(key, c, err)
+    return _FIT_CACHE[key]
+
+
+def _make_T(S: int, half: int, c: np.ndarray):
+    """Band response T(xi) of taper ``c`` (mean over reference offsets)."""
+    k0_off = (S - half) // 2
+    xc = np.fft.fftfreq(S) * S
+    ks = np.arange(S)
+    F = np.exp(-2j * np.pi * np.outer(ks, xc) / S)
+
+    def T_of_xi(xi_arr):
+        xi_arr = np.atleast_1d(np.asarray(xi_arr, np.float64))
+        du_ref = np.linspace(k0_off + 0.1, k0_off + half - 0.1, 5)
+        out = np.zeros(xi_arr.shape, complex)
+        for i, xi in enumerate(xi_arr):
+            M = np.exp(2j * np.pi * ks * xi) @ F
+            acc = 0.0
+            for du in du_ref:
+                a = np.exp(2j * np.pi * xc * du / S)
+                acc += (M * a) @ c * np.exp(-2j * np.pi * du * xi)
+            out[i] = acc / du_ref.size
+        return out
+
+    return T_of_xi
+
+
+# Taper fits cost seconds each and are pure functions of their key: a disk
+# cache under the checkout's build/ directory (PFB_TORCH_FIT_CACHE
+# overrides the file) shares them across processes.
+_FIT_DISK_PATH = os.environ.get(
+    "PFB_TORCH_FIT_CACHE", str(Path(__file__).resolve().parents[2] / "build" / "taper_fits.pkl")
+)
+_FIT_DISK: dict | None = None
+
+
+def _fit_disk_load() -> dict:
+    global _FIT_DISK
+    if _FIT_DISK is None:
+        try:
+            with open(_FIT_DISK_PATH, "rb") as f:
+                _FIT_DISK = pickle.load(f)
+        except (OSError, EOFError, pickle.UnpicklingError):
+            _FIT_DISK = {}
+    return _FIT_DISK
+
+
+def _fit_disk_put(key, c, err) -> None:
+    disk = _fit_disk_load()
+    disk[key] = (np.asarray(c), float(err))
+    try:
+        os.makedirs(os.path.dirname(_FIT_DISK_PATH), exist_ok=True)
+        tmp = f"{_FIT_DISK_PATH}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(disk, f)
+        os.replace(tmp, _FIT_DISK_PATH)
+    except OSError:
+        pass
+
+
+# ── plan ─────────────────────────────────────────────────────────────
+
+
+@dataclasses.dataclass
+class IDGPlan:
+    """Static layout + device tensors for one (uvw, freq) layout (chirp mode).
+
+    Tensors (``rdt`` = f64 on CPU, f32 on CUDA):
+        scal (4, ng, G) per-slot angles; wcu, wcv (2, S, S) taper-DFT [re, im];
+        sg (ng, G) hermitian-fold conjugation signs; cg_idx (ng, G) int64
+        original flat (row*chan) index of each slot (nvis = empty slot);
+        bid (ng,) int64 bucket id bu*nbv + bv; phase_re/phase_im (ng, G)
+        forward per-slot phase; corr_re/corr_im (nx, ny) image correction;
+        nm1 (nx, ny) f64 n-1; scr (nbins, nx, ny) complex cached sign=-1
+        screens or None.
+    """
+
+    nx: int
+    ny: int
+    nbig_x: int
+    nbig_y: int
+    S: int
+    half: int
+    G: int
+    ngroups: int
+    nbu: int
+    nbv: int
+    k0_off: int
+    nrow: int
+    nchan: int
+    nbins: int
+    bin_gstart: tuple
+    bin_gcount: tuple
+    bin_wc: tuple
+    do_wgridding: bool
+    hermitian: bool
+    epsilon: float
+    scal: torch.Tensor
+    wcu: torch.Tensor
+    wcv: torch.Tensor
+    sg: torch.Tensor
+    cg_idx: torch.Tensor
+    bid: torch.Tensor
+    phase_re: torch.Tensor
+    phase_im: torch.Tensor
+    corr_re: torch.Tensor
+    corr_im: torch.Tensor
+    nm1: torch.Tensor
+    scr: torch.Tensor | None = None
+
+    @property
+    def device(self):
+        return self.scal.device
+
+    @property
+    def rdt(self):
+        return self.scal.dtype
+
+    @property
+    def nbytes(self) -> int:
+        fields = (getattr(self, f.name) for f in dataclasses.fields(self))
+        return sum(t.numel() * t.element_size() for t in fields if isinstance(t, torch.Tensor))
+
+
+def _good_multiple(n: int, m: int) -> int:
+    """Smallest 5-smooth size >= n that is a multiple of m."""
+    s = good_size(n)
+    while s % m:
+        s = good_size(s + 1)
+    return s
+
+
+def _check_slot_budget(ng, G, nvis, nbins, max_slot_factor):
+    """Refuse plans whose group padding explodes the slot count."""
+    if max_slot_factor is None or nvis == 0:
+        return
+    sf = ng * G / nvis
+    if sf > max_slot_factor:
+        raise ValueError(
+            f"IDG slot padding {sf:.0f}x the visibility count (ngroups={ng}, G={G}, nvis={nvis}, "
+            f"nbins={nbins}): w-bin x uv-bucket occupancy too sparse for this field"
+        )
+
+
+def _bucket_numpy(uvw, invlam, signs, cux, cvy, l0, m0, nbins, edges, wc, do_w, alpha, blsu, bmsv, chiru,
+                  chirv, nbig_x, nbig_y, half, nbu, nbv, k0_off):
+    """Vectorised numpy bucketing: (order, uniq, starts, counts, payload) in
+    the layout of ``native.idg_bucket_group``."""
+    su, sv, sw = signs
+    u_l = su * np.multiply.outer(uvw[:, 0], invlam)
+    v_l = sv * np.multiply.outer(uvw[:, 1], invlam)
+    w_lam = (sw * np.multiply.outer(uvw[:, 2], invlam)).ravel()
+    shift_cycles = u_l.ravel() * (-l0) + v_l.ravel() * m0
+    nvis = w_lam.size
+    if do_w:
+        bin_of = np.clip(np.searchsorted(edges, w_lam, side="right") - 1, 0, nbins - 1)
+        dw = w_lam - wc[bin_of]
+    else:
+        bin_of = np.zeros(nvis, np.int64)
+        dw = np.zeros(nvis)
+    ph = 2.0 * np.pi * (dw * alpha - shift_cycles)
+    um = np.mod(u_l.ravel() * cux - dw * blsu, nbig_x)
+    vm = np.mod(v_l.ravel() * cvy - dw * bmsv, nbig_y)
+    bu = np.minimum((um // half).astype(np.int64), nbu - 1)
+    bv = np.minimum((vm // half).astype(np.int64), nbv - 1)
+    key = (bin_of * nbu + bu) * nbv + bv
+    order = np.argsort(key, kind="stable")
+    uniq, starts, counts = np.unique(key[order], return_index=True, return_counts=True)
+    payload = dict(du=um - (bu * half - k0_off), dv=vm - (bv * half - k0_off), phiu=chiru * dw, phiv=chirv * dw,
+                   ph_re=np.cos(ph), ph_im=np.sin(ph))
+    return order, uniq, starts, counts, payload
+
+
+def _fill_numpy(order, starts, counts, gbase, G, ng, nvis, payload):
+    """Group-layout fill in the layout of ``native.idg_fill_groups``."""
+    pos = np.arange(nvis) - np.repeat(starts, counts)
+    g_of = np.repeat(gbase, counts) + pos // G
+    slot_of = pos % G
+    cg_idx = np.full((ng, G), nvis, np.int64)
+    cg_idx[g_of, slot_of] = order
+    out = []
+    for name in ("du", "dv", "phiu", "phiv"):
+        a = np.zeros((ng, G))
+        a[g_of, slot_of] = payload[name][order]
+        out.append(a)
+    phase = np.zeros((ng, G), complex)
+    phase[g_of, slot_of] = payload["ph_re"][order] + 1j * payload["ph_im"][order]
+    inv_orig = np.empty(nvis, np.int64)
+    inv_orig[order] = g_of * G + slot_of
+    return (cg_idx, *out, phase, inv_orig)
+
+
+def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: float = 0.0, m0: float = 0.0,
+             epsilon: float = 1e-5, do_wgridding: bool = True, max_slot_factor: float | None = None,
+             device) -> IDGPlan:
+    """Host-side chirp-mode IDG planning onto ``device``: the JAX
+    ``plan_idg`` with its defaults (pinned sign conventions, hermitian
+    fold, epsilon-adaptive subgrid and oversampling, ``w_mode="auto"``)
+    and ``divide_by_n=False``, the convention of the vis-space Hessian.
+    Layouts for which "auto" picks wplanes raise ``NotImplementedError``;
+    ``max_slot_factor`` refuses layouts whose group padding exceeds it."""
+    rdt = real_dtype(device)
+    uvw = np.asarray(uvw, np.float64)
+    freq = np.asarray(freq, np.float64)
+    nrow, nchan = uvw.shape[0], freq.shape[0]
+    su, sv, sw = conventions_signs()
+    # hermitian fold: v < 0 rows mirror onto v >= 0; their values conjugate
+    v_row = sv * uvw[:, 1]
+    fold_row = (v_row < 0) | ((v_row == 0) & (su * uvw[:, 0] < 0))
+    uvw = np.where(fold_row[:, None], -uvw, uvw)
+    if epsilon < IDG_MIN_EPS:
+        raise ValueError(f"IDG accuracy envelope stops at epsilon={IDG_MIN_EPS}")
+    # epsilon-adaptive subgrid: S=16/half=8 down to 4e-6, S=32/half=16 below
+    S, half = (16, 8) if epsilon >= 4e-6 else (32, 16)
+    G = idg_fused.G
+    k0_off = (S - half) // 2
+    sigma = 1.5 if S == 32 or epsilon >= 2e-5 else 1.75
+    nbig_x = _good_multiple(max(int(np.ceil(sigma * nx)), nx + 2 * S), half)
+    nbig_y = _good_multiple(max(int(np.ceil(sigma * ny)), ny + 2 * S), half)
+    nbu, nbv = nbig_x // half, nbig_y // half
+    invlam = freq / LIGHTSPEED
+    nvis = nrow * nchan
+    cux, cvy = cellx * nbig_x, celly * nbig_y
+    if nvis:
+        wext = np.array([(sw * uvw[:, 2]).min(), (sw * uvw[:, 2]).max()])
+        wall = np.concatenate([wext * invlam.min(), wext * invlam.max()])
+        w_min_all, w_max_all = float(wall.min()), float(wall.max())
+    else:
+        w_min_all = w_max_all = 0.0
+    ell1 = -l0 + (np.arange(nx) - nx // 2) * cellx
+    emm1 = m0 + (np.arange(ny) - ny // 2) * celly
+
+    # separable quadratic model of n-1 (IRLS toward minimax); the remainder
+    # bounds the chirp-mode w-bin width
+    do_w = bool(do_wgridding) and max(abs(w_min_all), abs(w_max_all)) > 0
+    ix = np.unique(np.append(np.arange(0, nx, max(1, nx // 256)), nx - 1))
+    iy = np.unique(np.append(np.arange(0, ny, max(1, ny // 256)), ny - 1))
+    JX = np.broadcast_to(((ix - nx // 2) * cellx)[:, None], (ix.size, iy.size)).ravel()
+    JY = np.broadcast_to(((iy - ny // 2) * celly)[None, :], (ix.size, iy.size)).ravel()
+    basis = np.stack([np.ones_like(JX), JX, JY, JX * JX, JY * JY], axis=-1)
+    target = (np.sqrt(np.maximum(1.0 - (ell1[ix][:, None] ** 2 + emm1[iy][None, :] ** 2), 0.0)) - 1.0).ravel()
+    wt = np.ones_like(target)
+    for _ in range(3):
+        coef, *_ = np.linalg.lstsq(basis * wt[:, None], target * wt, rcond=None)
+        r = target - basis @ coef
+        rmax = np.abs(r).max()
+        if rmax == 0.0:
+            break
+        wt = (0.1 + (np.abs(r) / rmax) ** 2) ** 2
+    alpha, bl, bm, gl, gm = (float(v) for v in coef)
+    resid_max = float(np.abs(target - basis @ coef).max())
+    if nx > 256 or ny > 256:
+        resid_max *= 1.1
+
+    if do_w:
+        wmin, wmax = w_min_all, w_max_all
+        ximax_x = nx / (2.0 * nbig_x) + 0.01
+        ximax_y = ny / (2.0 * nbig_y) + 0.01
+        tol_resid = max(epsilon * W_RESID_FRACTION, 1e-13)
+        c1 = tol_resid / (2.0 * np.pi * resid_max) if resid_max > 0 else np.inf
+        chirp_l = 2.0 * np.pi * abs(gl) * (nbig_x * cellx * ximax_x) ** 2
+        chirp_m = 2.0 * np.pi * abs(gm) * (nbig_y * celly * ximax_y) ** 2
+        delta = min(c1, CHIRP_BUDGET / max(chirp_l, chirp_m))
+        nbins = max(1, int(np.ceil((wmax - wmin) / (2.0 * delta)))) if wmax > wmin else 1
+        # the JAX "auto" slot-unit cost model: per-vis slots + per-bin cost
+        ws_cand = max(4, min(int(np.ceil(-np.log10(epsilon))) + 1, 16)) + 1  # w-kernel support + 1
+        r2_min = float((ell1**2).min() + (emm1**2).min())
+        r2_max = float((ell1**2).max() + (emm1**2).max())
+        z_lo = float(np.sqrt(max(1.0 - r2_max, 0.0)) - 1.0)
+        z_hi = float(np.sqrt(max(1.0 - r2_min, 0.0)) - 1.0)
+        wk_dw = 1.0 / (2.0 * 2.0 * max(0.5 * (z_hi - z_lo), 1e-12))
+        shift = int(np.floor(-ws_cand / 2.0)) + 1
+        nplanes = int(np.floor((wmax - wmin) / wk_dw - ws_cand / 2.0)) + 1 - shift + ws_cand
+        fbin = nbig_x * nbig_y / 4.0
+        if ws_cand * nvis + nplanes * fbin < nvis + nbins * fbin:
+            raise NotImplementedError(
+                "this layout needs the wplanes (windowed w-plane) IDG mode, which is not ported yet "
+                "(ROADMAP.md, queue A: wplanes planning)"
+            )
+        if nbins > _MAX_BINS:
+            raise ValueError(f"IDG needs {nbins} w-bins (> {_MAX_BINS}); field too wide")
+        edges = np.linspace(wmin, wmax, nbins + 1)
+        wc = 0.5 * (edges[:-1] + edges[1:])
+    else:
+        wmin = wmax = 0.0
+        nbins = 1
+        wc = np.zeros(1)
+        edges = None
+
+    blsu = bl * nbig_x * cellx
+    bmsv = bm * nbig_y * celly
+    chiru = -2.0 * np.pi * gl * (nbig_x * cellx) ** 2 / S**2
+    chirv = -2.0 * np.pi * gm * (nbig_y * celly) ** 2 / S**2
+    binw = (wmax - wmin) / nbins if do_w else 0.0
+
+    # ── bucketing + grouping (numpy when the native library is missing) ──
+    from pfb_imaging_tpu.native import idg_bucket_group, idg_fill_groups
+
+    nat = idg_bucket_group(
+        uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, float(wmin) if do_w else 0.0, float(binw),
+        float(alpha), float(blsu), float(bmsv), float(chiru), float(chirv), nbig_x, nbig_y, half, nbu, nbv,
+        k0_off, G,
+    )
+    if nat is None:
+        nat = _bucket_numpy(uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, edges, wc, do_w, alpha, blsu,
+                            bmsv, chiru, chirv, nbig_x, nbig_y, half, nbu, nbv, k0_off)
+        fill = _fill_numpy
+    else:
+        fill = idg_fill_groups
+    order, uniq, starts, counts, payload = nat
+    gper = -(-counts // G)
+    gbase = np.concatenate([[0], np.cumsum(gper)])
+    ng = int(gbase[-1])
+    bin_gcount = np.zeros(nbins, np.int64)
+    np.add.at(bin_gcount, uniq // (nbu * nbv), gper)
+    bin_gstart = np.concatenate([[0], np.cumsum(bin_gcount)])[:-1]
+    _check_slot_budget(ng, G, nvis, nbins, max_slot_factor)
+    cg_idx, du_g, dv_g, phiu_g, phiv_g, phase_g, _ = fill(order, starts, counts, gbase[:-1], G, ng, nvis, payload)
+    bid_g = np.repeat(uniq % (nbu * nbv), gper)
+
+    # ── taper fit, taper-DFT constants, per-slot angles ──────────────
+    chirp = CHIRP_BUDGET if do_w else 0.0
+    cu, Tu_fn, _ = fit_taper(S, half, nx / (2.0 * nbig_x) + 0.01, chirp, tol=0.25 * epsilon)
+    cv, Tv_fn, _ = fit_taper(S, half, ny / (2.0 * nbig_y) + 0.01, chirp, tol=0.25 * epsilon)
+    W = np.exp(-2j * np.pi * np.outer(np.arange(S), np.arange(S)) / S)
+    tfac = 2.0 * np.pi / S
+    scal = np.stack([tfac * du_g, phiu_g, tfac * dv_g, phiv_g])
+    sflat = np.ones(nvis + 1)
+    sflat[:nvis] = np.where(np.repeat(fold_row, nchan), -1.0, 1.0)
+    sg = sflat[cg_idx]
+
+    # ── image arrays in f64: n-1, 1/(Tu Tv), screens ─────────────────
+    nm1 = np.sqrt(np.maximum(1.0 - ell1[:, None] ** 2 - emm1[None, :] ** 2, 0.0)) - 1.0
+    corr = 1.0 / np.outer(Tu_fn((np.arange(nx) - nx // 2) / nbig_x), Tv_fn((np.arange(ny) - ny // 2) / nbig_y))
+
+    dev = torch.device(device)
+    as_t = lambda a, t=rdt: to_device(a, dev, t)  # noqa: E731
+    plan = IDGPlan(
+        nx=nx, ny=ny, nbig_x=nbig_x, nbig_y=nbig_y, S=S, half=half, G=G, ngroups=ng, nbu=nbu, nbv=nbv,
+        k0_off=k0_off, nrow=nrow, nchan=nchan, nbins=nbins,
+        bin_gstart=tuple(int(x) for x in bin_gstart), bin_gcount=tuple(int(x) for x in bin_gcount),
+        bin_wc=tuple(float(x) for x in wc), do_wgridding=do_w, hermitian=True, epsilon=float(epsilon),
+        scal=as_t(scal), wcu=as_t(np.stack([(W * cu).real, (W * cu).imag])),
+        wcv=as_t(np.stack([(W * cv).real, (W * cv).imag])), sg=as_t(sg),
+        cg_idx=as_t(cg_idx, torch.int64), bid=as_t(bid_g, torch.int64),
+        phase_re=as_t(phase_g.real), phase_im=as_t(phase_g.imag),
+        corr_re=as_t(corr.real), corr_im=as_t(corr.imag), nm1=as_t(nm1, torch.float64),
+    )
+    return _with_screens(plan)
+
+
+def _screen(plan: IDGPlan, b: int, sign: float) -> torch.Tensor:
+    """Bin screen e^{i sign 2 pi w_c (n-1)}, phase in f64, cast to complex."""
+    if plan.scr is not None:
+        return plan.scr[b] if sign < 0 else plan.scr[b].conj()
+    ph = (sign * 2.0 * np.pi * plan.bin_wc[b]) * plan.nm1
+    return torch.polar(torch.ones_like(ph), ph).to(complex_dtype(plan.rdt))
+
+
+def _with_screens(plan: IDGPlan) -> IDGPlan:
+    """Cache the sign=-1 screens on the device when they are small."""
+    nbytes = plan.nbins * plan.nx * plan.ny * 2 * torch.finfo(plan.rdt).bits // 8
+    if plan.do_wgridding and plan.nbins > 1 and nbytes <= _SCREEN_CACHE_BYTES:
+        plan.scr = torch.stack([_screen(plan, b, -1.0) for b in range(plan.nbins)])
+    return plan
+
+
+def delivered_accuracy(plan: IDGPlan) -> dict:
+    """Per-plan accuracy budget (the JAX ``delivered_accuracy``): rel-Linf
+    ``interior`` and ``edge`` budgets against an f64 oracle. The f32
+    substrate floor (~2e-7) is amplified toward the image edge by the
+    correction 1/T (``edge_amp``)."""
+    corr = torch.complex(plan.corr_re.double(), plan.corr_im.double()).abs().cpu().numpy()
+    c0 = float(corr[plan.nx // 2, plan.ny // 2])
+    amp = float(corr.max() / max(c0, 1e-300))
+    substrate = 2e-7 if plan.rdt == torch.float32 else 2e-16
+    eps_alg = 2.0 * plan.epsilon
+    return dict(edge_amp=amp, substrate=substrate, interior=eps_alg + 5.0 * substrate,
+                edge=eps_alg + 5.0 * substrate * amp)
+
+
+# ── runtime: adjoint (vis -> dirty) ──────────────────────────────────
+
+
+def _ext_dims(plan):
+    r = plan.S // plan.half
+    return (plan.nbu + r - 1) * plan.half, (plan.nbv + r - 1) * plan.half
+
+
+def _fold_extended(plan, ext):
+    """Periodic fold of the (ext_u, ext_v) extended plane onto the big grid
+    (absolute cell of extended index t is t - k0_off)."""
+    ext_u, ext_v = _ext_dims(plan)
+    ko, nbx, nby = plan.k0_off, plan.nbig_x, plan.nbig_y
+    fu = ext[ko : ko + nbx, :].clone()
+    fu[nbx - ko :, :] += ext[:ko, :]
+    if ext_u - nbx - ko > 0:
+        fu[: ext_u - nbx - ko, :] += ext[ko + nbx :, :]
+    fv = fu[:, ko : ko + nby].clone()
+    fv[:, nby - ko :] += fu[:, :ko]
+    if ext_v - nby - ko > 0:
+        fv[:, : ext_v - nby - ko] += fu[:, ko + nby :]
+    return fv
+
+
+def _assemble_bin(plan, p_b, bid_b):
+    """One bin's (2, gc, S, S) patches -> complex (nbig_x, nbig_y) uv grid:
+    ``index_add_`` of each group's patch onto its bucket's lattice cell,
+    then the r x r quarters of every cell shift-add into the blocked grid,
+    which unblocks to the extended plane and folds periodically."""
+    S, half = plan.S, plan.half
+    r = S // half
+    nbu, nbv = plan.nbu, plan.nbv
+    R_u, R_v = nbu + r - 1, nbv + r - 1
+    gc = p_b.shape[1]
+    planes = []
+    for c in range(2):
+        orig = p_b.new_zeros((nbu * nbv, S * S)).index_add_(0, bid_b, p_b[c].reshape(gc, S * S))
+        O4 = orig.view(nbu, nbv, S, S)
+        L = p_b.new_zeros((R_u, R_v, half, half))
+        for a in range(r):
+            for b in range(r):
+                L[a : a + nbu, b : b + nbv] += O4[:, :, a * half : (a + 1) * half, b * half : (b + 1) * half]
+        planes.append(_fold_extended(plan, L.permute(0, 2, 1, 3).reshape(R_u * half, R_v * half)))
+    return torch.complex(planes[0], planes[1])
+
+
+def _crop(plan, big):
+    px0 = plan.nbig_x // 2 - plan.nx // 2
+    py0 = plan.nbig_y // 2 - plan.ny // 2
+    return big[..., px0 : px0 + plan.nx, py0 : py0 + plan.ny]
+
+
+def _idg_prepare(plan: IDGPlan, vis_re, vis_im, wgt=None):
+    """Weighted, conj-phased, group-gathered values: (2, ng, G)."""
+    wre = vis_re.to(plan.rdt).reshape(-1)
+    wim = vis_im.to(plan.rdt).reshape(-1)
+    if wgt is not None:
+        w = wgt.to(plan.rdt).reshape(-1)
+        wre, wim = wre * w, wim * w
+    zero = wre.new_zeros(1)
+    g0 = torch.cat([wre, zero])[plan.cg_idx]
+    g1 = torch.cat([wim, zero])[plan.cg_idx]
+    if plan.hermitian:
+        g1 = g1 * plan.sg
+    pre, pim = plan.phase_re, plan.phase_im
+    return torch.stack([g0 * pre + g1 * pim, g1 * pre - g0 * pim])
+
+
+def _idg_accumulate_bins(plan: IDGPlan, patches):
+    """Sum of per-bin images: assemble -> ifft2 -> fftshift -> crop -> screen."""
+    acc = torch.zeros((plan.nx, plan.ny), dtype=complex_dtype(plan.rdt), device=plan.device)
+    for b in range(plan.nbins):
+        gs, gc = plan.bin_gstart[b], plan.bin_gcount[b]
+        if gc == 0:
+            continue
+        grid = _assemble_bin(plan, patches[:, gs : gs + gc], plan.bid[gs : gs + gc])
+        big = torch.fft.ifft2(grid) * (plan.nbig_x * plan.nbig_y)
+        a = _crop(plan, torch.fft.fftshift(big))
+        if plan.do_wgridding:
+            a = a * _screen(plan, b, -1.0)
+        acc += a
+    return acc
+
+
+def _idg_finish(plan: IDGPlan, acc):
+    return (acc * torch.complex(plan.corr_re, plan.corr_im)).real
+
+
+def vis2dirty_idg_grouped(plan: IDGPlan, vals):
+    """Adjoint from group-layout values (2, ng, G) — zero gathers."""
+    patches = idg_fused.patches_from_vals(plan.scal, vals.contiguous(), plan.wcu, plan.wcv, plan.S)
+    return _idg_finish(plan, _idg_accumulate_bins(plan, patches))
+
+
+def vis2dirty_idg(plan: IDGPlan, vis, wgt=None, vis_im=None):
+    """Grid (nrow, nchan) visibilities to an (nx, ny) dirty image (adjoint).
+
+    ``vis`` is complex, or its real part with ``vis_im`` the imaginary part;
+    ``wgt`` (masked weights) multiplies each visibility.
+    """
+    if vis_im is None:
+        vis, vis_im = vis.real, vis.imag
+    return vis2dirty_idg_grouped(plan, _idg_prepare(plan, vis, vis_im, wgt))
+
+
+# ── runtime: forward (dirty -> vis), exact conj-transpose ────────────
+
+
+def _extract_bin(plan, grid, bid_b):
+    """Transpose of :func:`_assemble_bin`: per-group S x S windows of the
+    periodically extended grid. Returns (2, gc, S, S)."""
+    S, half = plan.S, plan.half
+    r = S // half
+    ko, nbx, nby = plan.k0_off, plan.nbig_x, plan.nbig_y
+    nbu, nbv = plan.nbu, plan.nbv
+    ext_u, ext_v = _ext_dims(plan)
+    R_u, R_v = nbu + r - 1, nbv + r - 1
+    fu = torch.cat([grid[nbx - ko :, :], grid] + ([grid[: ext_u - nbx - ko, :]] if ext_u - nbx - ko > 0 else []), 0)
+    out = torch.cat([fu[:, nby - ko :], fu] + ([fu[:, : ext_v - nby - ko]] if ext_v - nby - ko > 0 else []), 1)
+    planes = []
+    for arr in (out.real, out.imag):
+        L = arr.reshape(R_u, half, R_v, half).permute(0, 2, 1, 3)
+        orig = arr.new_zeros((nbu, nbv, S, S))
+        for a in range(r):
+            for b in range(r):
+                orig[:, :, a * half : (a + 1) * half, b * half : (b + 1) * half] += L[a : a + nbu, b : b + nbv]
+        planes.append(orig.reshape(nbu * nbv, S, S)[bid_b])
+    return torch.stack(planes)
+
+
+def _idg_bins_to_grid_patches(plan: IDGPlan, image):
+    """Forward: image -> (2, ng, S, S) patch uv samples, bin-contiguous."""
+    cdt = complex_dtype(plan.rdt)
+    y = image.to(plan.rdt).to(cdt) * torch.complex(plan.corr_re, plan.corr_im).conj()
+    patches = torch.zeros((2, plan.ngroups, plan.S, plan.S), dtype=plan.rdt, device=plan.device)
+    px0 = plan.nbig_x // 2 - plan.nx // 2
+    py0 = plan.nbig_y // 2 - plan.ny // 2
+    for b in range(plan.nbins):
+        gs, gc = plan.bin_gstart[b], plan.bin_gcount[b]
+        if gc == 0:
+            continue
+        yb = y * _screen(plan, b, 1.0) if plan.do_wgridding else y
+        padded = torch.zeros((plan.nbig_x, plan.nbig_y), dtype=cdt, device=plan.device)
+        padded[px0 : px0 + plan.nx, py0 : py0 + plan.ny] = yb
+        grid = torch.fft.fft2(torch.fft.ifftshift(padded))
+        patches[:, gs : gs + gc] = _extract_bin(plan, grid, plan.bid[gs : gs + gc])
+    return patches
+
+
+def dirty2vis_idg_grouped(plan: IDGPlan, image):
+    """Forward to group-layout values (2, ng, G) — the exact conj-transpose
+    of :func:`vis2dirty_idg_grouped`."""
+    patches = _idg_bins_to_grid_patches(plan, image)
+    return idg_fused.vals_from_patches(patches, plan.scal, plan.wcu, plan.wcv, plan.S)
+
+
+def to_group_layout(plan: IDGPlan, arr):
+    """(nrow, nchan) real array -> (ng, G) group layout (one gather)."""
+    flat = arr.to(device=plan.device, dtype=plan.rdt).reshape(-1)
+    return torch.cat([flat, flat.new_zeros(1)])[plan.cg_idx]
+
+
+def hessian_vis_idg(plan: IDGPlan, x, wgt_g=None):
+    """Exact vis-space Hessian R^H W R x, gather-free: ``wgt_g`` is the
+    masked weight in group layout (:func:`to_group_layout`)."""
+    vals = dirty2vis_idg_grouped(plan, x)
+    if wgt_g is not None:
+        vals = vals * wgt_g[None]
+    return vis2dirty_idg_grouped(plan, vals)
+
+
+# ── carrying a JAX plan across ───────────────────────────────────────
+
+
+def plan_from_jax(leaves: dict, meta: dict, *, device) -> IDGPlan:
+    """The port's IDGPlan from the numpy leaves and static fields of a JAX
+    chirp-mode ``IDGPlan`` (e.g. ``{f.name: np.asarray(getattr(p, f.name))}``).
+
+    A fused plan carries its angles (``scal``) and permuted-kron constants
+    (``wcu8``/``wcv8``, unpacked by ``wc_from_perm_kron``). An einsum plan
+    stores only A~ = W diag(c) Z: the taper c comes from the same fit
+    (``fit_taper`` on the plan's geometry) and the angles are read off
+    Z = diag(1/c) W^-1 A~: phi = arg(Z[1] Z[-1]) / 2, du = arg(Z[1]) - phi
+    (mod 2 pi, all the rotation recurrence needs).
+    """
+    if int(meta.get("w_support", 1)) != 1 or meta.get("windowed", False):
+        raise NotImplementedError("wplanes plans are not ported (ROADMAP.md, queue A: wplanes planning)")
+    rdt = real_dtype(device)
+    dev = torch.device(device)
+    as_t = lambda a, t=rdt: to_device(a, dev, t)  # noqa: E731
+    S, half, nx, ny = int(meta["S"]), int(meta["half"]), int(meta["nx"]), int(meta["ny"])
+    ng, G = int(meta["ngroups"]), int(meta["G"])
+    if meta["fused"]:
+        scal = np.asarray(leaves["scal"], np.float64)
+        wcu = idg_fused.wc_from_perm_kron(leaves["wcu8"], S)
+        wcv = idg_fused.wc_from_perm_kron(leaves["wcv8"], S)
+    else:
+        if meta.get("onfly", False):
+            raise NotImplementedError("onfly JAX plans: convert a fused or einsum plan")
+        chirp = CHIRP_BUDGET if meta["do_wgridding"] else 0.0
+        eps = float(meta["epsilon"])
+        W = np.exp(-2j * np.pi * np.outer(np.arange(S), np.arange(S)) / S)
+        scal = np.zeros((4, ng, G))
+        wcs = []
+        for ax, (n, nbig, re, im) in enumerate(((nx, meta["nbig_x"], "au_re", "au_im"),
+                                               (ny, meta["nbig_y"], "av_re", "av_im"))):
+            c, _, _ = fit_taper(S, half, n / (2.0 * nbig) + 0.01, chirp, tol=0.25 * eps)
+            A = np.asarray(leaves[re], np.float64) + 1j * np.asarray(leaves[im], np.float64)  # (ng, S, G)
+            Z = np.einsum("xk,gkv->gxv", np.linalg.inv(W), A) / c[None, :, None]
+            phi = 0.5 * np.angle(Z[:, 1] * Z[:, S - 1])
+            scal[2 * ax] = np.mod(np.angle(Z[:, 1]) - phi, 2.0 * np.pi)
+            scal[2 * ax + 1] = phi
+            wcs.append(np.stack([(W * c).real, (W * c).imag]))
+        wcu, wcv = wcs
+    nm1 = np.asarray(leaves["nm1"], np.float64) + np.asarray(leaves["nm1_lo"], np.float64)
+    sg = np.asarray(leaves["sg"]) if meta["hermitian"] else np.ones((ng, G))
+    plan = IDGPlan(
+        nx=nx, ny=ny, nbig_x=int(meta["nbig_x"]), nbig_y=int(meta["nbig_y"]), S=S, half=half, G=G, ngroups=ng,
+        nbu=int(meta["nbu"]), nbv=int(meta["nbv"]), k0_off=int(meta["k0_off"]), nrow=int(meta["nrow"]),
+        nchan=int(meta["nchan"]), nbins=int(meta["nbins"]), bin_gstart=tuple(meta["bin_gstart"]),
+        bin_gcount=tuple(meta["bin_gcount"]), bin_wc=tuple(meta["bin_wc"]), do_wgridding=bool(meta["do_wgridding"]),
+        hermitian=bool(meta["hermitian"]), epsilon=float(meta["epsilon"]), scal=as_t(scal), wcu=as_t(wcu),
+        wcv=as_t(wcv), sg=as_t(sg), cg_idx=as_t(leaves["cg_idx"], torch.int64), bid=as_t(leaves["bid"], torch.int64),
+        phase_re=as_t(leaves["phase_re"]), phase_im=as_t(leaves["phase_im"]), corr_re=as_t(leaves["corr_re"]),
+        corr_im=as_t(leaves["corr_im"]), nm1=as_t(nm1, torch.float64),
+    )
+    return _with_screens(plan)

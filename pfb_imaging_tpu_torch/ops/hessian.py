@@ -1,0 +1,81 @@
+"""Sum-over-partitions PSF Hessian (port of pfb_imaging_tpu/ops/hessian.py).
+
+Only the unsharded cube is ported; the row-sharded distributed-FFT matvec
+waits for the ``parallel/`` port. Design D4 is kept: normalisation by the
+TOTAL wsum across bands and per-band ``eta_b = eta * wsum_b / wsum_tot``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import real_dtype, to_device
+from .psf import psf_convolve
+
+
+def hessian_tree_dot(x, abspsfhat_parts, beam_parts, wsum, nx_psf: int, ny_psf: int, eta: float = 0.0):
+    """H x = (1/wsum) sum_p B_p^T (PSF_p * (B_p x)) + eta x for one band image.
+
+    x: (nx, ny); abspsfhat_parts: (npart, nx_psf, ny_psf//2+1);
+    beam_parts: (npart, nx, ny) or None. The partition axis is batched
+    through one FFT call.
+    """
+    xin = x[None] if beam_parts is None else x[None] * beam_parts
+    terms = psf_convolve(xin, abspsfhat_parts, nx_psf, ny_psf)
+    if beam_parts is not None:
+        terms = terms * beam_parts
+    out = terms.sum(0) / wsum
+    if eta:
+        out = out + eta * x
+    return out
+
+
+@dataclasses.dataclass
+class HessianCube:
+    """Cube-level PSF Hessian over (nband, nx, ny) images.
+
+    Fields:
+        abspsfhat: (nband, npart, nx_psf, ny_psf//2+1) |PSFHAT| per partition.
+        beam: (nband, npart, nx, ny) or None.
+        wsum_tot: total weight across bands (0-d tensor).
+        eta_b: (nband,) per-band Tikhonov parameters.
+    """
+
+    nx_psf: int
+    ny_psf: int
+    abspsfhat: torch.Tensor
+    beam: torch.Tensor | None
+    wsum_tot: torch.Tensor
+    eta_b: torch.Tensor
+
+    @classmethod
+    def build(cls, abspsfhat, wsums, eta: float, nx_psf: int, ny_psf: int, beam=None, *, device):
+        """From numpy |PSFHAT| and (nband,) per-band wsums, onto ``device``."""
+        dtype = real_dtype(device)
+        wsums = to_device(wsums, device, dtype)
+        wsum_tot = wsums.sum()
+        return cls(
+            nx_psf=int(nx_psf),
+            ny_psf=int(ny_psf),
+            abspsfhat=to_device(abspsfhat, device, dtype),
+            beam=None if beam is None else to_device(beam, device, dtype),
+            wsum_tot=wsum_tot,
+            eta_b=eta * wsums / wsum_tot,
+        )
+
+    def dot(self, x):
+        return hess_cube_dot(self, x)
+
+    def hdot(self, x):
+        return hess_cube_dot(self, x)
+
+
+def hess_cube_dot(h: HessianCube, x: torch.Tensor) -> torch.Tensor:
+    """(nband, nx, ny) -> (nband, nx, ny): per-band sum over partitions."""
+    out = torch.empty_like(x)
+    for b in range(x.shape[0]):
+        bm = None if h.beam is None else h.beam[b]
+        out[b] = hessian_tree_dot(x[b], h.abspsfhat[b], bm, h.wsum_tot, h.nx_psf, h.ny_psf)
+    return out + h.eta_b[:, None, None] * x

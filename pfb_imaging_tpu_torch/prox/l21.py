@@ -1,0 +1,55 @@
+"""Weighted l2,1 regulariser over a wavelet dictionary — the SARA prior
+(port of pfb_imaging_tpu/prox/l21.py). Owns the l1-reweighting state.
+
+Design D3 holds: ``nu`` is the squared frame bound ||Psi Psi^T|| = nbasis
+for the SARA concatenation of orthonormal bases; presets pass
+``nu=len(bases)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .prox_21m import dual_update as _dual_update
+
+
+def l1reweight_func(mcomps, rmsfactor, rms_comps, alpha=4):
+    """(1 + rmsfactor) / (1 + (|mcomps|/rms)^alpha)."""
+    rms = torch.as_tensor(rms_comps, dtype=mcomps.dtype, device=mcomps.device)
+    if rms.ndim == 1:
+        rms = rms[:, None, None]
+    return (1.0 + rmsfactor) / (1.0 + mcomps.abs() ** alpha / rms**alpha)
+
+
+class L21:
+    """R(x) = ||W Psi^T x||_{21m} over ``psi`` (a Psi on some device)."""
+
+    def __init__(self, psi, nu: float = 1.0, rmsfactor: float = 1.0, alpha: float = 2.0):
+        self.psi = psi
+        self.nu = nu
+        self.rmsfactor = rmsfactor
+        self.alpha = alpha
+        self.l1weight = torch.ones((psi.nbasis, psi.nymax, psi.nxmax), dtype=psi.dtype, device=psi.device)
+        self._rms_comps = None
+
+    dual_update_fn = staticmethod(_dual_update)
+
+    @property
+    def reweight_active(self) -> bool:
+        return self._rms_comps is not None
+
+    def init_reweighting(self, update):
+        """Per-basis rms of the update's nonzero coefficients; arms reweighting."""
+        coeffs = self.psi.dot(update).sum(0).cpu().numpy()
+        rms_comps = np.ones(self.psi.nbasis)
+        for i in range(self.psi.nbasis):
+            nonzero = coeffs[i][coeffs[i] != 0]
+            if nonzero.size:
+                rms_comps[i] = np.std(nonzero)
+        self._rms_comps = rms_comps
+
+    def update_weights(self, x):
+        """Recompute l1 weights from the current iterate."""
+        mcomps = self.psi.dot(x).sum(0).abs()
+        self.l1weight = l1reweight_func(mcomps, self.rmsfactor, self._rms_comps, self.alpha)

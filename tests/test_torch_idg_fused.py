@@ -1,0 +1,190 @@
+"""The fused IDG patch kernels of the port (ops/idg_fused.py,
+csrc/idg_fused.cu): plain versions against the JAX Pallas kernels run in
+interpret mode and against a dense f64 oracle, the adjoint identity, the
+constant layout, and — on a CUDA card only — each kernel against its
+plain version.
+
+JAX is imported inside the tests that compare with it, so the ``gpu``
+tests also run where only PyTorch is installed:
+``python -m pytest --noconftest -m gpu tests/test_torch_idg_fused.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pfb_imaging_tpu_torch.ops import idg_fused as F
+
+torch.set_num_threads(1)
+G = F.G
+
+
+def _inputs(S, ng, seed=7):
+    """Angles, values and taper-DFT constants as the JAX kernel tests make them."""
+    rng = np.random.default_rng(seed)
+    tfac = 2 * np.pi / S
+    half = S // 2
+    k0 = (S - half) // 2
+    scal = np.stack([
+        tfac * (k0 + half * rng.random((ng, G))), 0.005 * rng.standard_normal((ng, G)),
+        tfac * (k0 + half * rng.random((ng, G))), 0.005 * rng.standard_normal((ng, G)),
+    ]).astype(np.float32)
+    vals = rng.standard_normal((2, ng, G)).astype(np.float32)
+    W = np.exp(-2j * np.pi * np.outer(np.arange(S), np.arange(S)) / S)
+    wcu = W * (rng.standard_normal(S) + 1j * rng.standard_normal(S))[None, :]
+    wcv = W * (rng.standard_normal(S) + 1j * rng.standard_normal(S))[None, :]
+    return scal, vals, wcu, wcv
+
+
+def _ri(w):
+    return np.stack([w.real, w.imag])
+
+
+def _fitted_wc(S):
+    """A production taper-DFT factor W diag(c): the 64^2 chirp-plan fit at
+    the tier's epsilon (S=16: 1e-5, else 1e-7)."""
+    from pfb_imaging_tpu_torch.ops.gridder_idg import fit_taper
+
+    nbig = 120 if S == 16 else 128
+    c, _, _ = fit_taper(S, S // 2, 64 / (2.0 * nbig) + 0.01, 0.1, tol=0.25 * (1e-5 if S == 16 else 1e-7))
+    return np.exp(-2j * np.pi * np.outer(np.arange(S), np.arange(S)) / S) * c[None, :]
+
+
+def _t(a, dtype=torch.float64, device="cpu"):
+    return torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+
+
+def _oracle(S, scal, vals, wcu, wcv):
+    xc = np.fft.fftfreq(S) * S
+    s = np.asarray(scal, np.float64)
+    Zu = np.exp(1j * (s[0][:, None, :] * xc[None, :, None] + s[1][:, None, :] * (xc**2)[None, :, None]))
+    Zv = np.exp(1j * (s[2][:, None, :] * xc[None, :, None] + s[3][:, None, :] * (xc**2)[None, :, None]))
+    Au = np.einsum("kx,gxv->gkv", wcu, Zu)
+    Av = np.einsum("kx,gxv->gkv", wcv, Zv)
+    V = vals[0].astype(np.float64) + 1j * vals[1]
+    return Au, Av, np.einsum("gkv,gv,glv->gkl", Au, V, Av)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+@pytest.mark.parametrize("S,zpasses", [(16, 3), (32, 6)])
+def test_plain_versions_match_jax_interpret(S, zpasses):
+    """f64 plain versions against the f32 Pallas kernels on a production
+    taper: the JAX kernel's own error is what the tolerance bounds."""
+    import jax.numpy as jnp
+
+    from pfb_imaging_tpu.ops import idg_fused as J
+
+    ng = J.block_groups(S)
+    scal, vals, _, _ = _inputs(S, ng)
+    wcu = wcv = _fitted_wc(S)
+    exp = 2 if zpasses <= 3 else 3
+    kw = dict(S=S, zpasses=zpasses, expasses=exp, interpret=True)
+    wu8, wv8 = jnp.asarray(J.wc_perm_kron(wcu)), jnp.asarray(J.wc_perm_kron(wcv))
+    pj = np.asarray(J.patches_from_vals(jnp.asarray(scal), jnp.asarray(vals), wu8, wv8, **kw))
+    wu, wv = _t(_ri(wcu).astype(np.float32)), _t(_ri(wcv).astype(np.float32))
+    pt = F.patches_from_vals_ref(_t(scal), _t(vals), wu, wv, S).numpy()
+    tol = 2e-5 if zpasses == 3 else 2e-6
+    assert _rel(pj, pt) < tol
+    y = np.random.default_rng(1).standard_normal((2, ng, S, S)).astype(np.float32)
+    yt = jnp.transpose(jnp.asarray(y), (0, 2, 1, 3)).reshape(2, S, ng * S)
+    vj = np.asarray(J.vals_from_patches(yt, jnp.asarray(scal), wu8, wv8, **kw))
+    vt = F.vals_from_patches_ref(_t(y), _t(scal), wu, wv, S).numpy()
+    assert _rel(vj, vt) < tol
+
+
+@pytest.mark.parametrize("S", [16, 24, 32])
+def test_plain_versions_match_dense_oracle(S):
+    scal, vals, wcu, wcv = _inputs(S, 6, seed=S)
+    Au, Av, P = _oracle(S, scal, vals, wcu, wcv)
+    got = F.patches_from_vals_ref(_t(scal), _t(vals), _t(_ri(wcu)), _t(_ri(wcv)), S).numpy()
+    assert _rel(got[0] + 1j * got[1], P) < 1e-12
+    y = np.random.default_rng(S).standard_normal((2, 6, S, S))
+    Y = y[0] + 1j * y[1]
+    ref = np.einsum("gkv,gkl,glv->gv", Au.conj(), Y, Av.conj())
+    got = F.vals_from_patches_ref(_t(y), _t(scal), _t(_ri(wcu)), _t(_ri(wcv)), S).numpy()
+    assert _rel(got[0] + 1j * got[1], ref) < 1e-12
+
+
+@pytest.mark.parametrize("S", [16, 24, 32])
+def test_plain_forward_is_exact_transpose(S):
+    """<patches(v), y> == <v, vals(y)> over the real inner product."""
+    scal, vals, wcu, wcv = _inputs(S, 5, seed=3)
+    wu, wv = _t(_ri(wcu)), _t(_ri(wcv))
+    p = F.patches_from_vals_ref(_t(scal), _t(vals), wu, wv, S)
+    y = _t(np.random.default_rng(4).standard_normal(tuple(p.shape)))
+    back = F.vals_from_patches_ref(y, _t(scal), wu, wv, S)
+    lhs, rhs = float((p * y).sum()), float((_t(vals) * back).sum())
+    assert abs(lhs - rhs) / abs(lhs) < 1e-12
+
+
+@pytest.mark.parametrize("S", [16, 32])
+def test_plain_f32_close_to_f64(S):
+    scal, vals, wcu, wcv = _inputs(S, 8, seed=5)
+    p64 = F.patches_from_vals_ref(_t(scal), _t(vals), _t(_ri(wcu)), _t(_ri(wcv)), S)
+    p32 = F.patches_from_vals_ref(*(_t(a, torch.float32) for a in (scal, vals, _ri(wcu), _ri(wcv))), S)
+    assert _rel(p32.double(), p64) < 1e-5
+
+
+@pytest.mark.parametrize("S", [16, 24, 32])
+def test_wc_from_perm_kron_round_trip(S):
+    from pfb_imaging_tpu.ops import idg_fused as J
+
+    wc = _inputs(S, 1)[2]
+    back = F.wc_from_perm_kron(J.wc_perm_kron(wc), S)
+    np.testing.assert_allclose(back[0] + 1j * back[1], wc.astype(np.complex64), rtol=0, atol=1e-6)
+
+
+def test_cpu_wrappers_take_the_plain_version_without_launching():
+    S = 16
+    scal, vals, wcu, wcv = _inputs(S, 3)
+    before = dict(F.LAUNCHES)
+    args = (_t(scal), _t(vals), _t(_ri(wcu)), _t(_ri(wcv)))
+    p = F.patches_from_vals(*args, S)
+    assert torch.equal(p, F.patches_from_vals_ref(*args, S))
+    v = F.vals_from_patches(p, args[0], args[2], args[3], S)
+    assert torch.equal(v, F.vals_from_patches_ref(p, args[0], args[2], args[3], S))
+    assert F.LAUNCHES == before
+
+
+def test_launch_checks_refuse_bad_inputs():
+    S, ng = 16, 2
+    ok = dict(scal=torch.zeros(4, ng, G), vals=torch.zeros(2, ng, G), wcu=torch.zeros(2, S, S),
+              wcv=torch.zeros(2, S, S))
+    F._check_cuda(S, ng, **ok)
+    with pytest.raises(TypeError):
+        F._check_cuda(S, ng, **dict(ok, vals=torch.zeros(2, ng, G, dtype=torch.float64)))
+    with pytest.raises(ValueError):
+        F._check_cuda(S, ng, **dict(ok, vals=torch.zeros(2, ng + 1, G)))
+    with pytest.raises(ValueError):
+        F._check_cuda(S, ng, **dict(ok, wcu=torch.zeros(2, S, 2 * S)[:, :, ::2]))
+    with pytest.raises(ValueError):
+        F._check_cuda(20, ng, **ok)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [16, 24, 32])
+def test_cuda_kernels_match_plain_versions(S):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    ng = 1024
+    scal, vals, _, _ = _inputs(S, ng, seed=11)
+    wcu = wcv = _ri(_fitted_wc(S))
+    f32 = [_t(a, torch.float32, dev) for a in (scal, vals, wcu, wcv)]
+    f64 = [a.double() for a in f32]
+    n0 = dict(F.LAUNCHES)
+    p = F.patches_from_vals(*f32, S)
+    torch.cuda.synchronize()
+    assert _rel(p.double().cpu(), F.patches_from_vals_ref(*f64, S).cpu()) < 2e-6
+    y = torch.randn((2, ng, S, S), generator=torch.Generator(dev).manual_seed(3), device=dev)
+    v = F.vals_from_patches(y, f32[0], f32[2], f32[3], S)
+    torch.cuda.synchronize()
+    assert _rel(v.double().cpu(), F.vals_from_patches_ref(y.double(), f64[0], f64[2], f64[3], S).cpu()) < 2e-6
+    assert F.LAUNCHES["patches_from_vals"] == n0["patches_from_vals"] + 1
+    assert F.LAUNCHES["vals_from_patches"] == n0["vals_from_patches"] + 1
+    with pytest.raises(TypeError):
+        F.patches_from_vals(*f64, S)
