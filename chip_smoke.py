@@ -6,28 +6,45 @@
 Phases, each printed as a JSON line; any failed check raises and the run
 exits non-zero:
   1. device  — card name, ``nvidia-smi`` name and power limit, kernel build
-               (nvcc, sm_90a) and its seconds;
+               (one nvcc per csrc/*.cu, sm_90a, started together) and its
+               seconds;
   2. kernels — the CUDA kernels B1 (patches_from_vals) and B2
                (vals_from_patches) against their plain PyTorch versions for
                S in {16, 24, 32} at ng = 4096: f64 plain (rel Linf <= 2e-6),
-               f32 plain (<= 1e-5), and the adjoint identity (<= 1e-5);
+               f32 plain (<= 1e-5), and the adjoint identity (<= 1e-5); then
+               B3 (scatter_grid_wstack) at nbig 4096 on random coordinates
+               over every tile, W in {6, 8}, nw in {1, 8} (nw = 1: the
+               one-plane grid of B5/B6), against its f64 and f32 plain
+               versions (rel Linf <= 1e-5);
   3. accuracy — the port's f32 ``vis2dirty_idg`` at 256^2, 100k vis and
                epsilon 1e-7 against a direct f64 DFT on the card, within the
-               plan's ``delivered_accuracy`` budgets;
+               plan's ``delivered_accuracy`` budgets; and the f32
+               ``vis2dirty_scatter`` (B3) at 256^2, 100k vis, epsilon 1e-5,
+               uncompressed w, within 10 epsilon of the same DFT;
   4. main_path — a synthetic 64-antenna array (2016 baselines x 500 times,
                4 bands x 4 channels over 856-1712 MHz, 16M visibilities),
                a seeded point-source sky plus noise summed directly on the
                card, DIRTY and PSF gridded by the port, a .dt tree in the
                imager's schema, then ``deconv(niter=3, epsilon=1e-7)`` in f32
-               at 2048^2 with a 4096^2 PSF. Launch counters are zeroed right
-               before ``deconv`` and must have risen after it; the rms must
-               fall. B1/B2 are also held against their f64 plain versions
-               (rel Linf <= 2e-6) on the first band's plan at its own ng;
+               at 2048^2 with a 4096^2 PSF. Launch counts are zeroed right
+               before ``deconv`` and B1/B2's must have risen after it; the rms
+               must fall. B1/B2 are also held against their f64 plain
+               versions (rel Linf <= 2e-6) on the first band's plan at its
+               own ng;
   5. profile — at the main path's shapes, CUDA-event ms of the PSF Hessian
                matvec, Psi.dot/hdot and the dual update, then 20 primal-dual
                and 20 CG iterations on the host clock and under
-               ``torch.profiler``: device busy ms and idle share per loop.
-Then the kernel summary line, the ``nvidia-smi`` line and, last,
+               ``torch.profiler``: device busy ms and idle share per loop;
+  6. imager — the same array with its own w, 16 channels, 4 bands: a store
+               in ``init``'s schema, then ``imager(gridder="pallas")`` in f32
+               at 2048^2 (4096^2 PSF) with Briggs weights at epsilon 1e-5.
+               Launch counts are zeroed right before ``imager`` and B3's must
+               have risen after it; products finite, PSF peak / WSUM = 1
+               (1e-4), band 0's brightest pixel on a true source, band 0's
+               DIRTY within 2e-5 of the port's f64 stack route, and B3 within
+               1e-5 of its f64 plain version at band 0's PSF plan.
+Then the kernel summary line (every kernel with its launches on its main
+path, error, ms, plain ms and bound), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
@@ -45,9 +62,16 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 LIGHTSPEED = 299792458.0
+# published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3
+# bandwidth and f32 outside the tensor cores; the bounds in the kernel line
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 REPLACES = {
     "patches_from_vals": "pfb_imaging_tpu/ops/idg_fused.py:253",
     "vals_from_patches": "pfb_imaging_tpu/ops/idg_fused.py:329",
+    # B3, and B5/B6 as its one-plane case
+    "scatter_grid_wstack": "pfb_imaging_tpu/ops/gridder_pallas.py:353; pfb_imaging_tpu/ops/gridder_pallas.py:144; "
+                           "pfb_imaging_tpu/ops/gridder_pallas.py:564",
 }
 
 
@@ -149,6 +173,101 @@ def phase_kernels(dev, ng: int = 4096):
     return out
 
 
+def idg_bound(ng: int, S: int, G: int = 128):
+    """The least time (ms) for one B1 or B2 call at (ng, S) and what bounds
+    it: 8 flops per complex MAC of the slot contraction (S^2 G per group)
+    and of the taper-DFT products (2 S^3 per group); the angles (4, ng, G),
+    the values (2, ng, G), the patches (2, ng, S, S) and the two (2, S, S)
+    taper factors, each moved once, all f32."""
+    flops = 8 * ng * (S * S * G + 2 * S**3)
+    nbytes = 4 * (4 * ng * G + 2 * ng * G + 2 * ng * S * S + 4 * S * S)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def scatter_bound(plan, p0: int, nw: int):
+    """The least time (ms) the card could take for one ``scatter_grid_wstack``
+    call, and what bounds it: the stream read once (lu, lv, du, dv, w_rel,
+    vre, vim: 28 B a visibility), the grids written once, and 5 f32 flops
+    (sten*ww, re*s, im*s and two adds) per stencil cell of every
+    (visibility, plane) pair of the chunk whose w-weight is not zero."""
+    if plan.do_wgridding:
+        wr = plan.w_rel.double()
+        pairs = sum(int(((wr - p).abs() < 0.5 * plan.w_support).sum()) for p in range(p0, p0 + nw))
+    else:
+        pairs = plan.nvis
+    nbytes = 28 * plan.nvis + nw * 2 * plan.nbig_x * plan.nbig_y * 4
+    flops = 5 * pairs * plan.support**2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), pairs
+
+
+def scatter_check(plan, vals, p0: int, nw: int, reps: int = 10):
+    """B3 on the card against its plain version in f64 and f32 on the same
+    values (the sorted stream put in tile order), with times and the bound."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
+
+    tiles = GP.tiles_for(plan)
+    vre, vim = vals[0].index_select(0, tiles.perm), vals[1].index_select(0, tiles.perm)
+    out = GP.scatter_grid_wstack(plan, tiles, vre, vim, p0, nw)
+    torch.cuda.synchronize()
+    ref64 = GP.scatter_grid_wstack_ref(plan, tiles, vre.double(), vim.double(), p0, nw)
+    scale = float(ref64.abs().max())
+    err64 = float((out.double() - ref64).abs().max())
+    del ref64
+    ref32 = GP.scatter_grid_wstack_ref(plan, tiles, vre, vim, p0, nw)
+    err32 = float((out - ref32).abs().max())
+    del ref32, out
+    torch.cuda.empty_cache()
+    bound_ms, bound_by, pairs = scatter_bound(plan, p0, nw)
+    return dict(
+        W=plan.support, nw=nw, p0=p0, plan_nw=plan.nw, nbig=plan.nbig_x, nvis=plan.nvis, nblocks=tiles.nblocks,
+        do_wgridding=plan.do_wgridding, pairs=pairs, scale=scale, max_abs_err=err64, rel_vs_f64=err64 / scale,
+        rel_vs_f32=err32 / scale,
+        ms=cuda_ms(lambda: GP.scatter_grid_wstack(plan, tiles, vre, vim, p0, nw), reps),
+        plain_ms=cuda_ms(lambda: GP.scatter_grid_wstack_ref(plan, tiles, vre, vim, p0, nw), 2),
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+
+
+def phase_kernels_scatter(dev, nvis: int = 2_000_000):
+    """B3 at nbig 4096 on random coordinates spread over every tile and
+    across the grid's wrap, for W in {6, 8} and nw in {1, 8}: nw = 8 is a
+    w-stacked chunk, nw = 1 a plan without w-gridding (the one-plane grid of
+    B5/B6). Held against the f64 and f32 plain versions (rel Linf <= 1e-5)."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops.gridder import _vis2dirty_prepare, plan_wgridder
+
+    out = []
+    freq = np.array([1.0e9, 1.1e9])
+    cell = 4e-6
+    for W, eps in ((6, 1e-5), (8, 1e-7)):
+        rng = np.random.default_rng(W)
+        nrow = nvis // freq.size
+        # uv over the whole 4096^2 grid (|u| up to 1/(2 cell) wavelengths at
+        # the top channel), w over ~+-1.2e5 wavelengths (~20 planes)
+        uvw = rng.uniform(-1.0, 1.0, (nrow, 3)) * (LIGHTSPEED / freq.max()) * np.array([0.5 / cell, 0.5 / cell, 1.2e5])
+        vis = rng.standard_normal((nrow, freq.size)) + 1j * rng.standard_normal((nrow, freq.size))
+        for do_w in (True, False):
+            plan = plan_wgridder(uvw, freq, nx=2048, ny=2048, cellx=cell, celly=cell, epsilon=eps,
+                                 do_wgridding=do_w, divide_by_n=False, dtype=np.float32, device=dev)
+            require(plan.support == W and plan.nbig_x == 4096, f"W={W} plan at nbig 4096")
+            vals = _vis2dirty_prepare(plan, torch.as_tensor(vis.real, device=dev), torch.as_tensor(vis.imag, device=dev))
+            nw = 8 if do_w else 1
+            p0 = max(0, plan.nw // 2 - nw // 2)
+            rec = scatter_check(plan, vals, p0, nw)
+            emit({"phase": "kernels", "kernel": "scatter_grid_wstack", **rec})
+            require(rec["rel_vs_f64"] <= 1e-5, f"B3 W={W} nw={nw} vs f64 plain")
+            require(rec["rel_vs_f32"] <= 1e-5, f"B3 W={W} nw={nw} vs f32 plain")
+            out.append(rec)
+            del plan, vals
+            torch.cuda.empty_cache()
+    return out
+
+
 def bench_coords(rng, nrow: int, nchan: int):
     """The TPU bench's layout: uvw uniform within +-16 km, w compressed x0.01."""
     uvw = rng.uniform(-16000, 16000, (nrow, 3))
@@ -202,10 +321,36 @@ def phase_accuracy(dev, nrow: int = 50_000, nchan: int = 2, nx: int = 256, eps: 
     return rec
 
 
-def synth_array(nant: int, ntime: int, seed: int):
+def phase_accuracy_pallas(dev, nrow: int = 50_000, nchan: int = 2, nx: int = 256, eps: float = 1e-5):
+    """The port's f32 ``vis2dirty_scatter`` (B3) with uncompressed w against
+    the direct f64 DFT on the card: rel Linf <= 10 eps."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops.gridder import plan_wgridder
+    from pfb_imaging_tpu_torch.ops.gridder_pallas import vis2dirty_scatter
+
+    rng = np.random.default_rng(6)
+    uvw = rng.uniform(-16000, 16000, (nrow, 3))
+    freq = np.linspace(1.0e9, 1.1e9, nchan)
+    cell = 8e-6 * 1024 / nx
+    vis = rng.standard_normal((nrow, nchan)) + 1j * rng.standard_normal((nrow, nchan))
+    plan = plan_wgridder(uvw, freq, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=eps, divide_by_n=False,
+                         dtype=np.float32, device=dev)
+    d = vis2dirty_scatter(plan, torch.as_tensor(vis.real, device=dev).float(),
+                          vis_im=torch.as_tensor(vis.imag, device=dev).float()).double()
+    ref = dft_dirty(uvw, freq, vis, nx, cell, dev)
+    rec = dict(gridder="pallas", nx=nx, nvis=nrow * nchan, epsilon=eps, support=plan.support, nw=plan.nw,
+               rel_linf=rel_linf(d, ref))
+    emit({"phase": "accuracy", **rec})
+    require(np.isfinite(rec["rel_linf"]) and rec["rel_linf"] <= 10 * eps, "pallas vis2dirty within 10 eps of the DFT")
+    return rec
+
+
+def synth_array(nant: int, ntime: int, seed: int, wscale: float = 0.01):
     """uvw (ntime*nbl, 3) of a random array: antennas uniform in an 8 km
     disc (baselines within 16 km), hour angles over 8 h at dec -30 deg,
-    w compressed x0.01 (the near-coplanar layout of the TPU bench)."""
+    w scaled by ``wscale`` (0.01: the near-coplanar layout of the TPU
+    bench; 1: the array's own w)."""
     rng = np.random.default_rng(seed)
     r = 8000.0 * np.sqrt(rng.random(nant))
     th = 2 * np.pi * rng.random(nant)
@@ -216,7 +361,7 @@ def synth_array(nant: int, ntime: int, seed: int):
     sd, cd = np.sin(np.deg2rad(-30.0)), np.cos(np.deg2rad(-30.0))
     u = np.sin(h) * bx + np.cos(h) * by
     v = -sd * np.cos(h) * bx + sd * np.sin(h) * by
-    w = 0.01 * (cd * np.cos(h) * bx - cd * np.sin(h) * by)
+    w = wscale * (cd * np.cos(h) * bx - cd * np.sin(h) * by)
     return np.stack([u.ravel(), v.ravel(), w.ravel()], -1)
 
 
@@ -251,6 +396,7 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     from pfb_imaging_tpu_torch.ops.gridder_idg import (
         _idg_prepare, hessian_vis_idg, plan_idg, to_group_layout, vis2dirty_idg,
     )
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
 
     nx_psf = 2 * nx
     cell = 8e-6 * 1024 / nx
@@ -268,7 +414,7 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     if workdir.exists():
         shutil.rmtree(workdir)
     dt_path = workdir / "smoke.dt"
-    root = tdeconv.TreeStore(dt_path, mode="w")  # the tree format deconv reads
+    root = TreeStore(dt_path, mode="w")  # the tree format deconv reads
     uvw_d = torch.as_tensor(uvw, device=dev)
     plan_s, grid_s = 0.0, 0.0
     wsum_tot = 0.0
@@ -351,13 +497,12 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
 
     # the main path: counters zeroed right before deconv
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in F.LAUNCHES:
-        F.LAUNCHES[k] = 0
+    zero_counts()
     t0 = time.perf_counter()
     model, residual = tdeconv.deconv(str(dt_path), niter=niter, epsilon=eps, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(F.LAUNCHES)
+    launches = read_counts()
     for s in tdeconv.CYCLE_STATS:
         emit({"phase": "main_path", "stage": "cycle", **s})
     cyc = tdeconv.CYCLE_STATS
@@ -380,6 +525,145 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     phase_profile(dev, dt_path, cyc[-1]["lam"])
     shutil.rmtree(workdir)
     return timing, launches, summary
+
+
+def write_xds(path: Path, uvw, chans, re, im) -> None:
+    """A Stokes-I visibility store in ``init``'s schema: root attributes and
+    one partition with VIS, WEIGHT, MASK, UVW and FREQ (unit weights)."""
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    xds = TreeStore(path, mode="w")
+    xds.set_attrs(ra=0.0, dec=-0.5, product="I", freq=[float(f) for f in chans], cell_rad=None, beam_diameter=None)
+    g = xds.group("scan0000")
+    g.set_attrs(time=0.0, l0=0.0, m0=0.0)
+    vis = np.empty(tuple(re.shape), np.complex64)
+    vis.real, vis.imag = re.cpu().numpy(), im.cpu().numpy()
+    g.write("VIS", vis)
+    g.write("WEIGHT", np.ones(vis.shape, np.float32))
+    g.write("MASK", np.ones(vis.shape, np.uint8))
+    g.write("UVW", uvw)
+    g.write("FREQ", chans)
+
+
+def phase_imager(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 500, nband: int = 4,
+                 nchan: int = 16, eps: float = 1e-5, seed: int = 43, nsrc: int = 24):
+    """The imager main path: a store of the 64-antenna array with its own
+    (uncompressed) w, 16 channels over 856-1712 MHz, seeded point sources
+    plus noise summed on the card, imaged by the port's
+    ``imager(gridder="pallas")`` in f32 at 2048^2 (4096^2 PSF, 8192^2 PSF
+    grid) with Briggs weights. Counts are zeroed right before ``imager`` and
+    read right after; then the products are checked, band 0's DIRTY is held
+    against the port's f64 stack route on the same data, and B3 against its
+    f64 plain version at band 0's own PSF plan."""
+    import torch
+
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.native import PLAN_STATS as NATIVE_STATS
+    from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
+    from pfb_imaging_tpu_torch.ops.gridder import _vis2dirty_prepare, plan_wgridder, vis2dirty
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    cell_arcsec = 0.8251
+    cell = cell_arcsec * np.pi / 180 / 3600
+    uvw = synth_array(nant, ntime, seed, wscale=1.0)
+    edges = np.linspace(856e6, 1712e6, nchan + 1)
+    chans = 0.5 * (edges[:-1] + edges[1:])
+    rng = np.random.default_rng(seed)
+    srcs = [(int(p), int(q), float(f)) for p, q, f in zip(
+        rng.integers(nx // 4, 3 * nx // 4, nsrc), rng.integers(nx // 4, 3 * nx // 4, nsrc), rng.uniform(0.1, 1.0, nsrc))]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if workdir.exists():
+        shutil.rmtree(workdir)
+    workdir.mkdir(parents=True)
+    re, im = sky_vis(torch.as_tensor(uvw, device=dev), chans, srcs, cell, nx, 1.0, gen)
+    write_xds(workdir / "smoke.xds", uvw, chans, re, im)
+    del re, im
+    rec = dict(nx=nx, nrow=uvw.shape[0], nvis=uvw.shape[0] * nchan, nband=nband, epsilon=eps,
+               max_abs_w_lambda=float(np.abs(uvw[:, 2]).max() * chans.max() / LIGHTSPEED))
+    emit({"phase": "imager", "stage": "data", **rec})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = TI.imager(str(workdir / "smoke.xds"), str(workdir / "smoke.dt"), nband=nband, nx=nx, ny=nx,
+                    cell_size=cell_arcsec, psf_oversize=2.0, robustness=0.0, epsilon=eps, gridder="pallas",
+                    double_precision=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    stats = dict(TI.IMAGER_STATS)
+    summary = dict(imager_seconds=wall, counts_seconds=stats["counts_seconds"], plan_seconds=stats["plan_seconds"],
+                   wait_seconds=stats["wait_seconds"], grid_seconds=stats["grid_seconds"],
+                   write_seconds=stats["write_seconds"], finish_seconds=stats["finish_seconds"], route=stats["route"],
+                   gridded_mvis_per_s=3 * stats["nvis"] / stats["grid_seconds"] / 1e6,
+                   nw=[[p["image"]["nw"], p["psf"]["nw"]] for p in stats["plans"]],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches,
+                   host_planner_calls=dict(NATIVE_STATS))
+    emit({"phase": "imager", "stage": "imager", **summary})
+    require(launches["scatter_grid_wstack"] > 0, "B3 launched during imager")
+    require(out.attrs["complete"] is True and out.attrs["nx_psf"] == 2 * nx, "tree complete at the PSF size")
+
+    bands = []
+    for b in range(nband):
+        node = out.group(f"band{b:04d}_time0000")
+        wsum = float(np.asarray(node.read("WSUM"))[0])
+        dirty, psf, noise = (np.asarray(node.read(k)) for k in ("DIRTY", "PSF", "NOISE"))
+        require(all(np.isfinite(a).all() for a in (dirty, psf, noise)), f"band {b} products finite")
+        peak = np.unravel_index(np.argmax(dirty), dirty.shape)
+        near = min(abs(int(peak[0]) - p_) + abs(int(peak[1]) - q_) for p_, q_, _ in srcs)
+        bands.append(dict(band=b, wsum=wsum, psf_peak_over_wsum=float(psf.max()) / wsum,
+                          dirty_peak_over_wsum=float(dirty.max()) / wsum, dirty_peak_offset_px=near,
+                          noise_rms=float(noise.std()) / wsum))
+        require(abs(bands[-1]["psf_peak_over_wsum"] - 1.0) <= 1e-4, f"band {b} PSF peak / WSUM = 1")
+    emit({"phase": "imager", "stage": "bands", "bands": bands})
+    require(bands[0]["dirty_peak_offset_px"] <= 1, "band 0's brightest DIRTY pixel on a true source")
+
+    # band 0: the stack route in f64 on the same data, and B3 at the PSF plan
+    pg = out.group("band0000_time0000").group("part0000")
+    uvw0, f0 = np.asarray(pg.read("UVW")), np.asarray(pg.read("FREQ"))
+    vis0 = np.asarray(pg.read("VIS"))
+    wm = torch.as_tensor(np.asarray(pg.read("WEIGHT")) * np.asarray(pg.read("MASK")), device=dev)
+    kw = dict(cellx=float(out.attrs["cell_rad"]), celly=float(out.attrs["cell_rad"]), epsilon=eps, divide_by_n=False)
+    t0 = time.perf_counter()
+    plan64 = plan_wgridder(uvw0, f0, nx=nx, ny=nx, dtype=np.float64, device=dev, **kw)
+    d64 = vis2dirty(plan64, torch.as_tensor(vis0.real, device=dev).double(), wgt=wm.double(),
+                    vis_im=torch.as_tensor(vis0.imag, device=dev).double())
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    dirty0 = torch.as_tensor(np.asarray(out.group("band0000_time0000").read("DIRTY")), device=dev)
+    stack_rel = rel_linf(dirty0, d64)
+    del plan64, d64, dirty0
+    plan = plan_wgridder(uvw0, f0, nx=2 * nx, ny=2 * nx, dtype=np.float32, device=dev, **kw)
+    ones = torch.ones(tuple(wm.shape), dtype=torch.float32, device=dev)
+    vals = _vis2dirty_prepare(plan, ones, torch.zeros_like(ones), wm.float())
+    nw = min(GP.PLANE_CHUNK, plan.nw)
+    b3 = scatter_check(plan, vals, max(0, plan.nw // 2 - nw // 2), nw, reps=5)
+    rec = dict(dirty_vs_stack_f64_rel=stack_rel, stack_f64_seconds=stack_s, b3_at_psf_plan=b3)
+    emit({"phase": "imager", "stage": "checks", **rec})
+    require(stack_rel <= 2e-5, "band 0 DIRTY (pallas, f32) vs the stack route (f64)")
+    require(b3["rel_vs_f64"] <= 1e-5, "B3 vs f64 plain at band 0's PSF plan")
+    del plan, vals, wm, ones
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir)
+    return b3, launches, summary
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
+    from pfb_imaging_tpu_torch.ops import idg_fused as F
+
+    for counts in (F.LAUNCHES, GP.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
+    from pfb_imaging_tpu_torch.ops import idg_fused as F
+
+    return {**F.LAUNCHES, **GP.LAUNCHES}
 
 
 def device_busy_ms(prof) -> float:
@@ -420,7 +704,7 @@ def phase_profile(dev, dt_path: Path, lam: float, iters: int = 20):
     import torch
 
     from pfb_imaging_tpu_torch import real_dtype, to_device
-    from pfb_imaging_tpu_torch.core.deconv import TreeStore
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
     from pfb_imaging_tpu_torch.deconv.pfb import _pfb_grad
     from pfb_imaging_tpu_torch.deconv.presets import make_sara
     from pfb_imaging_tpu_torch.opt.pcg import pcg
@@ -503,18 +787,30 @@ def main() -> int:
     emit({"phase": "device", "build_seconds": time.perf_counter() - t0, "library": build.library_path().name})
 
     kern = phase_kernels(dev)
+    scat = phase_kernels_scatter(dev)
     phase_accuracy(dev)
+    phase_accuracy_pallas(dev)
     timing, launches, _ = phase_main(dev, ROOT / "build" / "chip_smoke")
+    b3, im_launches, _ = phase_imager(dev, ROOT / "build" / "chip_smoke_imager")
 
     kernels = []
     for name, tag in (("patches_from_vals", "b1"), ("vals_from_patches", "b2")):
+        bound_ms, bound_by = idg_bound(timing["ng"], timing["S"])
         kernels.append(dict(
             name=name, route="cuda", source="pfb_imaging_tpu_torch/csrc/idg_fused.cu", replaces=REPLACES[name],
             launches=launches[name], max_abs_err=timing[f"{tag}_max_abs_err"], ms=timing[f"{tag}_ms"],
-            plain_ms=timing[f"{tag}_plain_ms"],
+            plain_ms=timing[f"{tag}_plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             ms_ng4096={S: kern[S][f"{tag}_ms"] for S in kern},
             plain_ms_ng4096={S: kern[S][f"{tag}_plain_ms"] for S in kern},
         ))
+    kernels.append(dict(
+        name="scatter_grid_wstack", route="cuda", source="pfb_imaging_tpu_torch/csrc/gridder_scatter.cu",
+        replaces=REPLACES["scatter_grid_wstack"], launches=im_launches["scatter_grid_wstack"],
+        max_abs_err=b3["max_abs_err"], ms=b3["ms"], plain_ms=b3["plain_ms"], bound_ms=b3["bound_ms"],
+        bound_by=b3["bound_by"], library_ms=None,
+        ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in scat},
+        plain_ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["plain_ms"] for r in scat},
+    ))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

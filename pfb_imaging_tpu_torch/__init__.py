@@ -30,6 +30,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA request without a card raises
+    (entry points default to the card and never fall back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
 def real_dtype(device) -> torch.dtype:
     """The working real dtype on ``device``: f64 on CPU, f32 on CUDA."""
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64

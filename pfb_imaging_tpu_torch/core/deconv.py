@@ -21,12 +21,11 @@ import time
 import numpy as np
 import torch
 
-from pfb_imaging_tpu.utils.logging import get_logger
-from pfb_imaging_tpu.utils.modelspec import eval_coeffs_to_cube, fit_image_cube, save_mds
-from pfb_imaging_tpu.utils.store import TreeStore, require_complete
-
-from .. import real_dtype, to_device
+from .. import real_dtype, resolve_device, to_device
 from ..deconv.presets import PRESETS
+from ..utils.logging import get_logger
+from ..utils.modelspec import eval_coeffs_to_cube, fit_image_cube, save_mds
+from ..utils.store import TreeStore, require_complete
 from .imager import residual_from_parts
 
 log = get_logger("DECONV")
@@ -60,12 +59,12 @@ def deconv(
     hess_norm: float | None = None,
     opts_extra: dict | None = None,
     *,
-    device,
+    device="cuda",
 ):
     """Run the major cycle in place on the tree. Returns (model, residual)
     as numpy arrays. Solver state lives on ``device`` (f64 on the CPU, f32
-    on CUDA)."""
-    dev = torch.device(device)
+    on CUDA); the default is the card, and there is no fallback to the CPU."""
+    dev = resolve_device(device)
     rdt = real_dtype(dev)
     CYCLE_STATS.clear()
     dt = TreeStore(dt_path, mode="w")

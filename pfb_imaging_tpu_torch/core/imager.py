@@ -1,41 +1,381 @@
-"""The exact once-per-major-cycle residual (port of the IDG branch of
-``residual_from_parts`` in pfb_imaging_tpu/core/imager.py).
+"""``imager`` and the exact once-per-major-cycle residual (port of
+pfb_imaging_tpu/core/imager.py).
 
-Per partition of a band node: an IDG plan (cached, keyed on the partition
-path, its content stamp and the geometry, as the JAX cache is), the masked
-weights in group layout, and the gather-free ``hessian_vis_idg`` round trip.
-A partition the IDG planner refuses raises — the classic w-stacking
-gridder is not ported yet.
+``imager`` grids a Stokes visibility store (``init``'s schema) into a .dt
+image tree: the counts pass and Briggs weights, the per-(band, partition)
+DIRTY, PSF, PSFHAT, NOISE and WSUM products (host planning pipelined on a
+thread pool while the card grids), time binning, the BEAM product,
+PSFPARSN, the MFS products, the root attributes with ``complete=True``, and
+the FITS output. ``gridder`` routes as in the JAX package: "pallas" (the
+classic plan through the w-stacked scatter kernel), "stack" (the classic
+gridder in plain torch), "idg", or "auto" (IDG unless its accuracy envelope
+or the slot-padding probe on the narrowest band says stack).
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP.md item: model transfer (``model_mds`` / ``l2_reweight_dof``), the
+device mesh, multi-host runs and IDG wplanes layouts.
+
+``residual_from_parts`` computes DIRTY - sum_p R_p^H W_p R_p (B_p model) per
+band: the IDG round trip where the planner accepts the partition, else (for
+``gridder="auto"``, per partition) the classic ES w-stacking gridder.
 """
 
 from __future__ import annotations
 
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from pfb_imaging_tpu.utils.store import TreeStore
+from .. import real_dtype, resolve_device, to_device
+from ..constants import LIGHTSPEED
+from ..geometry import fitcleanbeam, set_image_size, wgridder_conventions
+from ..ops.gridder import dirty2vis, plan_wgridder, vis2dirty
+from ..ops.gridder_idg import IDG_MIN_EPS, hessian_vis_idg, idg_slot_factor, plan_idg, to_group_layout, vis2dirty_idg
+from ..ops.gridder_pallas import vis2dirty_scatter
+from ..ops.weighting import box_sum_counts, compute_counts, counts_to_weights, filter_extreme_counts
+from ..utils.fits import save_fits, set_wcs
+from ..utils.logging import get_logger
+from ..utils.store import TreeStore, band_key, part_key
 
-from .. import real_dtype, to_device
-from ..ops.gridder_idg import hessian_vis_idg, plan_idg, to_group_layout
+log = get_logger("IMAGER")
 
-# the JAX router's slot-padding bound for IDG (core/imager.py)
+# the JAX router's slot-padding bound for IDG (gridder="auto")
 IDG_MAX_SLOT_FACTOR = 8.0
+GRIDDERS = ("auto", "idg", "stack", "pallas")
 
 _PLAN_CACHE: OrderedDict = OrderedDict()
 _PLAN_CACHE_CAP = 256
 # byte-bounded LRU: a plan for ~4M visibilities holds ~0.3 GB of device tensors
 _PLAN_CACHE_BYTES_CAP = 32 << 30
 _PLAN_CACHE_BYTES = 0
-# planning telemetry (read by chip_smoke.py): plans built and their seconds
+# residual planning telemetry (read by chip_smoke.py): plans built and their seconds
 PLAN_STATS = {"plans": 0, "seconds": 0.0}
+# telemetry of the last ``imager`` call (read by chip_smoke.py)
+IMAGER_STATS: dict = {}
+
+
+def band_mapping(freqs: np.ndarray, nband: int):
+    """Split channels into ``nband`` contiguous bins; a list of channel
+    index arrays."""
+    edges = np.linspace(freqs.min(), freqs.max() * (1 + 1e-12), nband + 1)
+    idx = np.clip(np.digitize(freqs, edges) - 1, 0, nband - 1)
+    return [np.where(idx == b)[0] for b in range(nband)]
+
+
+def _psf_vis(uvw, freq, l0, m0):
+    """PSF visibilities: ones at the field centre, else the phase ramp of
+    an off-centre phase direction."""
+    flip_u, flip_v, _, x0, y0 = wgridder_conventions(l0, m0)
+    if x0 == 0 and y0 == 0:
+        return np.ones((uvw.shape[0], freq.size), dtype=np.complex128)
+    signu = -1.0 if flip_u else 1.0
+    signv = -1.0 if flip_v else 1.0
+    n0 = np.sqrt(1.0 - x0**2 - y0**2)
+    freqfactor = 2j * np.pi * freq[None, :] / LIGHTSPEED
+    return np.exp(freqfactor * (signu * uvw[:, 0:1] * x0 * signu + signv * uvw[:, 1:2] * y0 * signv
+                                - uvw[:, 2:] * (n0 - 1)))
+
+
+def _psfhat(psf: np.ndarray, dev) -> np.ndarray:
+    """rfft2 of the ifftshifted PSF, in f64 on ``dev``."""
+    t = torch.from_numpy(np.ascontiguousarray(psf, np.float64)).to(dev)
+    return torch.fft.rfft2(torch.fft.ifftshift(t)).cpu().numpy()
+
+
+def _multihost() -> bool:
+    dist = torch.distributed
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
+def imager(
+    xds_path,
+    output_store,
+    nband: int = 1,
+    field_of_view: float | None = None,
+    super_resolution_factor: float = 2.0,
+    nx: int | None = None,
+    ny: int | None = None,
+    cell_size: float | None = None,
+    psf_oversize: float = 2.0,
+    robustness: float | None = None,
+    super_uniform_pix: int = 0,
+    counts_level: float = 10.0,
+    epsilon: float = 1e-7,
+    do_wgridding: bool = True,
+    double_precision: bool | None = None,
+    fits_out: bool = True,
+    model_mds: str | None = None,
+    l2_reweight_dof: float | None = None,
+    gridder: str = "auto",
+    plan_threads: int = 8,
+    do_noise: bool = True,
+    noise_seed: int = 7,
+    ntime: int = 1,
+    use_mesh: bool | None = None,
+    *,
+    device="cuda",
+):
+    """Grid a Stokes vis store into a .dt image tree on ``device`` (the
+    card unless the caller asks for the CPU). Returns the TreeStore.
+
+    ``double_precision`` defaults to the device's working type: f64 on the
+    CPU (the JAX default), f32 on the card, whose kernels are f32-only."""
+    if gridder not in GRIDDERS:
+        raise ValueError(f"gridder {gridder!r} not in {GRIDDERS}")
+    if model_mds is not None or l2_reweight_dof:
+        raise NotImplementedError("model transfer (model_mds, l2_reweight_dof) is not ported yet "
+                                  "(ROADMAP.md, queue A: imager model transfer)")
+    if use_mesh:
+        raise NotImplementedError("the device mesh is not ported yet (ROADMAP.md, queue A: parallel/)")
+    if _multihost():
+        raise NotImplementedError("multi-host imaging is not ported yet (ROADMAP.md, queue A: parallel/)")
+    dev = resolve_device(device)
+    if double_precision is None:
+        rdt = real_dtype(dev)
+    else:
+        rdt = torch.float64 if double_precision else torch.float32
+    t_start = time.perf_counter()
+    IMAGER_STATS.clear()
+    IMAGER_STATS.update(plan_seconds=0.0, grid_seconds=0.0, wait_seconds=0.0, write_seconds=0.0, nvis=0, plans=[])
+
+    xds = TreeStore(xds_path)
+    attrs = xds.attrs
+    freqs = np.asarray(attrs["freq"], dtype=float)
+
+    max_blength = 0.0
+    for key in xds.groups():
+        uvw = xds.group(key).read("UVW", mmap=True)
+        max_blength = max(max_blength, float(np.abs(uvw[:, :2]).max()) * np.sqrt(2))
+    geo = set_image_size(max_blength, freqs.max(), field_of_view or 1.0, super_resolution_factor,
+                         cell_size=cell_size, nx=nx, ny=ny, psf_oversize=psf_oversize)
+    nx_im, ny_im, nx_psf, ny_psf = geo.nx, geo.ny, geo.nx_psf, geo.ny_psf
+    cell_rad = geo.cell_rad
+    log.info("image %dx%d, psf %dx%d, cell %.3e rad", nx_im, ny_im, nx_psf, ny_psf, cell_rad)
+
+    bands = band_mapping(freqs, nband)
+    parts = xds.groups()
+
+    out = TreeStore(output_store, mode="w")
+    # a killed run must not leave a tree that passes require_complete
+    out.set_attrs(complete=False)
+
+    # ── pass 1: counts over all partitions per band ──────────────────
+    t0 = time.perf_counter()
+    counts_per_band = [np.zeros((1, nx_psf, ny_psf)) for _ in range(nband)]
+    if robustness is not None:
+        for key in parts:
+            g = xds.group(key)
+            uvw = np.asarray(g.read("UVW"))
+            f = np.asarray(g.read("FREQ"))
+            wgt = np.asarray(g.read("WEIGHT"))
+            mask = np.asarray(g.read("MASK"))
+            for b, chans in enumerate(bands):
+                if chans.size:
+                    counts_per_band[b] += np.asarray(compute_counts(uvw, f[chans], mask[:, chans], wgt[None, :, chans],
+                                                                    nx_psf, ny_psf, cell_rad, cell_rad))
+        counts_per_band = [np.asarray(box_sum_counts(filter_extreme_counts(c, level=counts_level), super_uniform_pix))
+                           for c in counts_per_band]
+    IMAGER_STATS["counts_seconds"] = time.perf_counter() - t0
+
+    # ── routing ──────────────────────────────────────────────────────
+    use_pallas = gridder == "pallas"
+    use_idg = gridder == "idg" or (gridder == "auto" and epsilon >= IDG_MIN_EPS)
+    if gridder == "auto" and use_idg and parts:
+        # slot-padding probe on the PSF grid with the narrowest band's
+        # channels (per-band plans see nvis/nband visibilities)
+        g0 = xds.group(parts[0])
+        narrow = min((bands[b] for b in range(nband) if bands[b].size), key=len)
+        try:
+            sf, nb = idg_slot_factor(np.asarray(g0.read("UVW")), np.asarray(g0.read("FREQ"))[narrow], nx=nx_psf,
+                                     ny=ny_psf, cellx=cell_rad, celly=cell_rad, l0=g0.attrs.get("l0", 0.0),
+                                     m0=g0.attrs.get("m0", 0.0), epsilon=epsilon, do_wgridding=do_wgridding,
+                                     dtype=rdt)
+        except ValueError as e:
+            log.info("gridder auto -> stack: %s", e)
+            use_idg = False
+        else:
+            if sf > IDG_MAX_SLOT_FACTOR:
+                log.info("gridder auto -> stack: IDG slot padding %.0fx (%d w-bins) exceeds the %.0fx budget",
+                         sf, nb, IDG_MAX_SLOT_FACTOR)
+                use_idg = False
+    route = "pallas" if use_pallas else ("idg" if use_idg else "stack")
+    if route == "idg" and dev.type == "cuda" and rdt == torch.float64:
+        raise ValueError("the IDG kernels on the card are f32-only; pass double_precision=False")
+    IMAGER_STATS["route"] = route
+
+    def _prepare_task(b, ip, key):
+        """Read, weight and plan one (band, partition): host work plus the
+        plans' transfer, run on the pool while the card grids."""
+        t0 = time.perf_counter()
+        chans = bands[b]
+        g = xds.group(key)
+        uvw = np.asarray(g.read("UVW"))
+        f = np.asarray(g.read("FREQ"))[chans]
+        vis = np.asarray(g.read("VIS"))[:, chans]
+        wgt = np.asarray(g.read("WEIGHT"))[:, chans]
+        mask = np.asarray(g.read("MASK"))[:, chans]
+        l0 = g.attrs.get("l0", 0.0)
+        m0 = g.attrs.get("m0", 0.0)
+        if robustness is not None:
+            wgt = np.asarray(counts_to_weights(counts_per_band[b], uvw, f, wgt[None], mask, nx_psf, ny_psf, cell_rad,
+                                               cell_rad, robustness))[0]
+        kw = dict(cellx=cell_rad, celly=cell_rad, l0=l0, m0=m0, epsilon=epsilon, do_wgridding=do_wgridding,
+                  divide_by_n=False, dtype=rdt, device=dev)
+        planner = plan_idg if use_idg else plan_wgridder
+        plan_im = planner(uvw, f, nx=nx_im, ny=ny_im, **kw)
+        plan_psf = planner(uvw, f, nx=nx_psf, ny=ny_psf, **kw)
+        wm = to_device(wgt * mask, dev, rdt)
+        beam_p = None
+        if g.has("BEAM_SMALL"):
+            from ..utils.beam import interp_beam
+
+            lg_im = (np.arange(nx_im) - nx_im // 2) * cell_rad
+            ll, mm = np.meshgrid(lg_im, lg_im, indexing="ij")
+            beam_p = interp_beam(np.asarray(g.read("BEAM_SMALL")), np.asarray(g.read("BEAM_L")),
+                                 np.asarray(g.read("BEAM_M")), ll, mm)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        return b, ip, key, uvw, f, vis, wgt, mask, wm, l0, m0, plan_im, plan_psf, beam_p, seconds
+
+    def grid_image(plan, visc, wm):
+        """One weighted image on the card, returned as f64 numpy."""
+        vr, vi = to_device(visc.real, dev, rdt), to_device(visc.imag, dev, rdt)
+        if use_pallas:
+            img = vis2dirty_scatter(plan, vr, wgt=wm, vis_im=vi)
+        elif use_idg:
+            img = vis2dirty_idg(plan, vr, wgt=wm, vis_im=vi)
+        else:
+            img = vis2dirty(plan, vr, wgt=wm, vis_im=vi)
+        return img.double().cpu().numpy()
+
+    def plan_info(plan):
+        return {"nbins": plan.nbins} if use_idg else {"nw": plan.nw, "support": plan.support, "nbig": plan.nbig_x}
+
+    # time binning: partitions land in ntime contiguous bins over scan time
+    part_times = np.asarray([xds.group(k).attrs.get("time", 0.0) for k in parts], dtype=float)
+    if ntime > 1 and parts:
+        tedges = np.linspace(part_times.min(), part_times.max() * (1 + 1e-12) + 1e-12, ntime + 1)
+        tbin_of = np.clip(np.digitize(part_times, tedges) - 1, 0, ntime - 1)
+    else:
+        ntime = 1
+        tbin_of = np.zeros(len(parts), np.int64)
+    time_out = [float(part_times[tbin_of == tb].mean()) if np.any(tbin_of == tb) else 0.0 for tb in range(ntime)]
+
+    tasks = [(b, ip, key) for b in range(nband) if bands[b].size for ip, key in enumerate(parts)]
+    pool = ThreadPoolExecutor(max_workers=max(1, plan_threads))
+    window = max(2, min(plan_threads, 4))  # plans hold device tensors; bound them
+    pending = deque()
+    ti = 0
+
+    freq_out = [float((freqs[c] if c.size else np.array([freqs.mean()])).mean()) for c in bands]
+    dirty_acc = {(b, tb): np.zeros((nx_im, ny_im)) for b in range(nband) for tb in range(ntime)}
+    psf_acc = {k: np.zeros((nx_psf, ny_psf)) for k in dirty_acc}
+    wsum_acc = {k: 0.0 for k in dirty_acc}
+    noise_acc = {k: np.zeros((nx_im, ny_im)) for k in dirty_acc}
+    beam_acc = {k: np.zeros((nx_im, ny_im)) for k in dirty_acc}
+    any_beam = False
+    nrng = np.random.default_rng(noise_seed)
+
+    try:
+        while ti < len(tasks) or pending:
+            while ti < len(tasks) and len(pending) < window:
+                pending.append(pool.submit(_prepare_task, *tasks[ti]))
+                ti += 1
+            t0 = time.perf_counter()
+            b, ip, key, uvw, f, vis, wgt, mask, wm, l0, m0, plan_im, plan_psf, beam_p, plan_s = \
+                pending.popleft().result()
+            t1 = time.perf_counter()
+            dirty_p = grid_image(plan_im, vis, wm)
+            psf_p = grid_image(plan_psf, _psf_vis(uvw, f, l0, m0), wm)
+            wsum_p = float(wgt[mask.astype(bool)].sum())
+            if do_noise:
+                # unit-variance noise projected with the same weights
+                nv = nrng.standard_normal(vis.shape) + 1j * nrng.standard_normal(vis.shape)
+                safe_w = np.where(wgt > 0, wgt, 1.0)
+                nv = np.where(wgt > 0, nv / np.sqrt(safe_w), 0.0)
+                noise_acc[b, int(tbin_of[ip])] += grid_image(plan_im, nv, wm)
+            t2 = time.perf_counter()
+            IMAGER_STATS["plan_seconds"] += plan_s
+            IMAGER_STATS["wait_seconds"] += t1 - t0
+            IMAGER_STATS["grid_seconds"] += t2 - t1
+            IMAGER_STATS["nvis"] += vis.size
+            IMAGER_STATS["plans"].append(dict(band=b, part=key, image=plan_info(plan_im), psf=plan_info(plan_psf)))
+            del plan_im, plan_psf, wm
+
+            t0 = time.perf_counter()
+            tb = int(tbin_of[ip])
+            pg = out.group(band_key(b, tb)).group(part_key(ip))
+            pg.set_attrs(l0=l0, m0=m0, wsum=wsum_p, key=key)
+            pg.write("VIS", vis)
+            pg.write("WEIGHT", wgt)
+            pg.write("MASK", mask)
+            pg.write("UVW", uvw)
+            pg.write("FREQ", f)
+            pg.write("PSF", psf_p)
+            pg.write("PSFHAT", _psfhat(psf_p, dev))
+            if beam_p is not None:
+                pg.write("BEAM", beam_p)
+                beam_acc[b, tb] += wsum_p * beam_p
+                any_beam = True
+            dirty_acc[b, tb] += dirty_p
+            psf_acc[b, tb] += psf_p
+            wsum_acc[b, tb] += wsum_p
+            IMAGER_STATS["write_seconds"] += time.perf_counter() - t0
+            log.info("gridded band %d %s: wsum=%.3e", b, key, wsum_p)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+
+    t0 = time.perf_counter()
+    dirty_mfs = np.zeros((nx_im, ny_im))
+    psf_mfs = np.zeros((nx_psf, ny_psf))
+    wsum_tot = 0.0
+    for b in range(nband):
+        for tb in range(ntime):
+            node = out.group(band_key(b, tb))
+            dirty_b, psf_b, wsum_b = dirty_acc[b, tb], psf_acc[b, tb], wsum_acc[b, tb]
+            node.write("DIRTY", dirty_b)
+            node.write("PSF", psf_b)
+            node.write("PSFHAT", _psfhat(psf_b, dev))
+            node.write("WSUM", np.asarray([wsum_b]))
+            if do_noise:
+                node.write("NOISE", noise_acc[b, tb])
+            if any_beam:
+                node.write("BEAM", beam_acc[b, tb] / max(wsum_b, 1e-300))
+            node.write("PSFPARSN", np.asarray(fitcleanbeam((psf_b / max(wsum_b, 1e-300))[None])[0]))
+            node.set_attrs(freq_out=freq_out[b], wsum=wsum_b, niters=0, time_out=time_out[tb])
+            dirty_mfs += dirty_b
+            psf_mfs += psf_b
+            wsum_tot += wsum_b
+            log.info("band %d time %d: wsum=%.3e, dirty peak=%.3e", b, tb, wsum_b, dirty_b.max() / max(wsum_b, 1e-300))
+
+    psfpars = fitcleanbeam((psf_mfs / max(wsum_tot, 1e-300))[None])[0]
+    out.set_attrs(nband=nband, ntime=ntime, nx=nx_im, ny=ny_im, nx_psf=nx_psf, ny_psf=ny_psf, cell_rad=cell_rad,
+                  ra=attrs.get("ra", 0.0), dec=attrs.get("dec", 0.0), freq_out=freq_out, wsum=wsum_tot,
+                  psfpars=list(psfpars), product=attrs.get("product", "I"), complete=True)
+
+    if fits_out:
+        cell_deg = np.rad2deg(cell_rad)
+        radec = (attrs.get("ra", 0.0), attrs.get("dec", 0.0))
+        hdr = set_wcs(cell_deg, cell_deg, nx_im, ny_im, radec, np.asarray(freq_out), gausspar=psfpars)
+        base = str(out.path)[:-3] if str(out.path).endswith(".dt") else str(out.path)
+        save_fits(dirty_mfs / max(wsum_tot, 1e-300), f"{base}_dirty_mfs.fits", hdr)
+        hdr_psf = set_wcs(cell_deg, cell_deg, nx_psf, ny_psf, radec, np.asarray(freq_out))
+        save_fits(psf_mfs / max(wsum_tot, 1e-300), f"{base}_psf_mfs.fits", hdr_psf)
+    IMAGER_STATS["finish_seconds"] = time.perf_counter() - t0
+    IMAGER_STATS["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+# ── the exact residual ───────────────────────────────────────────────
 
 
 def _cached_nbytes(cached) -> int:
-    plan, wgt_g, beam = cached
-    return plan.nbytes + sum(t.numel() * t.element_size() for t in (wgt_g, beam) if t is not None)
+    plan, wgt, mask, beam, _ = cached
+    return plan.nbytes + sum(t.numel() * t.element_size() for t in (wgt, mask, beam) if t is not None)
 
 
 def _plan_cache_put(key, cached):
@@ -63,32 +403,57 @@ def _cell_from_root(band_node: TreeStore) -> float:
     return float(TreeStore(band_node.path.parent).attrs["cell_rad"])
 
 
-def residual_from_parts(band_node: TreeStore, model_b, epsilon: float = 1e-7, do_wgridding: bool = True, *,
-                        device):
+def _plan_partition(pg: TreeStore, pk: str, kw: dict, gridder: str, want_idg: bool, dev, rdt):
+    """(plan, wgt, mask, beam, is_idg) of one partition: an IDG plan with
+    the masked weights in group layout, or the classic plan with the
+    weights and mask as they are. ``gridder="auto"`` falls back to the
+    classic plan on the IDG planner's ``ValueError``; an explicit "idg"
+    propagates it, and wplanes layouts raise ``NotImplementedError``."""
+    uvw, f = np.asarray(pg.read("UVW")), np.asarray(pg.read("FREQ"))
+    wgt = to_device(pg.read("WEIGHT"), dev, rdt)
+    mask = to_device(pg.read("MASK"), dev, rdt)
+    plan = None
+    if want_idg:
+        try:
+            plan = plan_idg(uvw, f, max_slot_factor=IDG_MAX_SLOT_FACTOR if gridder == "auto" else None, **kw)
+        except ValueError as e:
+            if gridder != "auto":
+                raise
+            log.info("partition %s: %s", pk, e)
+    beam = to_device(pg.read("BEAM"), dev, rdt) if pg.has("BEAM") else None
+    if plan is not None:
+        return plan, to_group_layout(plan, wgt * mask), None, beam, True
+    return plan_wgridder(uvw, f, **kw), wgt, mask, beam, False
+
+
+def residual_from_parts(band_node: TreeStore, model_b, epsilon: float = 1e-7, do_wgridding: bool = True,
+                        gridder: str = "auto", *, device="cuda"):
     """DIRTY - sum_p R_p^H W_p R_p (B_p model) for one band, un-normalised,
-    computed on ``device`` and returned as an f64 numpy array."""
-    dev = torch.device(device)
+    computed on ``device`` and returned as an f64 numpy array.
+
+    ``gridder``: "idg", "stack" (classic ES w-stacking), or "auto" (IDG
+    where its accuracy envelope covers ``epsilon`` and its planner accepts
+    the partition, else stack). Plans are cached per partition path,
+    content stamp, geometry and ``gridder``, as in the JAX package."""
+    if gridder not in ("auto", "idg", "stack"):
+        raise ValueError(f"gridder {gridder!r} not in ('auto', 'idg', 'stack')")
+    dev = resolve_device(device)
     rdt = real_dtype(dev)
     dirty = np.asarray(band_node.read("DIRTY"))
     nx, ny = dirty.shape
     model_t = to_device(model_b, dev, rdt)
     resid = to_device(dirty, dev, rdt)
+    want_idg = gridder == "idg" or (gridder == "auto" and epsilon >= IDG_MIN_EPS)
     for pk in band_node.groups():
         pg = band_node.group(pk)
-        key = (str(pg.path), _part_stamp(pg), nx, ny, epsilon, do_wgridding, str(dev))
+        key = (str(pg.path), _part_stamp(pg), nx, ny, epsilon, do_wgridding, gridder, str(dev))
         cached = _PLAN_CACHE.get(key)
         if cached is None:
             t0 = time.perf_counter()
             cell = band_node.attrs.get("cell_rad", 0.0) or _cell_from_root(band_node)
-            plan = plan_idg(
-                np.asarray(pg.read("UVW")), np.asarray(pg.read("FREQ")), nx=nx, ny=ny, cellx=cell, celly=cell,
-                l0=pg.attrs.get("l0", 0.0), m0=pg.attrs.get("m0", 0.0), epsilon=epsilon,
-                do_wgridding=do_wgridding, max_slot_factor=IDG_MAX_SLOT_FACTOR, device=dev,
-            )
-            wm = np.asarray(pg.read("WEIGHT"), np.float64) * np.asarray(pg.read("MASK"), np.float64)
-            wgt_g = to_group_layout(plan, to_device(wm, dev, rdt))
-            beam = to_device(pg.read("BEAM"), dev, rdt) if pg.has("BEAM") else None
-            cached = (plan, wgt_g, beam)
+            kw = dict(nx=nx, ny=ny, cellx=cell, celly=cell, l0=pg.attrs.get("l0", 0.0), m0=pg.attrs.get("m0", 0.0),
+                      epsilon=epsilon, do_wgridding=do_wgridding, divide_by_n=False, dtype=rdt, device=dev)
+            cached = _plan_partition(pg, pk, kw, gridder, want_idg, dev, rdt)
             _plan_cache_put(key, cached)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -96,7 +461,10 @@ def residual_from_parts(band_node: TreeStore, model_b, epsilon: float = 1e-7, do
             PLAN_STATS["seconds"] += time.perf_counter() - t0
         else:
             _PLAN_CACHE.move_to_end(key)
-        plan, wgt_g, beam = cached
+        plan, wgt, mask, beam, is_idg = cached
         xin = model_t if beam is None else model_t * beam
-        resid = resid - hessian_vis_idg(plan, xin, wgt_g=wgt_g)
+        if is_idg:
+            resid = resid - hessian_vis_idg(plan, xin, wgt_g=wgt)
+        else:
+            resid = resid - vis2dirty(plan, dirty2vis(plan, xin), wgt=wgt, mask=mask)
     return resid.cpu().numpy().astype(np.float64)

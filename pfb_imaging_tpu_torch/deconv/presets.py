@@ -38,7 +38,7 @@ DEFAULT_OPTS = dict(
 )
 
 
-def make_sara(abspsfhat_per_band, wsums, geometry, model, update, opts=None, beam_per_band=None, *, device):
+def make_sara(abspsfhat_per_band, wsums, geometry, model, update, opts=None, beam_per_band=None, *, device="cuda"):
     """SARA: l21 over the wavelet dictionary, primal-dual backward.
 
     abspsfhat_per_band: (nband, npart, nx_psf, ny_psf//2+1) numpy |PSFHAT|;

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-At first use, ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
--shared -Xcompiler -fPIC`` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface, which is loaded with ``ctypes``
-(pointers and the stream pass as ``c_void_p``). The library's name carries
-a hash of the sources, so an edited kernel is rebuilt. Output goes to
+At first use, one ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
+-O3 -Xcompiler -fPIC -c`` per ``csrc/*.cu`` source, all started together,
+compiles the objects, and one ``nvcc -shared`` links them into a library
+with a plain C interface, which is loaded with ``ctypes`` (pointers and the
+stream pass as ``c_void_p``). The library's name carries a hash of the
+sources, so an edited kernel is rebuilt. Output goes to
 ``build/torch_kernels/`` at the repository root (``PFB_TORCH_BUILD_DIR``
 overrides it). A failed build raises; there is no fallback.
 """
@@ -16,12 +17,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _LIB = None
+_LOCK = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -58,33 +64,45 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
+    nvcc, sources = nvcc_path(), _sources()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all started together
+            list(pool.map(lambda src, obj: subprocess.run([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                                          check=True), sources, objs))
+        lib = Path(tmp) / out.name
+        subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs)], check=True)
+        os.replace(lib, out)
     return out
 
 
 def load():
     """The loaded kernel library (built at first call), with its C signatures."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.pfb_patches_from_vals.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
-        lib.pfb_patches_from_vals.restype = i
-        lib.pfb_vals_from_patches.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
-        lib.pfb_vals_from_patches.restype = i
-        lib.pfb_error_string.argtypes = [i]
-        lib.pfb_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    with _LOCK:
+        if _LIB is None:
+            _LIB = _load()
     return _LIB
+
+
+def _load():
+    lib = ctypes.CDLL(str(build()))
+    vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    lib.pfb_patches_from_vals.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
+    lib.pfb_patches_from_vals.restype = i
+    lib.pfb_vals_from_patches.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
+    lib.pfb_vals_from_patches.restype = i
+    # blocks (tile, start, count), per-vis lu, lv, du, dv, wrel, vre, vim,
+    # out; nblocks, W, beta, nbig_x, nbig_y, nty, w_support, do_w, p0, nw, stream
+    lib.pfb_scatter_grid_wstack.argtypes = [vp] * 11 + [i, i, f, i, i, i, i, i, i, i, vp]
+    lib.pfb_scatter_grid_wstack.restype = i
+    lib.pfb_error_string.argtypes = [i]
+    lib.pfb_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(code: int, what: str) -> None:
     """Raise if a launch returned a non-zero cudaGetLastError()."""
     if code != 0:
-        msg = "unsupported subgrid" if code == -1 else load().pfb_error_string(code).decode()
+        msg = "unsupported arguments" if code == -1 else load().pfb_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: {msg} (code {code})")

@@ -2,7 +2,7 @@
 pfb_imaging_tpu/ops/gridder_idg.py, ``w_support == 1`` only).
 
 Host planning (numpy, f64): visibilities are bucketed into ``half``-cell uv
-tiles and w-bins (native OpenMP pass from ``pfb_imaging_tpu.native`` where
+tiles and w-bins (native OpenMP pass of the port's ``native`` module where
 it loads, a vectorised numpy pass otherwise); each <= G visibility chunk of
 a bucket becomes a group whose footprint fits an S x S subgrid. Per slot
 the plan keeps only the angles ``scal`` = [2 pi du/S, phi_u, 2 pi dv/S,
@@ -39,14 +39,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pfb_imaging_tpu.constants import LIGHTSPEED
-
 from .. import complex_dtype, real_dtype, to_device
+from ..constants import LIGHTSPEED
 from ..geometry import conventions_signs, good_size
 from . import idg_fused
 
 __all__ = ["IDGPlan", "plan_idg", "vis2dirty_idg", "vis2dirty_idg_grouped", "dirty2vis_idg_grouped",
-           "to_group_layout", "hessian_vis_idg", "delivered_accuracy", "plan_from_jax", "IDG_MIN_EPS"]
+           "to_group_layout", "hessian_vis_idg", "delivered_accuracy", "plan_from_jax", "idg_slot_factor", "IDG_MIN_EPS"]
 
 IDG_MIN_EPS = 1e-8  # tightest epsilon the adaptive-subgrid fit covers
 CHIRP_BUDGET = 0.1  # max |image chirp phase| (rad) the taper fit absorbs
@@ -347,14 +346,21 @@ def _fill_numpy(order, starts, counts, gbase, G, ng, nvis, payload):
 
 def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: float = 0.0, m0: float = 0.0,
              epsilon: float = 1e-5, do_wgridding: bool = True, max_slot_factor: float | None = None,
-             device) -> IDGPlan:
+             divide_by_n: bool = False, dtype: torch.dtype | None = None, count_only: bool = False,
+             device="cuda") -> IDGPlan:
     """Host-side chirp-mode IDG planning onto ``device``: the JAX
     ``plan_idg`` with its defaults (pinned sign conventions, hermitian
     fold, epsilon-adaptive subgrid and oversampling, ``w_mode="auto"``)
-    and ``divide_by_n=False``, the convention of the vis-space Hessian.
-    Layouts for which "auto" picks wplanes raise ``NotImplementedError``;
-    ``max_slot_factor`` refuses layouts whose group padding exceeds it."""
-    rdt = real_dtype(device)
+    and ``divide_by_n=False``, the convention of the vis-space Hessian and
+    of the imager. Layouts for which "auto" picks wplanes raise
+    ``NotImplementedError``; ``max_slot_factor`` refuses layouts whose group
+    padding exceeds it. ``dtype`` defaults to f32 on CUDA (the kernels'
+    type) and f64 on the CPU. ``count_only`` stops after the bucket pass and
+    returns (nbins, per-bin group counts), as the JAX count pass does.
+    ``divide_by_n=True`` is not ported (ROADMAP.md, queue A)."""
+    if divide_by_n:
+        raise NotImplementedError("plan_idg(divide_by_n=True) is not ported yet (ROADMAP.md, queue A)")
+    rdt = dtype or real_dtype(device)
     uvw = np.asarray(uvw, np.float64)
     freq = np.asarray(freq, np.float64)
     nrow, nchan = uvw.shape[0], freq.shape[0]
@@ -449,7 +455,7 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
     binw = (wmax - wmin) / nbins if do_w else 0.0
 
     # ── bucketing + grouping (numpy when the native library is missing) ──
-    from pfb_imaging_tpu.native import idg_bucket_group, idg_fill_groups
+    from ..native import idg_bucket_group, idg_fill_groups
 
     nat = idg_bucket_group(
         uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, float(wmin) if do_w else 0.0, float(binw),
@@ -469,6 +475,8 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
     bin_gcount = np.zeros(nbins, np.int64)
     np.add.at(bin_gcount, uniq // (nbu * nbv), gper)
     bin_gstart = np.concatenate([[0], np.cumsum(bin_gcount)])[:-1]
+    if count_only:
+        return nbins, tuple(int(x) for x in bin_gcount)
     _check_slot_budget(ng, G, nvis, nbins, max_slot_factor)
     cg_idx, du_g, dv_g, phiu_g, phiv_g, phase_g, _ = fill(order, starts, counts, gbase[:-1], G, ng, nvis, payload)
     bid_g = np.repeat(uniq % (nbu * nbv), gper)
@@ -502,6 +510,19 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
         corr_re=as_t(corr.real), corr_im=as_t(corr.imag), nm1=as_t(nm1, torch.float64),
     )
     return _with_screens(plan)
+
+
+def idg_slot_factor(uvw, freq, **kw):
+    """IDG viability probe (the JAX ``idg_slot_factor``): (slots per
+    visibility, nbins) from the bucket/count pass of :func:`plan_idg` alone,
+    for ``gridder="auto"`` routing. A layout that needs the wplanes mode
+    raises ``NotImplementedError`` (ROADMAP.md, queue A: wplanes planning)."""
+    nvis = uvw.shape[0] * freq.shape[0]
+    if nvis == 0:
+        return 1.0, 1
+    kw.setdefault("device", "cpu")
+    nbins, gcount = plan_idg(uvw, freq, count_only=True, **kw)
+    return sum(gcount) * idg_fused.G / nvis, nbins
 
 
 def _screen(plan: IDGPlan, b: int, sign: float) -> torch.Tensor:
@@ -708,7 +729,7 @@ def hessian_vis_idg(plan: IDGPlan, x, wgt_g=None):
 # ── carrying a JAX plan across ───────────────────────────────────────
 
 
-def plan_from_jax(leaves: dict, meta: dict, *, device) -> IDGPlan:
+def plan_from_jax(leaves: dict, meta: dict, *, device="cuda") -> IDGPlan:
     """The port's IDGPlan from the numpy leaves and static fields of a JAX
     chirp-mode ``IDGPlan`` (e.g. ``{f.name: np.asarray(getattr(p, f.name))}``).
 

@@ -51,7 +51,7 @@ class HessianCube:
     eta_b: torch.Tensor
 
     @classmethod
-    def build(cls, abspsfhat, wsums, eta: float, nx_psf: int, ny_psf: int, beam=None, *, device):
+    def build(cls, abspsfhat, wsums, eta: float, nx_psf: int, ny_psf: int, beam=None, *, device="cuda"):
         """From numpy |PSFHAT| and (nband,) per-band wsums, onto ``device``."""
         dtype = real_dtype(device)
         wsums = to_device(wsums, device, dtype)

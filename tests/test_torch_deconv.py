@@ -9,6 +9,7 @@ the same ``hess_norm`` and tolerances so small that CG and PD run exactly
 f64 rounding accumulated over two cycles (<= 1e-8 relative)."""
 
 import shutil
+from collections import OrderedDict
 
 import numpy as np
 import pytest
@@ -153,9 +154,53 @@ def test_multiband_jax_residual_matches_port_per_band(tree):
 
 
 def test_residual_refuses_layout_outside_idg(tree):
+    """An explicit ``gridder="idg"`` propagates the planner's refusal."""
     from pfb_imaging_tpu_torch.core.imager import residual_from_parts
 
     src, _ = tree
     node = TreeStore(src).group("band0000_time0000")
     with pytest.raises(ValueError):
-        residual_from_parts(node, np.zeros((NX, NX)), epsilon=1e-9, device="cpu")
+        residual_from_parts(node, np.zeros((NX, NX)), epsilon=1e-9, gridder="idg", device="cpu")
+
+
+def _residual_model():
+    model = np.zeros((NX, NX))
+    model[NX // 2 + 5, NX // 2 - 3] = 0.9
+    model[10, 40] = 0.3
+    return model
+
+
+@pytest.mark.parametrize("gridder, eps", [("stack", 1e-7), ("auto", 1e-9)])
+def test_residual_stack_matches_jax(tree, gridder, eps):
+    """The classic-gridder residual (explicit, and the "auto" fallback below
+    IDG's accuracy envelope) against the JAX one, f64, rel 1e-9."""
+    from pfb_imaging_tpu.core.imager import residual_from_parts as jresidual
+
+    from pfb_imaging_tpu_torch.core import imager as TI
+
+    src, _ = tree
+    node = TreeStore(src).group("band0001_time0000")
+    rj = jresidual(node, _residual_model(), epsilon=eps, gridder=gridder)
+    n0 = TI.PLAN_STATS["plans"]
+    rt = TI.residual_from_parts(node, _residual_model(), epsilon=eps, gridder=gridder, device="cpu")
+    assert _rel(rt, rj) < 1e-9
+    rt2 = TI.residual_from_parts(node, _residual_model(), epsilon=eps, gridder=gridder, device="cpu")
+    assert TI.PLAN_STATS["plans"] == n0 + 1 and np.array_equal(rt2, rt)  # the cached plan
+
+
+def test_residual_auto_falls_back_per_partition(tree, monkeypatch):
+    """``gridder="auto"`` falls back to the classic gridder when the IDG
+    planner refuses a partition (here: a slot budget it cannot meet)."""
+    from pfb_imaging_tpu.core.imager import residual_from_parts as jresidual
+
+    from pfb_imaging_tpu_torch.core import imager as TI
+
+    src, _ = tree
+    node = TreeStore(src).group("band0000_time0000")
+    monkeypatch.setattr(TI, "IDG_MAX_SLOT_FACTOR", 1e-3)
+    monkeypatch.setattr(TI, "_PLAN_CACHE", OrderedDict())  # no plan cached by an earlier test
+    rt = TI.residual_from_parts(node, _residual_model(), epsilon=1e-7, gridder="auto", device="cpu")
+    plan, _, _, _, is_idg = next(reversed(TI._PLAN_CACHE.values()))
+    assert not is_idg and plan.nw >= 1
+    rj = jresidual(node, _residual_model(), epsilon=1e-7, gridder="stack")
+    assert _rel(rt, rj) < 1e-9

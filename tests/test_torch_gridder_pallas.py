@@ -1,0 +1,283 @@
+"""The port's w-stacked scatter (``ops/gridder_pallas.py``: the plain version
+of the CUDA kernel that replaces the Pallas kernels B3, B5 and B6) against
+the JAX Pallas kernels in interpret mode, the direct one-plane oracle of
+the JAX tests, and the JAX classic gridder, on the CPU.
+
+Tolerances: the plain version in f64 against the f32 Pallas kernel to
+1e-5 relative (f32 stencils); against the f64 oracle to 1e-12; the f32
+``vis2dirty_scatter`` against JAX's to 2e-5, the JAX tests' own bound.
+
+JAX is imported inside the tests that compare with it, so the ``gpu``
+test also runs where only PyTorch is installed:
+``python -m pytest --noconftest -m gpu tests/test_torch_gridder_pallas.py``.
+"""
+
+import gc
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from pfb_imaging_tpu_torch.ops import gridder as TG
+from pfb_imaging_tpu_torch.ops import gridder_pallas as TP
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+def direct_scatter(u_loc, v_loc, vre, vim, support, beta, nbig):
+    """The one-plane oracle of the JAX tests: a dense loop over each
+    visibility's ES stencil, window cells taken mod nbig."""
+    grid = np.zeros((2, nbig, nbig))
+    for k in range(u_loc.size):
+        i0 = int(np.floor(u_loc[k] - support / 2.0)) + 1
+        j0 = int(np.floor(v_loc[k] - support / 2.0)) + 1
+        for a in range(support):
+            xu = 2.0 * (i0 + a - u_loc[k]) / support
+            for b in range(support):
+                xv = 2.0 * (j0 + b - v_loc[k]) / support
+                w = TG.es_kernel(np.array(xu), beta) * TG.es_kernel(np.array(xv), beta)
+                grid[0, (i0 + a) % nbig, (j0 + b) % nbig] += vre[k] * w
+                grid[1, (i0 + a) % nbig, (j0 + b) % nbig] += vim[k] * w
+    return grid
+
+
+def _wide_uvw(nrow, seed, wscale):
+    rng = np.random.default_rng(seed)
+    uvw = rng.uniform(-1500, 1500, (nrow, 3))
+    uvw[:, 2] *= wscale
+    return uvw
+
+
+def _ten_antennas(wfrac=0.02):
+    """The 10-antenna layout of the JAX wrapper test."""
+    r0 = np.random.RandomState(5)
+    a1, a2 = np.asarray(list(itertools.combinations(range(10), 2))).T
+    antennas = 6e3 * r0.normal(size=(10, 3))
+    antennas[:, 2] *= wfrac
+    return antennas[a1] - antennas[a2]
+
+
+KW = dict(nx=64, ny=64, cellx=1e-4, celly=1e-4, divide_by_n=False)
+FREQ = np.array([1.0e9, 1.1e9])
+
+
+def test_scatter_ref_matches_jax_wstack_kernel():
+    """Six planes of a w-stacked f32 plan: the plain version against JAX
+    ``pallas_scatter_grid_wstack`` (interpret mode) on the same sorted
+    stream. The JAX plan sends windows that wrap the grid edge to an XLA
+    scatter outside its kernel, so their values are zero here; the port
+    grids them in the kernel (see the oracle test below)."""
+    import jax.numpy as jnp
+
+    from pfb_imaging_tpu.ops import gridder as JG
+    from pfb_imaging_tpu.ops import gridder_pallas as JP
+
+    uvw = _wide_uvw(150, 3, 20.0)
+    pj = JG.plan_wgridder(uvw, FREQ, epsilon=1e-5, dtype=np.float32, **KW)
+    pt = TG.plan_wgridder(uvw, FREQ, epsilon=1e-5, dtype=np.float32, device=CPU, **KW)
+    assert pt.nw == pj.nw >= 10
+    nvis = pt.nvis
+    rng = np.random.default_rng(4)
+    vre = rng.standard_normal(nvis).astype(np.float32)
+    vim = rng.standard_normal(nvis).astype(np.float32)
+    tiles = JP.plan_pallas(pj)
+    vre[tiles["fallback"]] = 0.0
+    vim[tiles["fallback"]] = 0.0
+    p0, nw = 3, 6
+    idx = tiles["pad_idx"]
+    pad = lambda a: jnp.asarray(np.concatenate([a, [0.0]]).astype(np.float32)[idx])  # noqa: E731
+    wl = np.asarray(pj.w_lam, np.float64)[:nvis]
+    out_j = JP.pallas_scatter_grid_wstack(
+        tiles["lu8_dev"], tiles["fu_dev"], tiles["fv_dev"], pad(wl), pad(vre), pad(vim), support=pj.support,
+        beta=pj.beta, capacity=tiles["capacity"], nchunks=tiles["nchunks"], ntx=tiles["ntx"], nty=tiles["nty"],
+        nbig_x=pj.nbig_x, nbig_y=pj.nbig_y, nw=nw, w0=pj.w0 + p0 * pj.dw, dw=pj.dw, w_support=pj.w_support,
+        interpret=True)
+    tt = TP.tiles_for(pt)
+    vt_re, vt_im = torch.as_tensor(vre)[tt.perm], torch.as_tensor(vim)[tt.perm]  # tile order
+    out_t = TP.scatter_grid_wstack_ref(pt, tt, vt_re.double(), vt_im.double(), p0, nw)
+    assert out_t.shape == (nw, 2, pt.nbig_x, pt.nbig_y)
+    assert _rel(out_t, out_j) < 1e-5
+    # the wrapper takes the plain version for CPU tensors
+    got = TP.scatter_grid_wstack(pt, tt, vt_re, vt_im, p0, nw)
+    assert got.dtype == torch.float32 and _rel(got, out_j) < 1e-5
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-7])
+def test_one_plane_matches_direct_oracle(eps):
+    """nw = 1 (a plan without w-gridding): the one-plane grid that B5 and B6
+    compute, against the JAX tests' direct oracle, windows that wrap the
+    grid edge included."""
+    uvw = _wide_uvw(300, 5, 1.0)
+    pt = TG.plan_wgridder(uvw, FREQ, epsilon=eps, do_wgridding=False, dtype=np.float64, device=CPU, **KW)
+    assert pt.nw == 1 and pt.support == (6 if eps == 1e-5 else 8)
+    rng = np.random.default_rng(6)
+    vre, vim = rng.standard_normal((2, pt.nvis))
+    u = (pt.iu0 + pt.du).numpy()
+    v = (pt.iv0 + pt.dv).numpy()
+    wraps = (np.floor(u - pt.support / 2) + 1 < 0) | (np.floor(v - pt.support / 2) + 1 < 0)
+    assert wraps.any()
+    oracle = direct_scatter(u, v, vre, vim, pt.support, pt.beta, pt.nbig_x)
+    tt = TP.plan_pallas(pt)
+    out = TP.scatter_grid_wstack_ref(pt, tt, torch.as_tensor(vre)[tt.perm], torch.as_tensor(vim)[tt.perm], 0, 1)
+    assert _rel(out[0], oracle) < 1e-12
+
+
+def _emulate_kernel(plan, tiles, vre, vim, p0, nw):
+    """The CUDA kernel's arithmetic order in torch: per block, accumulate
+    its visibilities into a (nw, 2, A, A) tile-plus-apron buffer at the
+    tile-relative window starts, then add the buffer onto the grid at the
+    tile origin, cells taken mod nbig. Values come in tile order."""
+    W, tile = plan.support, TP.TILE
+    A = tile + W - 1
+    out = torch.zeros((nw, 2, plan.nbig_x, plan.nbig_y), dtype=torch.float64)
+    offs = torch.arange(W)
+    v_t = torch.stack([vre, vim]).double()
+    for blk in range(tiles.nblocks):
+        s, c = int(tiles.blk_start[blk]), int(tiles.blk_count[blk])
+        sl = slice(s, s + c)
+        ku = TG.es_kernel(2.0 * (tiles.du[sl, None].double() - offs) / W, plan.beta)
+        kv = TG.es_kernel(2.0 * (tiles.dv[sl, None].double() - offs) / W, plan.beta)
+        cell = (tiles.lu[sl, None, None] + offs[:, None]) * A + (tiles.lv[sl, None, None] + offs)
+        acc = torch.zeros((nw, 2, A * A), dtype=torch.float64)
+        for q in range(nw):
+            ww = TG._w_weight(plan, tiles.w_rel[sl].double(), p0 + q)
+            contrib = (v_t[:, sl] * ww)[:, :, None, None] * (ku[:, :, None] * kv[:, None, :])
+            acc[q].index_add_(1, cell.reshape(-1), contrib.reshape(2, -1))
+        t = int(tiles.blk_tile[blk])
+        gx = (t // tiles.nty * tile + torch.arange(A)) % plan.nbig_x
+        gy = (t % tiles.nty * tile + torch.arange(A)) % plan.nbig_y
+        out[:, :, gx[:, None], gy[None, :]] += acc.reshape(nw, 2, A, A)
+    return out
+
+
+@pytest.mark.parametrize("do_w", [True, False])
+def test_tile_plan_reassembles_grid(do_w, monkeypatch):
+    """The layout the CUDA kernel reads (tile order, tile-relative window
+    starts, blocks cut at ``BLOCK_VIS``) puts every stencil where the plain
+    version does, wrapped windows included."""
+    monkeypatch.setattr(TP, "BLOCK_VIS", 16)  # several blocks per busy tile
+    uvw = _wide_uvw(200, 7, 20.0 if do_w else 1.0)
+    pt = TG.plan_wgridder(uvw, FREQ, epsilon=1e-5, do_wgridding=do_w, dtype=np.float32, device=CPU, **KW)
+    tiles = TP.plan_pallas(pt)
+    assert int(tiles.blk_count.max()) <= 16 and int(tiles.blk_count.sum()) == pt.nvis
+    assert len(set(tiles.blk_tile.tolist())) < tiles.nblocks
+    assert int(tiles.lu.min()) >= 0 and int(tiles.lu.max()) < TP.TILE
+    rng = np.random.default_rng(8)
+    vre, vim = (torch.as_tensor(a) for a in rng.standard_normal((2, pt.nvis)))  # tile order
+    p0, nw = (2, 4) if do_w else (0, 1)
+    ref = TP.scatter_grid_wstack_ref(pt, tiles, vre, vim, p0, nw)
+    assert _rel(_emulate_kernel(pt, tiles, vre, vim, p0, nw), ref) < 1e-12
+
+
+def test_vis2dirty_scatter_matches_jax_with_wgridding():
+    """The port's f32 ``vis2dirty_scatter`` against JAX's (Pallas B3 in
+    interpret mode) on the 10-antenna layout of the JAX tests."""
+    import jax.numpy as jnp
+
+    from pfb_imaging_tpu.ops import gridder as JG
+    from pfb_imaging_tpu.ops import gridder_pallas as JP
+
+    uvw = _ten_antennas()
+    kw = dict(nx=64, ny=64, cellx=2.5e-5 / 2, celly=2.5e-5 / 2, epsilon=1e-5, do_wgridding=True, dtype=np.float32)
+    pj = JG.plan_wgridder(uvw, FREQ, **kw)
+    pt = TG.plan_wgridder(uvw, FREQ, device=CPU, **kw)
+    rng = np.random.default_rng(9)
+    vis = rng.standard_normal((uvw.shape[0], 2)) + 1j * rng.standard_normal((uvw.shape[0], 2))
+    dj = np.asarray(JP.vis2dirty_scatter(pj, jnp.asarray(vis.astype(np.complex64))))
+    dt = TP.vis2dirty_scatter(pt, torch.as_tensor(vis.astype(np.complex64)))
+    assert _rel(dt, dj) < 2e-5
+
+
+def test_vis2dirty_scatter_without_wgridding_matches_classic():
+    """With ``do_wgridding=False`` the port is held against the JAX classic
+    ``vis2dirty``, not against the JAX ``vis2dirty_scatter``: that one
+    multiplies every visibility by an ES w-weight even when the plan keeps
+    the raw w (w0 = 0, dw = 1, w_support = 1), which the classic gridder's
+    ``_w_weight`` does not, so its image is wrong there. The port follows
+    ``_w_weight``."""
+    import jax.numpy as jnp
+
+    from pfb_imaging_tpu.ops import gridder as JG
+    from pfb_imaging_tpu.ops import gridder_pallas as JP
+
+    uvw = _ten_antennas()
+    kw = dict(nx=64, ny=64, cellx=2.5e-5 / 2, celly=2.5e-5 / 2, epsilon=1e-5, do_wgridding=False)
+    pj = JG.plan_wgridder(uvw, FREQ, dtype=np.float64, **kw)
+    pt = TG.plan_wgridder(uvw, FREQ, dtype=np.float32, device=CPU, **kw)
+    assert pt.nw == 1 and not pt.do_wgridding
+    rng = np.random.default_rng(10)
+    vis = rng.standard_normal((uvw.shape[0], 2)) + 1j * rng.standard_normal((uvw.shape[0], 2))
+    dj = np.asarray(JG.vis2dirty(pj, jnp.asarray(vis)))
+    dt = TP.vis2dirty_scatter(pt, torch.as_tensor(vis.astype(np.complex64)))
+    assert _rel(dt, dj) < 2e-5
+
+
+def test_require_f32_raises_on_f64_plan():
+    import jax.numpy as jnp
+
+    from pfb_imaging_tpu.ops import gridder as JG
+    from pfb_imaging_tpu.ops import gridder_pallas as JP
+
+    uvw = _ten_antennas()
+    kw = dict(nx=32, ny=32, cellx=2.5e-5, celly=2.5e-5, epsilon=1e-5)
+    pt = TG.plan_wgridder(uvw, FREQ, dtype=np.float64, device=CPU, **kw)
+    pj = JG.plan_wgridder(uvw, FREQ, dtype=np.float64, **kw)
+    vis = np.ones((uvw.shape[0], 2), np.complex128)
+    with pytest.raises(ValueError, match="f32-only"):
+        TP.vis2dirty_scatter(pt, torch.as_tensor(vis))
+    with pytest.raises(ValueError, match="f32-only"):
+        JP.vis2dirty_scatter(pj, jnp.asarray(vis))
+
+
+def test_tiles_cache_keeps_several_plans():
+    uvw = _ten_antennas()
+    plans = [TG.plan_wgridder(uvw, FREQ, nx=n, ny=n, cellx=2.5e-5, celly=2.5e-5, epsilon=1e-5, dtype=np.float32,
+                              device=CPU) for n in (32, 48)]
+    t0, t1 = TP.tiles_for(plans[0]), TP.tiles_for(plans[1])
+    assert TP.tiles_for(plans[0]) is t0 and TP.tiles_for(plans[1]) is t1
+    n = len(TP._TILES)
+    del plans
+    gc.collect()
+    assert len(TP._TILES) == n - 2  # an entry leaves with its plan
+
+
+def test_wrapper_checks_its_arguments():
+    uvw = _ten_antennas()
+    pt = TG.plan_wgridder(uvw, FREQ, nx=32, ny=32, cellx=2.5e-5, celly=2.5e-5, epsilon=1e-5, dtype=np.float32,
+                          device=CPU)
+    tiles = TP.tiles_for(pt)
+    v = torch.zeros(pt.nvis, dtype=torch.float32)
+    with pytest.raises(ValueError, match="plane chunk"):
+        TP._check_launch(pt, tiles, v, v, 0, TP.PLANE_CHUNK + 1)
+    with pytest.raises(TypeError, match="float32"):
+        TP._check_launch(pt, tiles, v.double(), v.double(), 0, 1)
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_cuda():
+    """The CUDA kernel against its plain version in f64 (rel Linf <= 1e-5:
+    f32 stencils and atomics in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    uvw = _wide_uvw(20000, 11, 20.0)
+    for do_w, nw in ((True, 8), (False, 1)):
+        pt = TG.plan_wgridder(uvw, FREQ, epsilon=1e-5, do_wgridding=do_w, dtype=np.float32, device=dev,
+                              nx=256, ny=256, cellx=1e-4, celly=1e-4)
+        rng = np.random.default_rng(12)
+        vre, vim = (torch.as_tensor(a, device=dev).float() for a in rng.standard_normal((2, pt.nvis)))
+        p0 = max(0, pt.nw // 2 - nw // 2)
+        before = TP.LAUNCHES["scatter_grid_wstack"]
+        tiles = TP.tiles_for(pt)
+        out = TP.scatter_grid_wstack(pt, tiles, vre, vim, p0, nw)
+        torch.cuda.synchronize()
+        assert TP.LAUNCHES["scatter_grid_wstack"] == before + 1
+        ref = TP.scatter_grid_wstack_ref(pt, tiles, vre.double(), vim.double(), p0, nw)
+        assert _rel(out.cpu(), ref.cpu()) < 1e-5

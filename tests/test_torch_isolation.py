@@ -1,0 +1,89 @@
+"""The port stands alone: no module of ``pfb_imaging_tpu_torch`` and nothing
+in ``chip_smoke.py`` imports ``jax`` or the JAX package, and the entry
+points run on the card unless the caller asks for the CPU."""
+
+import ast
+import inspect
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "pfb_imaging_tpu_torch"
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top == "jax" or top == "jaxlib" or top == "pfb_imaging_tpu"
+
+
+def test_sources_import_nothing_of_jax():
+    """Every import statement, at module level or inside a function."""
+    bad = []
+    for path in [*sorted(PKG.rglob("*.py")), ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_every_module_loads_no_jax():
+    """In a fresh interpreter: import every module of the port and
+    ``chip_smoke``, then look at ``sys.modules``."""
+    code = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {str(ROOT)!r})
+import pfb_imaging_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pfb_imaging_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert int(res.stdout.split()[0]) >= 30
+
+
+def _entry_points():
+    from pfb_imaging_tpu_torch.core.deconv import deconv
+    from pfb_imaging_tpu_torch.core.imager import imager, residual_from_parts
+    from pfb_imaging_tpu_torch.deconv.presets import make_sara
+    from pfb_imaging_tpu_torch.ops.gridder import plan_wgridder, wgridder_plan_from_jax
+    from pfb_imaging_tpu_torch.ops.gridder_idg import plan_from_jax, plan_idg
+    from pfb_imaging_tpu_torch.ops.hessian import HessianCube
+
+    return [deconv, imager, residual_from_parts, make_sara, plan_wgridder, wgridder_plan_from_jax, plan_idg,
+            plan_from_jax, HessianCube.build]
+
+
+@pytest.mark.parametrize("fn", _entry_points(), ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_cuda(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_no_silent_cpu_fallback(tmp_path):
+    """Without a card, the default device raises instead of running on the
+    CPU; with one, ``resolve_device`` hands the card back."""
+    from pfb_imaging_tpu_torch import resolve_device
+    from pfb_imaging_tpu_torch.core.imager import imager
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        imager(str(tmp_path / "missing.xds"), str(tmp_path / "out.dt"))
