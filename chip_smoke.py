@@ -15,7 +15,9 @@ exits non-zero:
                B3 (scatter_grid_wstack) at nbig 4096 on random coordinates
                over every tile, W in {6, 8}, nw in {1, 8} (nw = 1: the
                one-plane grid of B5/B6), against its f64 and f32 plain
-               versions (rel Linf <= 1e-5);
+               versions (rel Linf <= 1e-5), and B4 (gather_grid_wstack) on the
+               same plans against its f64 and f32 plain versions (<= 1e-5)
+               and against B3 by the adjoint identity (<= 1e-5);
   3. accuracy — the port's f32 ``vis2dirty_idg`` at 256^2, 100k vis and
                epsilon 1e-7 against a direct f64 DFT on the card, within the
                plan's ``delivered_accuracy`` budgets; and the f32
@@ -42,7 +44,17 @@ exits non-zero:
                have risen after it; products finite, PSF peak / WSUM = 1
                (1e-4), band 0's brightest pixel on a true source, band 0's
                DIRTY within 2e-5 of the port's f64 stack route, and B3 within
-               1e-5 of its f64 plain version at band 0's PSF plan.
+               1e-5 of its f64 plain version at band 0's PSF plan;
+  7. degrid — on the imager phase's store and tree: MODEL (the true
+               sources) in each band node, ``model2comps``, then
+               ``degrid(gridder="pallas", epsilon=1e-5)`` at 2048^2 over the
+               16.1M visibilities, counts zeroed right before it: B4 launched,
+               MODEL_DATA within 10 epsilon of the noise-free visibilities,
+               bin 0 within 2e-5 of the port's f64 classic ``dirty2vis``, B4
+               within 1e-5 of its f64 plain version at bin 0's plan; then
+               the main phase's array as a store and ``degrid(gridder="auto",
+               epsilon=1e-7)``: B2 launched, MODEL_DATA within 1e-5 of the
+               noise-free visibilities.
 Then the kernel summary line (every kernel with its launches on its main
 path, error, ms, plain ms and bound), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -72,6 +84,7 @@ REPLACES = {
     # B3, and B5/B6 as its one-plane case
     "scatter_grid_wstack": "pfb_imaging_tpu/ops/gridder_pallas.py:353; pfb_imaging_tpu/ops/gridder_pallas.py:144; "
                            "pfb_imaging_tpu/ops/gridder_pallas.py:564",
+    "gather_grid_wstack": "pfb_imaging_tpu/ops/gridder_pallas.py:717",
 }
 
 
@@ -191,11 +204,7 @@ def scatter_bound(plan, p0: int, nw: int):
     vre, vim: 28 B a visibility), the grids written once, and 5 f32 flops
     (sten*ww, re*s, im*s and two adds) per stencil cell of every
     (visibility, plane) pair of the chunk whose w-weight is not zero."""
-    if plan.do_wgridding:
-        wr = plan.w_rel.double()
-        pairs = sum(int(((wr - p).abs() < 0.5 * plan.w_support).sum()) for p in range(p0, p0 + nw))
-    else:
-        pairs = plan.nvis
+    pairs = wstack_pairs(plan, p0, nw)
     nbytes = 28 * plan.nvis + nw * 2 * plan.nbig_x * plan.nbig_y * 4
     flops = 5 * pairs * plan.support**2
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
@@ -232,16 +241,117 @@ def scatter_check(plan, vals, p0: int, nw: int, reps: int = 10):
     )
 
 
+def on_plane(plan, p: int):
+    """(nvis,) bool in the plan's sorted stream: the visibilities whose
+    w-weight on plane p is not zero (all of them without w-gridding)."""
+    import torch
+
+    if not plan.do_wgridding:
+        return torch.ones(plan.nvis, dtype=torch.bool, device=plan.w_rel.device)
+    return (plan.w_rel.double() - p).abs() < 0.5 * plan.w_support
+
+
+def wstack_pairs(plan, p0: int, nw: int) -> int:
+    """(visibility, plane) pairs of planes p0 .. p0+nw-1 whose w-weight is
+    not zero (every visibility once for a plan without w-gridding)."""
+    return sum(int(on_plane(plan, p).sum()) for p in range(p0, p0 + nw))
+
+
+def window_cells(plan, p0: int, nw: int) -> int:
+    """Grid cells the gather must read, summed over planes p0 .. p0+nw-1:
+    on each plane, the union of the W x W windows (taken mod nbig) of the
+    visibilities whose w-weight there is not zero."""
+    import torch
+
+    iu = torch.remainder(plan.iu0, plan.nbig_x)
+    iv = torch.remainder(plan.iv0, plan.nbig_y)
+    cells = 0
+    for p in range(p0, p0 + nw):
+        sel = on_plane(plan, p)
+        start = torch.zeros((plan.nbig_x, plan.nbig_y), dtype=torch.bool, device=iu.device)
+        start[iu[sel], iv[sel]] = True
+        rows = start.clone()
+        for i in range(1, plan.support):
+            rows |= start.roll(i, 0)
+        cover = rows.clone()
+        for j in range(1, plan.support):
+            cover |= rows.roll(j, 1)
+        cells += int(cover.sum())
+    return cells
+
+
+def gather_bound(plan, p0: int, nw: int):
+    """The least time (ms) the card could take for one ``gather_grid_wstack``
+    call, and what bounds it: the grid cells some window reads (re, im f32;
+    ``window_cells``) read once, 20 B of per-visibility inputs (lu, lv, du,
+    dv, w_rel), 16 B of accumulator traffic per visibility (re, im read and
+    written), and 4 W^2 + 2 f32 flops (two multiply-adds per stencil cell,
+    the w-weighted add) per (visibility, plane) pair of the chunk whose
+    w-weight is not zero."""
+    pairs, cells = wstack_pairs(plan, p0, nw), window_cells(plan, p0, nw)
+    nbytes = cells * 2 * 4 + (20 + 16) * plan.nvis
+    flops = (4 * plan.support**2 + 2) * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), pairs, cells
+
+
+def gather_check(plan, grids, p0: int, nw: int, reps: int = 10):
+    """B4 on the card against its plain version in f64 and f32 on the same
+    f32 grids (nw, 2, nbig, nbig), with times and the bound."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
+
+    tiles = GP.tiles_for(plan)
+    out = GP.gather_grid_wstack(plan, tiles, grids, p0, nw)
+    torch.cuda.synchronize()
+    ref64 = GP.gather_grid_wstack_ref(plan, tiles, grids.double(), p0, nw)
+    scale = float(ref64.abs().max())
+    err64 = float((out.double() - ref64).abs().max())
+    del ref64
+    ref32 = GP.gather_grid_wstack_ref(plan, tiles, grids, p0, nw)
+    err32 = float((out - ref32).abs().max())
+    del ref32, out
+    torch.cuda.empty_cache()
+    bound_ms, bound_by, pairs, cells = gather_bound(plan, p0, nw)
+    return dict(
+        W=plan.support, nw=nw, p0=p0, plan_nw=plan.nw, nbig=plan.nbig_x, nvis=plan.nvis, nblocks=tiles.nblocks,
+        do_wgridding=plan.do_wgridding, pairs=pairs, window_cells=cells, scale=scale, max_abs_err=err64,
+        rel_vs_f64=err64 / scale, rel_vs_f32=err32 / scale,
+        ms=cuda_ms(lambda: GP.gather_grid_wstack(plan, tiles, grids, p0, nw), reps),
+        plain_ms=cuda_ms(lambda: GP.gather_grid_wstack_ref(plan, tiles, grids, p0, nw), 2),
+        bound_ms=bound_ms, bound_by=bound_by,
+    )
+
+
+def gather_adjoint(plan, p0: int, nw: int, gen) -> float:
+    """|<B4(grids), v> - <grids, B3(v)>| / |<B4(grids), v>| on one tile plan,
+    random f32 grids and values, the sums in f64."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
+
+    tiles = GP.tiles_for(plan)
+    dev = tiles.perm.device
+    grids = torch.randn((nw, 2, plan.nbig_x, plan.nbig_y), generator=gen, device=dev)
+    v = torch.randn((2, plan.nvis), generator=gen, device=dev)
+    lhs = float((GP.gather_grid_wstack(plan, tiles, grids, p0, nw).double() * v.double()).sum())
+    rhs = float((grids.double() * GP.scatter_grid_wstack(plan, tiles, v[0], v[1], p0, nw).double()).sum())
+    return abs(lhs - rhs) / abs(lhs)
+
+
 def phase_kernels_scatter(dev, nvis: int = 2_000_000):
-    """B3 at nbig 4096 on random coordinates spread over every tile and
-    across the grid's wrap, for W in {6, 8} and nw in {1, 8}: nw = 8 is a
-    w-stacked chunk, nw = 1 a plan without w-gridding (the one-plane grid of
-    B5/B6). Held against the f64 and f32 plain versions (rel Linf <= 1e-5)."""
+    """B3 and B4 at nbig 4096 on random coordinates spread over every tile
+    and across the grid's wrap, for W in {6, 8} and nw in {1, 8}: nw = 8 is
+    a w-stacked chunk, nw = 1 a plan without w-gridding (the one-plane grid
+    of B5/B6). Each is held against its f64 and f32 plain versions (rel
+    Linf <= 1e-5), and B4 against B3 by the adjoint identity (<= 1e-5)."""
     import torch
 
     from pfb_imaging_tpu_torch.ops.gridder import _vis2dirty_prepare, plan_wgridder
 
-    out = []
+    out, gathers = [], []
+    gen = torch.Generator(device=dev).manual_seed(4)
     freq = np.array([1.0e9, 1.1e9])
     cell = 4e-6
     for W, eps in ((6, 1e-5), (8, 1e-7)):
@@ -263,9 +373,17 @@ def phase_kernels_scatter(dev, nvis: int = 2_000_000):
             require(rec["rel_vs_f64"] <= 1e-5, f"B3 W={W} nw={nw} vs f64 plain")
             require(rec["rel_vs_f32"] <= 1e-5, f"B3 W={W} nw={nw} vs f32 plain")
             out.append(rec)
-            del plan, vals
+            del vals
+            grids = torch.randn((nw, 2, plan.nbig_x, plan.nbig_y), generator=gen, device=dev)
+            rec = dict(gather_check(plan, grids, p0, nw), adjoint_rel=gather_adjoint(plan, p0, nw, gen))
+            emit({"phase": "kernels", "kernel": "gather_grid_wstack", **rec})
+            require(rec["rel_vs_f64"] <= 1e-5, f"B4 W={W} nw={nw} vs f64 plain")
+            require(rec["rel_vs_f32"] <= 1e-5, f"B4 W={W} nw={nw} vs f32 plain")
+            require(rec["adjoint_rel"] <= 1e-5, f"B4/B3 W={W} nw={nw} adjoint identity")
+            gathers.append(rec)
+            del plan, grids
             torch.cuda.empty_cache()
-    return out
+    return out, gathers
 
 
 def bench_coords(rng, nrow: int, nchan: int):
@@ -365,6 +483,20 @@ def synth_array(nant: int, ntime: int, seed: int, wscale: float = 0.01):
     return np.stack([u.ravel(), v.ravel(), w.ravel()], -1)
 
 
+def channels(nchan: int) -> np.ndarray:
+    """Centres of ``nchan`` equal channels over 856-1712 MHz (MeerKAT L band)."""
+    edges = np.linspace(856e6, 1712e6, nchan + 1)
+    return 0.5 * (edges[:-1] + edges[1:])
+
+
+def point_sources(nx: int, nsrc: int, seed: int) -> list:
+    """``nsrc`` seeded (pixel x, pixel y, flux) sources in the inner half of
+    an nx^2 image, fluxes uniform in [0.1, 1)."""
+    rng = np.random.default_rng(seed)
+    return [(int(p), int(q), float(f)) for p, q, f in zip(
+        rng.integers(nx // 4, 3 * nx // 4, nsrc), rng.integers(nx // 4, 3 * nx // 4, nsrc), rng.uniform(0.1, 1.0, nsrc))]
+
+
 def sky_vis(uvw_d, freq, srcs, cell: float, nx: int, noise: float, gen):
     """Point-source visibilities summed on the card in f64, plus complex
     Gaussian noise; returned as (re, im) f32 tensors (nrow, nchan)."""
@@ -401,11 +533,8 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     nx_psf = 2 * nx
     cell = 8e-6 * 1024 / nx
     uvw = synth_array(nant, ntime, seed)
-    edges = np.linspace(856e6, 1712e6, nband * nchan_band + 1)
-    chans = 0.5 * (edges[:-1] + edges[1:])
-    rng = np.random.default_rng(seed)
-    srcs = [(int(p), int(q), float(f)) for p, q, f in zip(
-        rng.integers(nx // 4, 3 * nx // 4, nsrc), rng.integers(nx // 4, 3 * nx // 4, nsrc), rng.uniform(0.1, 1.0, nsrc))]
+    chans = channels(nband * nchan_band)
+    srcs = point_sources(nx, nsrc, seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     nvis = uvw.shape[0] * chans.size
     rec = dict(nx=nx, nx_psf=nx_psf, nband=nband, nrow=uvw.shape[0], nvis=nvis, epsilon=eps, cell_rad=cell)
@@ -566,11 +695,8 @@ def phase_imager(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int 
     cell_arcsec = 0.8251
     cell = cell_arcsec * np.pi / 180 / 3600
     uvw = synth_array(nant, ntime, seed, wscale=1.0)
-    edges = np.linspace(856e6, 1712e6, nchan + 1)
-    chans = 0.5 * (edges[:-1] + edges[1:])
-    rng = np.random.default_rng(seed)
-    srcs = [(int(p), int(q), float(f)) for p, q, f in zip(
-        rng.integers(nx // 4, 3 * nx // 4, nsrc), rng.integers(nx // 4, 3 * nx // 4, nsrc), rng.uniform(0.1, 1.0, nsrc))]
+    chans = channels(nchan)
+    srcs = point_sources(nx, nsrc, seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if workdir.exists():
         shutil.rmtree(workdir)
@@ -645,8 +771,154 @@ def phase_imager(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int 
     require(b3["rel_vs_f64"] <= 1e-5, "B3 vs f64 plain at band 0's PSF plan")
     del plan, vals, wm, ones
     torch.cuda.empty_cache()
+    # the store and the tree stay for the degrid phase, which removes them
+    return b3, launches, dict(workdir=workdir, uvw=uvw, chans=chans, srcs=srcs, nx=nx)
+
+
+def sky_model_mds(path: Path, srcs, nx: int, freqs, device):
+    """A .mds of point sources with a flat spectrum over ``freqs`` (one time),
+    fitted by the port's ``fit_image_cube``."""
+    from pfb_imaging_tpu_torch.utils.modelspec import fit_image_cube, save_mds
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    cube = np.zeros((1, len(freqs), nx, nx))
+    for p, q, flux in srcs:
+        cube[:, :, p, q] = flux
+    coeffs, ix, iy, mattrs = fit_image_cube(np.zeros(1), np.asarray(freqs), cube, device=device)
+    save_mds(TreeStore(path, mode="w"), coeffs, ix, iy, mattrs)
+    return str(path)
+
+
+def model_data_error(xds_path: Path, srcs, cell: float, nx: int, dev) -> dict:
+    """MODEL_DATA of the store's one partition against the noise-free
+    visibilities of ``srcs`` summed on the card: rel Linf against max|V|."""
+    import torch
+
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    g = TreeStore(xds_path).group("scan0000")
+    uvw, freq = np.asarray(g.read("UVW")), np.asarray(g.read("FREQ"))
+    re, im = sky_vis(torch.as_tensor(uvw, device=dev), freq, srcs, cell, nx, 0.0, None)
+    md = torch.as_tensor(np.asarray(g.read("MODEL_DATA")), device=dev)
+    err = float(torch.maximum((md.real - re.double()).abs(), (md.imag - im.double()).abs()).max())
+    scale = float(torch.complex(re, im).abs().max())
+    return dict(max_abs_err=err, max_abs_vis=scale, rel_linf=err / scale, shape=list(md.shape))
+
+
+def phase_degrid(dev, ctx: dict, eps_pallas: float = 1e-5, eps_auto: float = 1e-7, main_seed: int = 42,
+                 nant: int = 64, ntime: int = 500, nband: int = 4, nsrc: int = 24):
+    """The degrid main path, two routes at full width.
+
+    (a) pallas (B4): the imager phase's store and tree (the array with its
+    own w, 16 channels, 16.1M visibilities); MODEL written into each band
+    node (its true sources, flat spectrum), the port's ``model2comps``, then
+    ``degrid(gridder="pallas", epsilon=1e-5)`` at 2048^2 (nbig 4096), the
+    counts zeroed right before it. Checks: B4 launched; MODEL_DATA within
+    10 epsilon (rel Linf against max|V|) of the noise-free visibilities;
+    bin 0 within 2e-5 of the port's f64 classic ``dirty2vis``; B4 within
+    1e-5 of its f64 plain version at bin 0's plan, one 8-plane chunk.
+    (b) auto (IDG on B2): the main phase's array (w x 0.01) as a store and
+    a .mds of its sources; ``degrid(gridder="auto", epsilon=1e-7)``. Checks:
+    B2 launched; MODEL_DATA within 1e-5 of the noise-free visibilities."""
+    import torch
+
+    from pfb_imaging_tpu_torch.core import degrid as TD
+    from pfb_imaging_tpu_torch.core.model2comps import model2comps
+    from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
+    from pfb_imaging_tpu_torch.ops.gridder import _dirty2vis_prepare, _plane_grid, dirty2vis, plan_wgridder
+    from pfb_imaging_tpu_torch.utils.modelspec import eval_coeffs_to_slice, load_mds
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    workdir, srcs, nx = ctx["workdir"], ctx["srcs"], ctx["nx"]
+    xds, dt = workdir / "smoke.xds", TreeStore(workdir / "smoke.dt")
+    cell = float(dt.attrs["cell_rad"])
+    model = np.zeros((nx, nx))
+    for p, q, flux in srcs:
+        model[p, q] = flux
+    for key in dt.groups():
+        dt.group(key).write("MODEL", model)
+    t0 = time.perf_counter()
+    mds = model2comps(str(dt.path), str(workdir / "smoke.mds"), device=dev)
+    m2c_s = time.perf_counter() - t0
+    require(np.asarray(mds.read("coefficients")).shape[1] == len(srcs), "one component per source")
+
+    # (a) the pallas route: counts zeroed right before degrid
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    TD.degrid(str(workdir / "smoke.mds"), str(xds), cell, gridder="pallas", epsilon=eps_pallas, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    stats = {k: v for k, v in TD.DEGRID_STATS.items() if k != "bins"}
+    rec = dict(route="pallas", degrid_seconds=wall, model2comps_seconds=m2c_s, **stats,
+               nw=[b["nw"] for b in TD.DEGRID_STATS["bins"]], routes=[b["route"] for b in TD.DEGRID_STATS["bins"]],
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches,
+               vs_sky=model_data_error(xds, srcs, cell, nx, dev))
+    emit({"phase": "degrid", "stage": "pallas", **rec})
+    require(launches["gather_grid_wstack"] > 0, "B4 launched during degrid(gridder='pallas')")
+    require(rec["vs_sky"]["rel_linf"] <= 10 * eps_pallas, "pallas MODEL_DATA within 10 eps of the sky")
+
+    # bin 0: the f64 classic dirty2vis of the same model, and B4 at its plan
+    g = TreeStore(xds).group("scan0000")
+    uvw, freq = np.asarray(g.read("UVW")), np.asarray(g.read("FREQ"))
+    coeffs, ix, iy, ma = load_mds(TreeStore(workdir / "smoke.mds"))
+    chans = np.arange(len(freq))[: len(freq) // len(ma["freqs"])]
+    img = eval_coeffs_to_slice(0.0, float(freq[chans].mean()), coeffs, ix, iy, ma)
+    kw = dict(nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=eps_pallas, divide_by_n=False, device=dev)
+    t0 = time.perf_counter()
+    plan64 = plan_wgridder(uvw, freq[chans], dtype=np.float64, **kw)
+    v64 = dirty2vis(plan64, torch.as_tensor(img, device=dev))
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    md0 = torch.as_tensor(np.asarray(g.read("MODEL_DATA"))[:, chans], device=dev)
+    stack_rel = float((md0 - v64).abs().max() / v64.abs().max())
+    del plan64, v64, md0
+    plan = plan_wgridder(uvw, freq[chans], dtype=np.float32, **kw)
+    nw = min(GP.PLANE_CHUNK, plan.nw)
+    p0 = max(0, plan.nw // 2 - nw // 2)
+    ieff = _dirty2vis_prepare(plan, torch.as_tensor(img, device=dev))
+    grids = torch.stack([torch.view_as_real(_plane_grid(plan, ieff, p0 + q)).permute(2, 0, 1) for q in range(nw)])
+    fft_ms = cuda_ms(lambda: [_plane_grid(plan, ieff, p0 + q) for q in range(nw)], 3) / nw
+    b4 = gather_check(plan, grids.contiguous(), p0, nw, reps=5)
+    checks = dict(bin0_vs_stack_f64_rel=stack_rel, stack_f64_seconds=stack_s, plane_grid_ms=fft_ms, b4_at_bin0_plan=b4)
+    emit({"phase": "degrid", "stage": "checks", **checks})
+    require(stack_rel <= 2e-5, "bin 0 MODEL_DATA (pallas, f32) vs the classic dirty2vis (f64)")
+    require(b4["rel_vs_f64"] <= 1e-5, "B4 vs f64 plain at bin 0's plan")
+    del plan, grids, ieff
+    torch.cuda.empty_cache()
     shutil.rmtree(workdir)
-    return b3, launches, summary
+
+    # (b) the auto route on the main phase's array
+    workdir.mkdir(parents=True)
+    uvw = synth_array(nant, ntime, main_seed)
+    chans = channels(len(ctx["chans"]))
+    cell_m = 8e-6 * 1024 / nx
+    srcs_m = point_sources(nx, nsrc, main_seed)
+    zeros = torch.zeros((uvw.shape[0], chans.size), device=dev)
+    write_xds(workdir / "main.xds", uvw, chans, zeros, zeros)
+    del zeros
+    band_f = chans.reshape(nband, -1).mean(axis=1)
+    mds_m = sky_model_mds(workdir / "main.mds", srcs_m, nx, band_f, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    TD.degrid(mds_m, str(workdir / "main.xds"), cell_m, gridder="auto", epsilon=eps_auto, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_auto = read_counts()
+    stats = {k: v for k, v in TD.DEGRID_STATS.items() if k != "bins"}
+    rec_auto = dict(route="auto", degrid_seconds=wall, **stats, bins=TD.DEGRID_STATS["bins"],
+                    max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches_auto,
+                    vs_sky=model_data_error(workdir / "main.xds", srcs_m, cell_m, nx, dev))
+    emit({"phase": "degrid", "stage": "auto", **rec_auto})
+    require(launches_auto["vals_from_patches"] > 0, "B2 launched during degrid(gridder='auto')")
+    require(all(b["route"] == "idg" for b in rec_auto["bins"]), "auto routed every bin to IDG")
+    require(rec_auto["vs_sky"]["rel_linf"] <= 1e-5, "auto (IDG) MODEL_DATA within 1e-5 of the sky")
+    shutil.rmtree(workdir)
+    return b4, launches, dict(pallas=rec, checks=checks, auto=rec_auto)
 
 
 def zero_counts() -> None:
@@ -787,11 +1059,12 @@ def main() -> int:
     emit({"phase": "device", "build_seconds": time.perf_counter() - t0, "library": build.library_path().name})
 
     kern = phase_kernels(dev)
-    scat = phase_kernels_scatter(dev)
+    scat, gath = phase_kernels_scatter(dev)
     phase_accuracy(dev)
     phase_accuracy_pallas(dev)
     timing, launches, _ = phase_main(dev, ROOT / "build" / "chip_smoke")
-    b3, im_launches, _ = phase_imager(dev, ROOT / "build" / "chip_smoke_imager")
+    b3, im_launches, ctx = phase_imager(dev, ROOT / "build" / "chip_smoke_imager")
+    b4, dg_launches, _ = phase_degrid(dev, ctx)
 
     kernels = []
     for name, tag in (("patches_from_vals", "b1"), ("vals_from_patches", "b2")):
@@ -810,6 +1083,14 @@ def main() -> int:
         bound_by=b3["bound_by"], library_ms=None,
         ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in scat},
         plain_ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["plain_ms"] for r in scat},
+    ))
+    kernels.append(dict(
+        name="gather_grid_wstack", route="cuda", source="pfb_imaging_tpu_torch/csrc/gridder_gather.cu",
+        replaces=REPLACES["gather_grid_wstack"], launches=dg_launches["gather_grid_wstack"],
+        max_abs_err=b4["max_abs_err"], ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound_ms"],
+        bound_by=b4["bound_by"], library_ms=None,
+        ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in gath},
+        plain_ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["plain_ms"] for r in gath},
     ))
     emit({"kernels": kernels})
     print(smi, flush=True)

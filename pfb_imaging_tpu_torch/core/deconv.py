@@ -164,7 +164,7 @@ def deconv(
             freqs_u = freq_out.reshape(nband_f, ntime)[:, 0]
             mcube = model.reshape(nband_f, ntime, nx, ny).transpose(1, 0, 2, 3)
             coeffs, ix, iy, mattrs = fit_image_cube(times_u, freqs_u, mcube, nbasisf=nbasisf or nband_f,
-                                                    nbasist=min(ntime, 2))
+                                                    nbasist=min(ntime, 2), device=dev)
             save_mds(TreeStore(str(dt.path).replace(".dt", ".mds"), mode="w"), coeffs, ix, iy, mattrs)
             mcube = eval_coeffs_to_cube(times_u, freqs_u, coeffs, ix, iy, mattrs)
             model = mcube.transpose(1, 0, 2, 3).reshape(nband, nx, ny)

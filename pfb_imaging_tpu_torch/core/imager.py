@@ -9,11 +9,15 @@ PSFPARSN, the MFS products, the root attributes with ``complete=True``, and
 the FITS output. ``gridder`` routes as in the JAX package: "pallas" (the
 classic plan through the w-stacked scatter kernel), "stack" (the classic
 gridder in plain torch), "idg", or "auto" (IDG unless its accuracy envelope
-or the slot-padding probe on the narrowest band says stack).
+or the slot-padding probe on the narrowest band says stack). With
+``model_mds`` it transfers a component model first: per partition the model
+is rendered at the partition's time and the band's mean frequency,
+predicted (``dirty2vis_idg`` on the IDG route, the classic ``dirty2vis``
+otherwise, "pallas" included, as in the JAX package) and subtracted, and
+``l2_reweight_dof`` then reweights the residual visibilities (Student-t).
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: model transfer (``model_mds`` / ``l2_reweight_dof``), the
-device mesh, multi-host runs and IDG wplanes layouts.
+ROADMAP.md item: the device mesh, multi-host runs and IDG wplanes layouts.
 
 ``residual_from_parts`` computes DIRTY - sum_p R_p^H W_p R_p (B_p model) per
 band: the IDG round trip where the planner accepts the partition, else (for
@@ -33,11 +37,13 @@ from .. import real_dtype, resolve_device, to_device
 from ..constants import LIGHTSPEED
 from ..geometry import fitcleanbeam, set_image_size, wgridder_conventions
 from ..ops.gridder import dirty2vis, plan_wgridder, vis2dirty
-from ..ops.gridder_idg import IDG_MIN_EPS, hessian_vis_idg, idg_slot_factor, plan_idg, to_group_layout, vis2dirty_idg
+from ..ops.gridder_idg import (IDG_MIN_EPS, dirty2vis_idg, hessian_vis_idg, idg_slot_factor, plan_idg,
+                               to_group_layout, vis2dirty_idg)
 from ..ops.gridder_pallas import vis2dirty_scatter
-from ..ops.weighting import box_sum_counts, compute_counts, counts_to_weights, filter_extreme_counts
+from ..ops.weighting import box_sum_counts, compute_counts, counts_to_weights, filter_extreme_counts, l2_reweight
 from ..utils.fits import save_fits, set_wcs
 from ..utils.logging import get_logger
+from ..utils.modelspec import eval_coeffs_to_slice, load_mds
 from ..utils.store import TreeStore, band_key, part_key
 
 log = get_logger("IMAGER")
@@ -125,9 +131,6 @@ def imager(
     CPU (the JAX default), f32 on the card, whose kernels are f32-only."""
     if gridder not in GRIDDERS:
         raise ValueError(f"gridder {gridder!r} not in {GRIDDERS}")
-    if model_mds is not None or l2_reweight_dof:
-        raise NotImplementedError("model transfer (model_mds, l2_reweight_dof) is not ported yet "
-                                  "(ROADMAP.md, queue A: imager model transfer)")
     if use_mesh:
         raise NotImplementedError("the device mesh is not ported yet (ROADMAP.md, queue A: parallel/)")
     if _multihost():
@@ -139,7 +142,8 @@ def imager(
         rdt = torch.float64 if double_precision else torch.float32
     t_start = time.perf_counter()
     IMAGER_STATS.clear()
-    IMAGER_STATS.update(plan_seconds=0.0, grid_seconds=0.0, wait_seconds=0.0, write_seconds=0.0, nvis=0, plans=[])
+    IMAGER_STATS.update(plan_seconds=0.0, grid_seconds=0.0, wait_seconds=0.0, write_seconds=0.0,
+                        model_seconds=0.0, nvis=0, plans=[])
 
     xds = TreeStore(xds_path)
     attrs = xds.attrs
@@ -157,6 +161,7 @@ def imager(
 
     bands = band_mapping(freqs, nband)
     parts = xds.groups()
+    model = load_mds(TreeStore(model_mds)) if model_mds is not None else None
 
     out = TreeStore(output_store, mode="w")
     # a killed run must not leave a tree that passes require_complete
@@ -289,6 +294,16 @@ def imager(
             b, ip, key, uvw, f, vis, wgt, mask, wm, l0, m0, plan_im, plan_psf, beam_p, plan_s = \
                 pending.popleft().result()
             t1 = time.perf_counter()
+            if model is not None:
+                # residual visibilities, then optional Student-t reweighting
+                img = to_device(eval_coeffs_to_slice(float(part_times[ip]), float(f.mean()), *model), dev, rdt)
+                vis = vis - (dirty2vis_idg if use_idg else dirty2vis)(plan_im, img).cpu().numpy()
+                if l2_reweight_dof:
+                    wgt = l2_reweight(vis, wgt, mask, l2_reweight_dof)
+                    wm = to_device(wgt * mask, dev, rdt)
+                t2 = time.perf_counter()
+                IMAGER_STATS["model_seconds"] += t2 - t1
+                t1 = t2
             dirty_p = grid_image(plan_im, vis, wm)
             psf_p = grid_image(plan_psf, _psf_vis(uvw, f, l0, m0), wm)
             wsum_p = float(wgt[mask.astype(bool)].sum())

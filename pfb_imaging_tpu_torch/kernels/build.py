@@ -96,6 +96,10 @@ def _load():
     # out; nblocks, W, beta, nbig_x, nbig_y, nty, w_support, do_w, p0, nw, stream
     lib.pfb_scatter_grid_wstack.argtypes = [vp] * 11 + [i, i, f, i, i, i, i, i, i, i, vp]
     lib.pfb_scatter_grid_wstack.restype = i
+    # blocks (tile, start, count), per-vis lu, lv, du, dv, wrel, grids, acc;
+    # nvis, nblocks, W, beta, nbig_x, nbig_y, nty, w_support, do_w, p0, nw, stream
+    lib.pfb_gather_grid_wstack.argtypes = [vp] * 10 + [ll, i, i, f, i, i, i, i, i, i, i, vp]
+    lib.pfb_gather_grid_wstack.restype = i
     lib.pfb_error_string.argtypes = [i]
     lib.pfb_error_string.restype = ctypes.c_char_p
     return lib

@@ -383,16 +383,27 @@ def _dirty2vis_finish_ri(plan: WGridderPlan, vis_ri, mask=None):
     return out
 
 
+def _dirty2vis_prepare(plan: WGridderPlan, image):
+    """The corrected image ``image * corr * cw`` as a complex tensor."""
+    ieff = image.to(device=plan.device, dtype=plan.rdt) * plan.corr_img * plan.cw_img
+    return ieff.to(complex_dtype(plan.rdt))
+
+
+def _plane_grid(plan: WGridderPlan, ieff, p: int):
+    """Plane ``p``'s complex (nbig_x, nbig_y) uv grid of the corrected image:
+    w-screen, pad, ifftshift, fft2."""
+    a = ieff * _screen(plan, p, 1.0) if plan.do_wgridding else ieff
+    return torch.fft.fft2(torch.fft.ifftshift(_pad_center(plan, a)))
+
+
 def dirty2vis(plan: WGridderPlan, image, mask=None):
     """Degrid an (nx, ny) image to complex (nrow, nchan) visibilities."""
-    cdt = complex_dtype(plan.rdt)
-    ieff = image.to(device=plan.device, dtype=plan.rdt) * plan.corr_img * plan.cw_img
+    ieff = _dirty2vis_prepare(plan, image)
     vis_ri = torch.zeros((2, plan.nvis), dtype=plan.rdt, device=plan.device)
     for p in range(plan.nw):
         if not plan.plane_count[p]:
             continue
-        a = ieff.to(cdt) * _screen(plan, p, 1.0) if plan.do_wgridding else ieff.to(cdt)
-        grid = torch.fft.fft2(torch.fft.ifftshift(_pad_center(plan, a)))
+        grid = _plane_grid(plan, ieff, p)
         grid_ri = torch.stack([grid.real, grid.imag])
         for sl in _chunks(plan, p):
             iu, iv, ku, kv = _uv_stencil(plan, sl)

@@ -18,7 +18,8 @@ Runtime (torch, per w-bin loop):
            ifft2 -> crop -> screen -> sum over bins -> correction;
   forward  its exact transpose: correction -> screen -> fft2 -> periodic
            window extraction -> patches -> group values (kernel B2,
-           ``idg_fused.vals_from_patches``).
+           ``idg_fused.vals_from_patches``) -> slot phase and hermitian
+           sign -> one scatter back to the visibilities (``dirty2vis_idg``).
 The production major cycle keeps weights in group layout
 (``to_group_layout``) so ``hessian_vis_idg`` runs gather-free.
 
@@ -44,8 +45,9 @@ from ..constants import LIGHTSPEED
 from ..geometry import conventions_signs, good_size
 from . import idg_fused
 
-__all__ = ["IDGPlan", "plan_idg", "vis2dirty_idg", "vis2dirty_idg_grouped", "dirty2vis_idg_grouped",
-           "to_group_layout", "hessian_vis_idg", "delivered_accuracy", "plan_from_jax", "idg_slot_factor", "IDG_MIN_EPS"]
+__all__ = ["IDGPlan", "plan_idg", "vis2dirty_idg", "vis2dirty_idg_grouped", "dirty2vis_idg", "dirty2vis_idg_grouped",
+           "to_group_layout", "hessian_vis_idg", "delivered_accuracy", "plan_from_jax", "idg_slot_factor",
+           "IDG_MIN_EPS"]
 
 IDG_MIN_EPS = 1e-8  # tightest epsilon the adaptive-subgrid fit covers
 CHIRP_BUDGET = 0.1  # max |image chirp phase| (rad) the taper fit absorbs
@@ -709,6 +711,28 @@ def dirty2vis_idg_grouped(plan: IDGPlan, image):
     of :func:`vis2dirty_idg_grouped`."""
     patches = _idg_bins_to_grid_patches(plan, image)
     return idg_fused.vals_from_patches(patches, plan.scal, plan.wcu, plan.wcv, plan.S)
+
+
+def dirty2vis_idg(plan: IDGPlan, image, mask=None, split: bool = False):
+    """Degrid an (nx, ny) image to (nrow, nchan) visibilities, the exact
+    conjugate transpose of :func:`vis2dirty_idg`: group values times the
+    slot phase, the hermitian sign on the imaginary part, then one scatter
+    of the slots back to their visibilities (empty slots land on a dropped
+    extra entry). Complex, or (2, nrow, nchan) with ``split``."""
+    image = torch.as_tensor(image).to(device=plan.device, dtype=plan.rdt)
+    vals = dirty2vis_idg_grouped(plan, image)
+    pre, pim = plan.phase_re, plan.phase_im
+    vre = vals[0] * pre - vals[1] * pim
+    vim = vals[0] * pim + vals[1] * pre
+    if plan.hermitian:
+        vim = vim * plan.sg
+    nvis = plan.nrow * plan.nchan
+    out = vals.new_zeros((2, nvis + 1))
+    out[:, plan.cg_idx.reshape(-1)] = torch.stack([vre.reshape(-1), vim.reshape(-1)])
+    out = out[:, :nvis].reshape(2, plan.nrow, plan.nchan)
+    if mask is not None:
+        out = out * torch.as_tensor(mask).to(device=plan.device, dtype=plan.rdt)[None]
+    return out if split else torch.complex(out[0], out[1])
 
 
 def to_group_layout(plan: IDGPlan, arr):

@@ -1,4 +1,4 @@
-"""The w-stacked scatter core of ``gridder="pallas"`` (port of
+"""The w-stacked scatter and gather cores of ``gridder="pallas"`` (port of
 pfb_imaging_tpu/ops/gridder_pallas.py; the name is kept so the counterpart
 is easy to find).
 
@@ -16,13 +16,20 @@ not copy that). On a CUDA tensor it launches the hand-written kernel of
 ``pallas_scatter_grid_wstack`` (B3) and, as its one-plane case,
 ``pallas_scatter_grid`` (B5) and ``pallas_scatter_grid_grouped`` (B6); on a
 CPU tensor it runs the plain version ``scatter_grid_wstack_ref`` (plane
-buckets and ``index_add_``). ``LAUNCHES`` counts kernel launches.
+buckets and ``index_add_``).
+
+``gather_grid_wstack`` is its transpose, the degrid core: per visibility,
+sum_p ww_p(w) sum_ij es es grid_p[iu + i, iv + j] over a chunk of planes.
+On a CUDA tensor it launches ``csrc/gridder_gather.cu``, which replaces
+``pallas_gather_grid`` (B4); on a CPU tensor it runs
+``gather_grid_wstack_ref`` (the classic ``dirty2vis`` loop over each
+plane's bucket). ``LAUNCHES`` counts kernel launches.
 
 The tile plan is the port's own, sized for Hopper's shared memory: a block
 owns a ``TILE`` x ``TILE`` uv tile plus a W-1 cell apron for a chunk of at
 most ``BLOCK_VIS`` of the tile's visibilities and ``PLANE_CHUNK`` planes.
-Windows that wrap the grid edge are handled in the kernel (cell indices
-taken mod nbig), so no visibility goes around it.
+Windows that wrap the grid edge are handled in the kernels (cell indices
+taken mod nbig), so no visibility goes around them.
 """
 
 from __future__ import annotations
@@ -33,14 +40,15 @@ import weakref
 import numpy as np
 import torch
 
-from .gridder import WGridderPlan, _as_ri, _plane_image, _scatter_plane, _vis2dirty_finish, _vis2dirty_prepare
+from .gridder import (WGridderPlan, _as_ri, _chunks, _dirty2vis_finish_ri, _dirty2vis_prepare, _plane_grid,
+                      _plane_image, _scatter_plane, _uv_stencil, _vis2dirty_finish, _vis2dirty_prepare, _w_weight)
 from .. import complex_dtype
 
 TILE = 32  # uv cells per tile side
 BLOCK_VIS = 4096  # visibilities per block at most (a busy tile gets several blocks)
-PLANE_CHUNK = 8  # w-planes per kernel pass (shared-memory accumulators)
+PLANE_CHUNK = 8  # w-planes per kernel pass (shared-memory tiles)
 MAX_SUPPORT = 16
-LAUNCHES = {"scatter_grid_wstack": 0}
+LAUNCHES = {"scatter_grid_wstack": 0, "gather_grid_wstack": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,19 +124,27 @@ def scatter_grid_wstack_ref(plan: WGridderPlan, tiles: ScatterTiles, vre, vim, p
 
 
 def _check_launch(plan: WGridderPlan, tiles: ScatterTiles, vre, vim, p0: int, nw: int) -> None:
+    _check_chunk(plan, p0, nw)
+    for name, t in (("vre", vre), ("vim", vim)):
+        _check_tensor(name, t, (plan.nvis,), tiles)
+
+
+def _check_chunk(plan: WGridderPlan, p0: int, nw: int) -> None:
     if not (1 <= nw <= PLANE_CHUNK and 0 <= p0 and p0 + nw <= plan.nw):
         raise ValueError(f"plane chunk [{p0}, {p0 + nw}) outside 1..{PLANE_CHUNK} planes of 0..{plan.nw}")
     if plan.support > MAX_SUPPORT:
         raise ValueError(f"kernel support {plan.support} > {MAX_SUPPORT}")
     if not plan.do_wgridding and nw != 1:
         raise ValueError("a plan without w-gridding has one plane")
-    for name, t in (("vre", vre), ("vim", vim)):
-        if t.device != tiles.perm.device:
-            raise ValueError(f"{name} is on {t.device}, the tiles on {tiles.perm.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
-        if tuple(t.shape) != (plan.nvis,) or not t.is_contiguous():
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != ({plan.nvis},) or not contiguous")
+
+
+def _check_tensor(name: str, t, shape: tuple, tiles: ScatterTiles) -> None:
+    if t.device != tiles.perm.device:
+        raise ValueError(f"{name} is on {t.device}, the tiles on {tiles.perm.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape} or not contiguous")
 
 
 def scatter_grid_wstack(plan: WGridderPlan, tiles: ScatterTiles, vre, vim, p0: int, nw: int):
@@ -170,6 +186,74 @@ def vis2dirty_pallas_wstack(plan: WGridderPlan, tiles: ScatterTiles, vis_re, vis
     return _vis2dirty_finish(plan, acc)
 
 
+def gather_grid_wstack_ref(plan: WGridderPlan, tiles: ScatterTiles, grids, p0: int, nw: int):
+    """Plain version: per visibility, in tile order, (2, nvis) in ``grids``'
+    dtype, sum over planes p0 .. p0+nw-1 of ``ww_p(w)`` times the stencil-
+    weighted window sum of plane p's grid ``grids[p - p0]`` (the classic
+    ``dirty2vis`` inner loop over each plane's bucket)."""
+    dt = grids.dtype
+    out = grids.new_zeros((2, plan.nvis))  # the sorted stream
+    for q in range(nw):
+        p = p0 + q
+        for sl in _chunks(plan, p):
+            iu, iv, ku, kv = _uv_stencil(plan, sl, dt)
+            g = grids[q][:, iu[:, :, None], iv[:, None, :]]
+            kw2 = (ku[:, :, None] * kv[:, None, :]) * _w_weight(plan, plan.w_rel[sl].to(dt), p)[:, None, None]
+            out[:, sl] += (g * kw2[None]).sum(dim=(2, 3))
+    return out.index_select(1, tiles.perm)
+
+
+def gather_grid_wstack(plan: WGridderPlan, tiles: ScatterTiles, grids, p0: int, nw: int, out=None):
+    """Degrid planes p0 .. p0+nw-1 (nw <= ``PLANE_CHUNK``) of the w-stacked
+    ``grids`` (nw, 2, nbig_x, nbig_y) and add the result, (2, nvis) in tile
+    order, into ``out`` (zeros when None), which is returned: the plain
+    version for CPU tensors, else the CUDA kernel (f32)."""
+    if out is None:
+        out = grids.new_zeros((2, plan.nvis))
+    if grids.device.type == "cpu":
+        return out.add_(gather_grid_wstack_ref(plan, tiles, grids, p0, nw))
+    _check_chunk(plan, p0, nw)
+    _check_tensor("grids", grids, (nw, 2, plan.nbig_x, plan.nbig_y), tiles)
+    _check_tensor("out", out, (2, plan.nvis), tiles)
+    if tiles.nblocks:
+        from ..kernels.build import check, load
+
+        code = load().pfb_gather_grid_wstack(
+            tiles.blk_tile.data_ptr(), tiles.blk_start.data_ptr(), tiles.blk_count.data_ptr(), tiles.lu.data_ptr(),
+            tiles.lv.data_ptr(), tiles.du.data_ptr(), tiles.dv.data_ptr(), tiles.w_rel.data_ptr(),
+            grids.data_ptr(), out.data_ptr(), plan.nvis, tiles.nblocks, plan.support, float(plan.beta), plan.nbig_x,
+            plan.nbig_y, tiles.nty, plan.w_support, int(plan.do_wgridding), p0, nw,
+            torch.cuda.current_stream(grids.device).cuda_stream,
+        )
+        check(code, "gather_grid_wstack")
+        LAUNCHES["gather_grid_wstack"] += 1
+    return out
+
+
+def dirty2vis_pallas_wstack(plan: WGridderPlan, tiles: ScatterTiles, image, mask=None):
+    """dirty2vis through the w-stacked gather, ``PLANE_CHUNK`` planes per
+    pass: the chunk's non-empty planes' grids (the classic screen, pad,
+    ifftshift, fft2), one gather into a tile-order accumulator, then one
+    un-permute and the classic phase-shift epilogue. Returns (2, nrow,
+    nchan)."""
+    ieff = _dirty2vis_prepare(plan, image)
+    acc = torch.zeros((2, plan.nvis), dtype=plan.rdt, device=plan.device)
+    for p0 in range(0, plan.nw, PLANE_CHUNK):
+        nwc = min(PLANE_CHUNK, plan.nw - p0)
+        if not any(plan.plane_count[p0 : p0 + nwc]):
+            continue
+        grids = torch.empty((nwc, 2, plan.nbig_x, plan.nbig_y), dtype=plan.rdt, device=plan.device)
+        for q in range(nwc):
+            if plan.plane_count[p0 + q]:
+                grids[q] = torch.view_as_real(_plane_grid(plan, ieff, p0 + q)).permute(2, 0, 1)
+            else:
+                grids[q].zero_()
+        gather_grid_wstack(plan, tiles, grids, p0, nwc, out=acc)
+        del grids
+    vis = torch.empty_like(acc).index_copy_(1, tiles.perm, acc)  # back to the sorted stream
+    return _dirty2vis_finish_ri(plan, vis, mask)
+
+
 def _require_f32(plan: WGridderPlan) -> None:
     if plan.rdt != torch.float32:
         raise ValueError(
@@ -182,3 +266,11 @@ def vis2dirty_scatter(plan: WGridderPlan, vis, wgt=None, mask=None, vis_im=None)
     """Classic-stack-signature adjoint through the w-stacked scatter core."""
     _require_f32(plan)
     return vis2dirty_pallas_wstack(plan, tiles_for(plan), *_as_ri(vis, vis_im), wgt, mask)
+
+
+def dirty2vis_scatter(plan: WGridderPlan, image, mask=None, split: bool = False):
+    """Classic-stack-signature forward through the w-stacked gather core:
+    complex (nrow, nchan) visibilities, or (2, nrow, nchan) with ``split``."""
+    _require_f32(plan)
+    out = dirty2vis_pallas_wstack(plan, tiles_for(plan), image, mask)
+    return out if split else torch.complex(out[0], out[1])

@@ -1,14 +1,15 @@
 """uv counts and Briggs imaging weights (port of
 pfb_imaging_tpu/ops/weighting.py): nearest-neighbour counts with the
 Hermitian v < 0 fold, Briggs ``counts_to_weights``,
-``filter_extreme_counts`` and the super-uniform ``box_sum_counts``.
+``filter_extreme_counts``, the super-uniform ``box_sum_counts`` and the
+Student-t ``l2_reweight`` of the imager's model transfer.
 
 The public functions take and return numpy arrays, as the imager holds
 them. Counts and weights go to the host kernels of the port's ``native``
 module, as in the JAX package; where the library is unavailable, the plain
 torch versions (``compute_counts_torch``, ``counts_to_weights_torch``, also
-the tests' reference) compute the same thing. ``l2_reweight`` and
-``reduce_counts`` are not ported yet (ROADMAP.md, queue A).
+the tests' reference) compute the same thing. ``reduce_counts`` is not
+ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -142,3 +143,17 @@ def box_sum_counts(counts: np.ndarray, npix_super: int) -> np.ndarray:
         return cs.narrow(axis, size, n - size) - cs.narrow(axis, 0, n - size)
 
     return box1d(box1d(c, -2), -1).numpy()
+
+
+def l2_reweight(residual_vis, wgt, mask, dof: float, wgt_prev=1.0) -> np.ndarray:
+    """Student-t (L2) visibility reweighting: natural weights scaled by
+    (dof + 2) / (dof + |r|^2 w_prev / ovar), ovar the mean residual power
+    over unflagged samples (per correlation for (ncorr, nrow, nchan)
+    input); weights stay as they are where ovar is 0. Numpy in, numpy out."""
+    r = torch.as_tensor(np.asarray(residual_vis))
+    ressq = (r * wgt_prev * r.conj()).real
+    msk = torch.as_tensor(np.asarray(mask)) > 0
+    ssq = torch.where(msk[None] if ressq.ndim == 3 else msk, ressq, torch.zeros_like(ressq)).sum(dim=(-2, -1))
+    ovar = (ssq / max(int(msk.sum()), 1)).reshape((-1,) + (1,) * (ressq.ndim - 1))
+    w = _t(wgt)
+    return torch.where(ovar > 0, w * (dof + 2) / (dof + ressq / ovar), w).numpy()

@@ -13,6 +13,7 @@ re-evaluate without a symbolic engine.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _legendre_design(x: np.ndarray, order: int) -> np.ndarray:
@@ -26,12 +27,15 @@ def _normalise(v, vmin, vmax):
     return 2.0 * (np.asarray(v, dtype=float) - vmin) / (vmax - vmin) - 1.0
 
 
-def fit_image_cube(times, freqs, image, wgt=None, nbasisf: int | None = None, nbasist: int = 1, method: str = "Legendre"):
+def fit_image_cube(times, freqs, image, wgt=None, nbasisf: int | None = None, nbasist: int = 1, method: str = "Legendre",
+                   *, device):
     """Fit the (ntime, nband, nx, ny) image cube onto a t/f basis.
 
     Returns (coeffs, ix, iy, attrs): coefficients (nparam, ncomps) for the
     nonzero-pixel components at integer indices (ix, iy), plus the attrs
-    dict needed by :func:`eval_coeffs_to_slice`.
+    dict needed by :func:`eval_coeffs_to_slice`. The least-squares solve
+    runs in f64 on ``device``: the minimum-norm solution by the
+    pseudo-inverse, at the cutoff of numpy's ``lstsq``.
     """
     image = np.asarray(image)
     if image.ndim == 3:
@@ -61,7 +65,9 @@ def fit_image_cube(times, freqs, image, wgt=None, nbasisf: int | None = None, nb
     else:
         wgt = np.asarray(wgt, dtype=float).reshape(ntime * nband)
     w = np.sqrt(wgt)[:, None]
-    coeffs, *_ = np.linalg.lstsq(design * w, data * w, rcond=None)
+    a = torch.as_tensor(design * w, dtype=torch.float64, device=device)
+    b = torch.as_tensor(data * w, dtype=torch.float64, device=device)
+    coeffs = (torch.linalg.pinv(a) @ b).cpu().numpy()
 
     attrs = dict(
         method=method,

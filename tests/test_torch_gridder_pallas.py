@@ -1,17 +1,20 @@
-"""The port's w-stacked scatter (``ops/gridder_pallas.py``: the plain version
-of the CUDA kernel that replaces the Pallas kernels B3, B5 and B6) against
-the JAX Pallas kernels in interpret mode, the direct one-plane oracle of
-the JAX tests, and the JAX classic gridder, on the CPU.
+"""The port's w-stacked scatter and gather (``ops/gridder_pallas.py``: the
+plain versions of the CUDA kernels that replace the Pallas kernels B3, B5
+and B6, and B4) against the JAX Pallas kernels in interpret mode, the
+direct one-plane oracle of the JAX tests, and the JAX classic gridder, on
+the CPU; the kernels' block order rehearsed in torch on the tile plan.
 
 Tolerances: the plain version in f64 against the f32 Pallas kernel to
-1e-5 relative (f32 stencils); against the f64 oracle to 1e-12; the f32
-``vis2dirty_scatter`` against JAX's to 2e-5, the JAX tests' own bound.
+1e-5 relative (f32 stencils); against the f64 oracle, the rehearsals and
+the gather/scatter adjoint to 1e-12; the f32 ``vis2dirty_scatter`` and
+``dirty2vis_scatter`` against JAX's to 2e-5, the JAX tests' own bound.
 
 JAX is imported inside the tests that compare with it, so the ``gpu``
 test also runs where only PyTorch is installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gridder_pallas.py``.
 """
 
+import dataclasses
 import gc
 import itertools
 
@@ -258,6 +261,145 @@ def test_wrapper_checks_its_arguments():
         TP._check_launch(pt, tiles, v, v, 0, TP.PLANE_CHUNK + 1)
     with pytest.raises(TypeError, match="float32"):
         TP._check_launch(pt, tiles, v.double(), v.double(), 0, 1)
+
+
+def _jax_leaves(pj):
+    """The numpy leaves and static fields of a JAX ``WGridderPlan``."""
+    names = ("u_pix", "v_pix", "w_lam", "sort_idx", "plane_start", "plane_count", "phase_re", "phase_im",
+             "corr_img", "nm1", "cw_img")
+    leaves = {f: np.asarray(getattr(pj, f)) for f in names}
+    return leaves, {f.name: getattr(pj, f.name) for f in dataclasses.fields(pj) if f.name not in leaves}
+
+
+@pytest.mark.parametrize("do_w", [True, False])
+def test_dirty2vis_scatter_matches_jax_gather_kernel(do_w):
+    """The port's f32 ``dirty2vis_scatter`` (the gather's plain version here)
+    on a plan converted from the JAX f32 plan, against JAX
+    ``dirty2vis_scatter``, which runs the Pallas gather B4 in interpret mode,
+    on the 10-antenna layout of the JAX tests."""
+    import jax.numpy as jnp
+
+    from pfb_imaging_tpu.ops import gridder as JG
+    from pfb_imaging_tpu.ops import gridder_pallas as JP
+
+    assert JP._interpret_default()
+    uvw = _ten_antennas()
+    kw = dict(nx=64, ny=64, cellx=2.5e-5 / 2, celly=2.5e-5 / 2, epsilon=1e-5, do_wgridding=do_w, dtype=np.float32)
+    pj = JG.plan_wgridder(uvw, FREQ, **kw)
+    pt = TG.wgridder_plan_from_jax(*_jax_leaves(pj), device=CPU)
+    assert pt.rdt == torch.float32 and pt.nw == pj.nw and pt.do_wgridding == do_w
+    img = np.random.default_rng(13).standard_normal((64, 64)).astype(np.float32)
+    vj = np.asarray(JP.dirty2vis_scatter(pj, jnp.asarray(img)))
+    vt = TP.dirty2vis_scatter(pt, torch.as_tensor(img))
+    assert vt.dtype == torch.complex64 and vt.shape == vj.shape
+    assert _rel(torch.view_as_real(vt), np.stack([vj.real, vj.imag], -1)) < 2e-5
+    assert _rel(TP.dirty2vis_scatter(pt, torch.as_tensor(img), split=True), np.stack([vj.real, vj.imag])) < 2e-5
+
+
+def _emulate_gather(plan, tiles, grids, p0, nw):
+    """The CUDA gather's arithmetic order in torch: per block, stage the
+    tile plus its apron of every plane of the chunk from ``grids`` (cells
+    taken mod nbig), then per visibility the stencil-weighted sum over the
+    staged window at its tile-relative start, each plane times its
+    w-weight. Returns (2, nvis) in tile order."""
+    W, tile = plan.support, TP.TILE
+    A = tile + W - 1
+    out = torch.zeros((2, plan.nvis), dtype=torch.float64)
+    offs = torch.arange(W)
+    for blk in range(tiles.nblocks):
+        t = int(tiles.blk_tile[blk])
+        gx = (t // tiles.nty * tile + torch.arange(A)) % plan.nbig_x
+        gy = (t % tiles.nty * tile + torch.arange(A)) % plan.nbig_y
+        staged = grids[:, :, gx[:, None], gy[None, :]].double()  # (nw, 2, A, A)
+        s, c = int(tiles.blk_start[blk]), int(tiles.blk_count[blk])
+        sl = slice(s, s + c)
+        ku = TG.es_kernel(2.0 * (tiles.du[sl, None].double() - offs) / W, plan.beta)
+        kv = TG.es_kernel(2.0 * (tiles.dv[sl, None].double() - offs) / W, plan.beta)
+        iu = tiles.lu[sl, None].long() + offs
+        iv = tiles.lv[sl, None].long() + offs
+        for q in range(nw):
+            ww = TG._w_weight(plan, tiles.w_rel[sl].double(), p0 + q)
+            win = staged[q][:, iu[:, :, None], iv[:, None, :]]  # (2, c, W, W)
+            out[:, sl] += ww * (win * (ku[:, :, None] * kv[:, None, :])).sum(dim=(2, 3))
+    return out
+
+
+@pytest.mark.parametrize("do_w", [True, False])
+def test_tile_plan_reproduces_gather(do_w, monkeypatch):
+    """The gather kernel's block order, apron staging and wrap, rehearsed
+    in torch on the tile plan, against the plain version in f64, windows
+    that cross the grid edge included."""
+    monkeypatch.setattr(TP, "BLOCK_VIS", 16)
+    uvw = _wide_uvw(200, 7, 20.0 if do_w else 1.0)
+    # an f32 plan, so that the plan and the kernel's f32 tile plan hold the
+    # same coordinates; the grids and the arithmetic are f64
+    pt = TG.plan_wgridder(uvw, FREQ, epsilon=1e-5, do_wgridding=do_w, dtype=np.float32, device=CPU, **KW)
+    tiles = TP.plan_pallas(pt)
+    assert len(set(tiles.blk_tile.tolist())) < tiles.nblocks
+    u, v = (pt.iu0 + pt.du).numpy(), (pt.iv0 + pt.dv).numpy()
+    assert ((np.floor(u - pt.support / 2) + 1 < 0) | (np.floor(v - pt.support / 2) + 1 < 0)).any()
+    p0, nw = (2, 5) if do_w else (0, 1)
+    grids = torch.as_tensor(np.random.default_rng(14).standard_normal((nw, 2, pt.nbig_x, pt.nbig_y)))
+    ref = TP.gather_grid_wstack_ref(pt, tiles, grids, p0, nw)
+    assert ref.shape == (2, pt.nvis) and ref.dtype == torch.float64
+    assert _rel(_emulate_gather(pt, tiles, grids, p0, nw), ref) < 1e-12
+    # the wrapper adds into its accumulator on the CPU
+    acc = torch.ones((2, pt.nvis), dtype=torch.float64)
+    assert TP.gather_grid_wstack(pt, tiles, grids, p0, nw, out=acc) is acc
+    assert _rel(acc - 1.0, ref) < 1e-15
+
+
+@pytest.mark.parametrize("do_w", [True, False])
+def test_gather_is_adjoint_of_scatter(do_w):
+    """<gather(grids), v> = <grids, scatter(v)> on one tile plan, in f64."""
+    uvw = _wide_uvw(200, 15, 20.0 if do_w else 1.0)
+    pt = TG.plan_wgridder(uvw, FREQ, epsilon=1e-7, do_wgridding=do_w, dtype=np.float64, device=CPU, **KW)
+    tiles = TP.tiles_for(pt)
+    rng = np.random.default_rng(16)
+    p0, nw = (1, min(TP.PLANE_CHUNK, pt.nw - 1)) if do_w else (0, 1)
+    grids = torch.as_tensor(rng.standard_normal((nw, 2, pt.nbig_x, pt.nbig_y)))
+    v = torch.as_tensor(rng.standard_normal((2, pt.nvis)))
+    lhs = float((TP.gather_grid_wstack_ref(pt, tiles, grids, p0, nw) * v).sum())
+    rhs = float((grids * TP.scatter_grid_wstack_ref(pt, tiles, v[0], v[1], p0, nw)).sum())
+    assert abs(lhs - rhs) / abs(lhs) < 1e-12
+
+
+def test_gather_wrapper_checks_its_arguments():
+    uvw = _ten_antennas()
+    pt = TG.plan_wgridder(uvw, FREQ, nx=32, ny=32, cellx=2.5e-5, celly=2.5e-5, epsilon=1e-5, dtype=np.float32,
+                          device=CPU)
+    tiles = TP.tiles_for(pt)
+    g = torch.zeros((1, 2, pt.nbig_x, pt.nbig_y), dtype=torch.float32)
+    with pytest.raises(TypeError, match="float32"):
+        TP._check_tensor("grids", g.double(), tuple(g.shape), tiles)
+    with pytest.raises(ValueError, match="shape"):
+        TP._check_tensor("grids", g[:, :, :-1], tuple(g.shape), tiles)
+    with pytest.raises(ValueError, match="f32-only"):
+        TP.dirty2vis_scatter(TG.plan_wgridder(uvw, FREQ, nx=32, ny=32, cellx=2.5e-5, celly=2.5e-5, epsilon=1e-5,
+                                              dtype=np.float64, device=CPU), torch.zeros((32, 32)))
+
+
+@pytest.mark.gpu
+def test_gather_kernel_matches_plain_on_cuda():
+    """The CUDA gather against its plain version in f64 (rel Linf <= 1e-5:
+    f32 stencils and sums in another order), one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    uvw = _wide_uvw(20000, 11, 20.0)
+    for do_w, nw in ((True, 8), (False, 1)):
+        pt = TG.plan_wgridder(uvw, FREQ, epsilon=1e-5, do_wgridding=do_w, dtype=np.float32, device=dev,
+                              nx=256, ny=256, cellx=1e-4, celly=1e-4)
+        rng = np.random.default_rng(17)
+        grids = torch.as_tensor(rng.standard_normal((nw, 2, pt.nbig_x, pt.nbig_y)), device=dev).float()
+        p0 = max(0, pt.nw // 2 - nw // 2)
+        before = TP.LAUNCHES["gather_grid_wstack"]
+        tiles = TP.tiles_for(pt)
+        out = TP.gather_grid_wstack(pt, tiles, grids, p0, nw)
+        torch.cuda.synchronize()
+        assert TP.LAUNCHES["gather_grid_wstack"] == before + 1
+        ref = TP.gather_grid_wstack_ref(pt, tiles, grids.double(), p0, nw)
+        assert _rel(out.cpu(), ref.cpu()) < 1e-5
 
 
 @pytest.mark.gpu

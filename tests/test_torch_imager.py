@@ -128,9 +128,10 @@ def test_auto_routes_as_jax(xds, dense_xds, layout, eps, route):
 
 
 def test_unported_options_raise(xds):
-    for kw in (dict(model_mds="m.mds"), dict(l2_reweight_dof=5.0), dict(use_mesh=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TI.imager(str(xds / "sim.xds"), str(xds / "x.dt"), device="cpu", **kw)
+    """The device mesh is not ported yet (model transfer is: see
+    tests/test_torch_model2comps.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TI.imager(str(xds / "sim.xds"), str(xds / "x.dt"), device="cpu", use_mesh=True)
     with pytest.raises(ValueError):
         TI.imager(str(xds / "sim.xds"), str(xds / "x.dt"), gridder="wsclean", device="cpu")
 

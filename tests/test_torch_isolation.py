@@ -58,14 +58,16 @@ assert not bad, bad
 
 def _entry_points():
     from pfb_imaging_tpu_torch.core.deconv import deconv
+    from pfb_imaging_tpu_torch.core.degrid import degrid
     from pfb_imaging_tpu_torch.core.imager import imager, residual_from_parts
+    from pfb_imaging_tpu_torch.core.model2comps import model2comps
     from pfb_imaging_tpu_torch.deconv.presets import make_sara
     from pfb_imaging_tpu_torch.ops.gridder import plan_wgridder, wgridder_plan_from_jax
     from pfb_imaging_tpu_torch.ops.gridder_idg import plan_from_jax, plan_idg
     from pfb_imaging_tpu_torch.ops.hessian import HessianCube
 
     return [deconv, imager, residual_from_parts, make_sara, plan_wgridder, wgridder_plan_from_jax, plan_idg,
-            plan_from_jax, HessianCube.build]
+            plan_from_jax, HessianCube.build, degrid, model2comps]
 
 
 @pytest.mark.parametrize("fn", _entry_points(), ids=lambda f: f.__qualname__)
@@ -77,7 +79,9 @@ def test_no_silent_cpu_fallback(tmp_path):
     """Without a card, the default device raises instead of running on the
     CPU; with one, ``resolve_device`` hands the card back."""
     from pfb_imaging_tpu_torch import resolve_device
+    from pfb_imaging_tpu_torch.core.degrid import degrid
     from pfb_imaging_tpu_torch.core.imager import imager
+    from pfb_imaging_tpu_torch.core.model2comps import model2comps
 
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
@@ -87,3 +91,7 @@ def test_no_silent_cpu_fallback(tmp_path):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         imager(str(tmp_path / "missing.xds"), str(tmp_path / "out.dt"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        degrid(str(tmp_path / "missing.mds"), str(tmp_path / "missing.ms"), 1e-5)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model2comps(str(tmp_path / "missing.dt"))

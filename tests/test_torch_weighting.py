@@ -112,6 +112,22 @@ def test_box_sum_counts_matches_jax(npix):
     assert bt.shape == counts.shape and _rel(bt, bj) < 1e-12
 
 
+@pytest.mark.parametrize("ncorr, dof", [(None, 5.0), (None, 0.5), (2, 5.0)])
+def test_l2_reweight_matches_jax(ncorr, dof):
+    """Student-t reweighting of residual visibilities: (nrow, nchan), and
+    (ncorr, nrow, nchan) with one variance per correlation; an all-flagged
+    input keeps its weights."""
+    rng = np.random.default_rng(9)
+    shape = (300, 3) if ncorr is None else (ncorr, 300, 3)
+    res = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    wgt = rng.uniform(0.2, 2.0, shape)
+    mask = (rng.random((300, 3)) > 0.1).astype(np.uint8)
+    wj = np.asarray(JW.l2_reweight(jnp.asarray(res), jnp.asarray(wgt), jnp.asarray(mask), dof))
+    wt = TW.l2_reweight(res, wgt, mask, dof)
+    assert isinstance(wt, np.ndarray) and wt.shape == shape and _rel(wt, wj) < 1e-12
+    assert np.array_equal(TW.l2_reweight(res, wgt, np.zeros_like(mask), dof), wgt)
+
+
 def test_image_geometry_matches_jax():
     for kw in (dict(), dict(cell_size=0.8251, nx=2048, ny=2048), dict(nx=100, ny=64, psf_oversize=1.5),
                dict(psf_oversize=0)):
