@@ -44,7 +44,10 @@ exits non-zero:
                have risen after it; products finite, PSF peak / WSUM = 1
                (1e-4), band 0's brightest pixel on a true source, band 0's
                DIRTY within 2e-5 of the port's f64 stack route, and B3 within
-               1e-5 of its f64 plain version at band 0's PSF plan;
+               1e-5 of its f64 plain version at band 0's PSF plan (8192^2),
+               its image plan (4096^2) and its PSF plan with uv stretched
+               to fill the grid, each with its time, its scratch and the
+               peak memory of the call;
   7. degrid — on the imager phase's store and tree: MODEL (the true
                sources) in each band node, ``model2comps``, then
                ``degrid(gridder="pallas", epsilon=1e-5)`` at 2048^2 over the
@@ -211,17 +214,30 @@ def scatter_bound(plan, p0: int, nw: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), pairs
 
 
+def call_peak(fn):
+    """(fn(), the most device memory the call held above what was allocated
+    before it, in bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
 def scatter_check(plan, vals, p0: int, nw: int, reps: int = 10):
     """B3 on the card against its plain version in f64 and f32 on the same
-    values (the sorted stream put in tile order), with times and the bound."""
+    values (the sorted stream put in tile order), with times, the bound,
+    and the call's peak memory (the grid it returns plus its scratch)."""
     import torch
 
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
 
     tiles = GP.tiles_for(plan)
     vre, vim = vals[0].index_select(0, tiles.perm), vals[1].index_select(0, tiles.perm)
-    out = GP.scatter_grid_wstack(plan, tiles, vre, vim, p0, nw)
-    torch.cuda.synchronize()
+    out, peak = call_peak(lambda: GP.scatter_grid_wstack(plan, tiles, vre, vim, p0, nw))
     ref64 = GP.scatter_grid_wstack_ref(plan, tiles, vre.double(), vim.double(), p0, nw)
     scale = float(ref64.abs().max())
     err64 = float((out.double() - ref64).abs().max())
@@ -234,7 +250,8 @@ def scatter_check(plan, vals, p0: int, nw: int, reps: int = 10):
     return dict(
         W=plan.support, nw=nw, p0=p0, plan_nw=plan.nw, nbig=plan.nbig_x, nvis=plan.nvis, nblocks=tiles.nblocks,
         do_wgridding=plan.do_wgridding, pairs=pairs, scale=scale, max_abs_err=err64, rel_vs_f64=err64 / scale,
-        rel_vs_f32=err32 / scale,
+        rel_vs_f32=err32 / scale, call_peak_bytes=peak, grid_bytes=nw * 2 * plan.nbig_x * plan.nbig_y * 4,
+        scratch_bytes=4 * GP.chunk_plan(plan, tiles, p0, nw).scratch,
         ms=cuda_ms(lambda: GP.scatter_grid_wstack(plan, tiles, vre, vim, p0, nw), reps),
         plain_ms=cuda_ms(lambda: GP.scatter_grid_wstack_ref(plan, tiles, vre, vim, p0, nw), 2),
         bound_ms=bound_ms, bound_by=bound_by,
@@ -297,14 +314,14 @@ def gather_bound(plan, p0: int, nw: int):
 
 def gather_check(plan, grids, p0: int, nw: int, reps: int = 10):
     """B4 on the card against its plain version in f64 and f32 on the same
-    f32 grids (nw, 2, nbig, nbig), with times and the bound."""
+    f32 grids (nw, 2, nbig, nbig), with times, the bound, and the call's
+    peak memory (the (2, nvis) values it returns)."""
     import torch
 
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
 
     tiles = GP.tiles_for(plan)
-    out = GP.gather_grid_wstack(plan, tiles, grids, p0, nw)
-    torch.cuda.synchronize()
+    out, peak = call_peak(lambda: GP.gather_grid_wstack(plan, tiles, grids, p0, nw))
     ref64 = GP.gather_grid_wstack_ref(plan, tiles, grids.double(), p0, nw)
     scale = float(ref64.abs().max())
     err64 = float((out.double() - ref64).abs().max())
@@ -317,7 +334,7 @@ def gather_check(plan, grids, p0: int, nw: int, reps: int = 10):
     return dict(
         W=plan.support, nw=nw, p0=p0, plan_nw=plan.nw, nbig=plan.nbig_x, nvis=plan.nvis, nblocks=tiles.nblocks,
         do_wgridding=plan.do_wgridding, pairs=pairs, window_cells=cells, scale=scale, max_abs_err=err64,
-        rel_vs_f64=err64 / scale, rel_vs_f32=err32 / scale,
+        rel_vs_f64=err64 / scale, rel_vs_f32=err32 / scale, call_peak_bytes=peak,
         ms=cuda_ms(lambda: GP.gather_grid_wstack(plan, tiles, grids, p0, nw), reps),
         plain_ms=cuda_ms(lambda: GP.gather_grid_wstack_ref(plan, tiles, grids, p0, nw), 2),
         bound_ms=bound_ms, bound_by=bound_by,
@@ -760,17 +777,28 @@ def phase_imager(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int 
     dirty0 = torch.as_tensor(np.asarray(out.group("band0000_time0000").read("DIRTY")), device=dev)
     stack_rel = rel_linf(dirty0, d64)
     del plan64, d64, dirty0
-    plan = plan_wgridder(uvw0, f0, nx=2 * nx, ny=2 * nx, dtype=np.float32, device=dev, **kw)
+    # B3 at band 0's PSF plan (its 20 PSF launches) and image plan (its 16
+    # DIRTY and NOISE launches), one middle chunk each; and at the PSF plan
+    # with uv stretched to 90% of the grid's width, so that four times as
+    # many tiles hold visibilities: a larger scratch buffer
     ones = torch.ones(tuple(wm.shape), dtype=torch.float32, device=dev)
-    vals = _vis2dirty_prepare(plan, ones, torch.zeros_like(ones), wm.float())
-    nw = min(GP.PLANE_CHUNK, plan.nw)
-    b3 = scatter_check(plan, vals, max(0, plan.nw // 2 - nw // 2), nw, reps=5)
-    rec = dict(dirty_vs_stack_f64_rel=stack_rel, stack_f64_seconds=stack_s, b3_at_psf_plan=b3)
+    dense = uvw0.copy()
+    dense[:, :2] *= 0.45 / (np.abs(uvw0[:, :2]).max() * f0.max() / LIGHTSPEED * kw["cellx"])
+    b3 = {}
+    for name, n, u in (("psf", 2 * nx, uvw0), ("image", nx, uvw0), ("dense_psf", 2 * nx, dense)):
+        plan = plan_wgridder(u, f0, nx=n, ny=n, dtype=np.float32, device=dev, **kw)
+        vals = _vis2dirty_prepare(plan, ones, torch.zeros_like(ones), wm.float())
+        nw = min(GP.PLANE_CHUNK, plan.nw)
+        b3[name] = scatter_check(plan, vals, max(0, plan.nw // 2 - nw // 2), nw, reps=5)
+        del plan, vals
+        torch.cuda.empty_cache()
+    rec = dict(dirty_vs_stack_f64_rel=stack_rel, stack_f64_seconds=stack_s,
+               **{f"b3_at_{name}_plan": r for name, r in b3.items()})
     emit({"phase": "imager", "stage": "checks", **rec})
     require(stack_rel <= 2e-5, "band 0 DIRTY (pallas, f32) vs the stack route (f64)")
-    require(b3["rel_vs_f64"] <= 1e-5, "B3 vs f64 plain at band 0's PSF plan")
-    del plan, vals, wm, ones
-    torch.cuda.empty_cache()
+    for name in b3:
+        require(b3[name]["rel_vs_f64"] <= 1e-5, f"B3 vs f64 plain at band 0's {name} plan")
+    del wm, ones, dense
     # the store and the tree stay for the degrid phase, which removes them
     return b3, launches, dict(workdir=workdir, uvw=uvw, chans=chans, srcs=srcs, nx=nx)
 
@@ -1079,8 +1107,10 @@ def main() -> int:
     kernels.append(dict(
         name="scatter_grid_wstack", route="cuda", source="pfb_imaging_tpu_torch/csrc/gridder_scatter.cu",
         replaces=REPLACES["scatter_grid_wstack"], launches=im_launches["scatter_grid_wstack"],
-        max_abs_err=b3["max_abs_err"], ms=b3["ms"], plain_ms=b3["plain_ms"], bound_ms=b3["bound_ms"],
-        bound_by=b3["bound_by"], library_ms=None,
+        max_abs_err=b3["psf"]["max_abs_err"], ms=b3["psf"]["ms"], plain_ms=b3["psf"]["plain_ms"],
+        bound_ms=b3["psf"]["bound_ms"], bound_by=b3["psf"]["bound_by"], library_ms=None,
+        ms_image_plan=b3["image"]["ms"], plain_ms_image_plan=b3["image"]["plain_ms"],
+        bound_ms_image_plan=b3["image"]["bound_ms"], ms_dense_psf_plan=b3["dense_psf"]["ms"],
         ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in scat},
         plain_ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["plain_ms"] for r in scat},
     ))

@@ -92,13 +92,15 @@ def _load():
     lib.pfb_patches_from_vals.restype = i
     lib.pfb_vals_from_patches.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
     lib.pfb_vals_from_patches.restype = i
-    # blocks (tile, start, count), per-vis lu, lv, du, dv, wrel, vre, vim,
-    # out; nblocks, W, beta, nbig_x, nbig_y, nty, w_support, do_w, p0, nw, stream
-    lib.pfb_scatter_grid_wstack.argtypes = [vp] * 11 + [i, i, f, i, i, i, i, i, i, i, vp]
+    # act, nact, blk_start, blk_count, ch_qa, ch_nq, ch_off, nq_max, cmp_ptr,
+    # cmp_blk, cmp_oxy, per-vis lu, lv, du, dv, wrel, vre, vim, scratch, out;
+    # W, beta, nbig_x, nbig_y, ntx, nty, w_support, do_w, p0, nw, stream
+    lib.pfb_scatter_grid_wstack.argtypes = [vp, i] + [vp] * 5 + [i] + [vp] * 12 + [i, f, i, i, i, i, i, i, i, i, vp]
     lib.pfb_scatter_grid_wstack.restype = i
-    # blocks (tile, start, count), per-vis lu, lv, du, dv, wrel, grids, acc;
-    # nvis, nblocks, W, beta, nbig_x, nbig_y, nty, w_support, do_w, p0, nw, stream
-    lib.pfb_gather_grid_wstack.argtypes = [vp] * 10 + [ll, i, i, f, i, i, i, i, i, i, i, vp]
+    # act, nact, blk_tile, blk_start, blk_count, ch_qa, ch_nq, nq_max, per-vis
+    # lu, lv, du, dv, wrel, grids, acc; nvis, W, beta, nbig_x, nbig_y, nty,
+    # w_support, do_w, p0, stream
+    lib.pfb_gather_grid_wstack.argtypes = [vp, i, vp, vp, vp, vp, vp, i] + [vp] * 7 + [ll, i, f, i, i, i, i, i, i, vp]
     lib.pfb_gather_grid_wstack.restype = i
     lib.pfb_error_string.argtypes = [i]
     lib.pfb_error_string.restype = ctypes.c_char_p

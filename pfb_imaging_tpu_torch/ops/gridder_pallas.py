@@ -26,10 +26,14 @@ On a CUDA tensor it launches ``csrc/gridder_gather.cu``, which replaces
 plane's bucket). ``LAUNCHES`` counts kernel launches.
 
 The tile plan is the port's own, sized for Hopper's shared memory: a block
-owns a ``TILE`` x ``TILE`` uv tile plus a W-1 cell apron for a chunk of at
-most ``BLOCK_VIS`` of the tile's visibilities and ``PLANE_CHUNK`` planes.
-Windows that wrap the grid edge are handled in the kernels (cell indices
-taken mod nbig), so no visibility goes around them.
+owns a ``TILE`` x ``TILE`` uv tile plus a W-1 cell apron for at most
+``BLOCK_VIS`` of the tile's visibilities, and the planes of a chunk of at
+most ``PLANE_CHUNK`` that they can touch (``ChunkPlan``). The scatter
+accumulates each block's partial grids into a scratch buffer and composes
+every output tile once from the partials that cover it (the compose
+lists); the gather stages only a block's planes. Windows that wrap the
+grid edge are handled in the kernels (cell indices taken mod nbig), so no
+visibility goes around them.
 """
 
 from __future__ import annotations
@@ -45,16 +49,17 @@ from .gridder import (WGridderPlan, _as_ri, _chunks, _dirty2vis_finish_ri, _dirt
 from .. import complex_dtype
 
 TILE = 32  # uv cells per tile side
-BLOCK_VIS = 4096  # visibilities per block at most (a busy tile gets several blocks)
-PLANE_CHUNK = 8  # w-planes per kernel pass (shared-memory tiles)
+BLOCK_VIS = 2048  # visibilities per block at most (a busy tile gets several blocks)
+PLANE_CHUNK = 8  # w-planes per kernel pass
 MAX_SUPPORT = 16
 LAUNCHES = {"scatter_grid_wstack": 0, "gather_grid_wstack": 0}
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class ScatterTiles:
-    """The kernel's view of a plan: visibilities in tile order and the
-    block list. ``perm`` maps tile order to the plan's sorted stream."""
+    """The kernels' view of a plan: visibilities in tile order, the block
+    list with each block's planes, and the scatter's compose lists.
+    ``perm`` maps tile order to the plan's sorted stream."""
 
     ntx: int
     nty: int
@@ -68,13 +73,38 @@ class ScatterTiles:
     blk_tile: torch.Tensor  # (nblocks,) int32 tile id tx * nty + ty
     blk_start: torch.Tensor  # (nblocks,) int64 first visibility (tile order)
     blk_count: torch.Tensor  # (nblocks,) int32
+    blk_planes: np.ndarray  # (nblocks, 2) int64, host: planes [lo, hi) its visibilities can touch
+    cmp_ptr: torch.Tensor  # (ntx * nty + 1,) int32: tile t's entries cmp_ptr[t] .. cmp_ptr[t + 1]
+    cmp_blk: torch.Tensor  # (nentries,) int32 block whose partial covers part of the tile's core
+    cmp_oxy: torch.Tensor  # (nentries,) int32 65536 ox + oy: the core's first cell in that partial
+    chunks: dict = dataclasses.field(default_factory=dict, repr=False)  # (p0, nw) -> ChunkPlan
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkPlan:
+    """Each block's planes within the chunk p0 .. p0+nw-1, and where the
+    scatter puts its partial grids (nq, 2, TILE + W - 1, TILE + W) f32.
+
+    The scratch holds at most nw such planes per launched block, and there
+    are at most (occupied tiles + nvis / BLOCK_VIS) blocks: where every tile
+    holds one block, (TILE + W - 1)(TILE + W) / TILE^2 times the chunk's
+    grid (1.37 at W = 6, 1.52 at W = 8), plus nw 8 (TILE + W - 1)(TILE + W)
+    / BLOCK_VIS bytes per visibility beyond that (49 B at W = 8, nw = 8)."""
+
+    act: torch.Tensor  # (nact,) int32 the blocks with nq > 0, which are launched
+    qa: torch.Tensor  # (nblocks,) int32 first plane, relative to p0
+    nq: torch.Tensor  # (nblocks,) int32 planes (0: the block misses the chunk)
+    off: torch.Tensor  # (nblocks,) int64 float offset of the partial in the scratch buffer
+    nq_max: int
+    scratch: int  # floats of the scratch buffer
 
 
 def plan_pallas(plan: WGridderPlan) -> ScatterTiles:
     """The tile layout of a plan's sorted stream, on the plan's device:
     visibilities bucketed stably by the ``TILE`` x ``TILE`` tile holding
-    their (wrapped) window start, window starts relative to that tile, and
-    the blocks (each tile's run cut into pieces of at most ``BLOCK_VIS``)."""
+    their (wrapped) window start, window starts relative to that tile, the
+    blocks (each tile's run, w-sorted, cut into pieces of at most
+    ``BLOCK_VIS``) with their plane spans, and the compose lists."""
     ntx, nty = -(-plan.nbig_x // TILE), -(-plan.nbig_y // TILE)
     iu0w = torch.remainder(plan.iu0, plan.nbig_x)
     iv0w = torch.remainder(plan.iv0, plan.nbig_y)
@@ -85,16 +115,88 @@ def plan_pallas(plan: WGridderPlan) -> ScatterTiles:
     nb = -(-counts // BLOCK_VIS)
     tid = np.repeat(np.arange(counts.size), nb)
     piece = np.arange(int(nb.sum())) - np.repeat(np.cumsum(nb) - nb, nb)
+    blk_start = starts[tid] + piece * BLOCK_VIS
+    w_rel = plan.w_rel[perm].float()
+    cmp_ptr, cmp_blk, cmp_oxy = _compose_lists(plan, ntx, nty, tid)
     dev = plan.device
+    as_t = lambda a, t: torch.as_tensor(a, dtype=t, device=dev)  # noqa: E731
     return ScatterTiles(
         ntx=ntx, nty=nty, nblocks=tid.size, perm=perm,
         lu=(iu0w - tx * TILE)[perm].to(torch.int32), lv=(iv0w - ty * TILE)[perm].to(torch.int32),
-        du=plan.du[perm].float(), dv=plan.dv[perm].float(), w_rel=plan.w_rel[perm].float(),
-        blk_tile=torch.as_tensor(tid, dtype=torch.int32, device=dev),
-        blk_start=torch.as_tensor(starts[tid] + piece * BLOCK_VIS, dtype=torch.int64, device=dev),
-        blk_count=torch.as_tensor(np.minimum(counts[tid] - piece * BLOCK_VIS, BLOCK_VIS), dtype=torch.int32,
-                                  device=dev),
+        du=plan.du[perm].float(), dv=plan.dv[perm].float(), w_rel=w_rel,
+        blk_tile=as_t(tid, torch.int32), blk_start=as_t(blk_start, torch.int64),
+        blk_count=as_t(np.minimum(counts[tid] - piece * BLOCK_VIS, BLOCK_VIS), torch.int32),
+        blk_planes=_block_planes(plan, w_rel, blk_start), cmp_ptr=as_t(cmp_ptr, torch.int32),
+        cmp_blk=as_t(cmp_blk, torch.int32), cmp_oxy=as_t(cmp_oxy, torch.int32),
     )
+
+
+def _block_planes(plan: WGridderPlan, w_rel, blk_start: np.ndarray) -> np.ndarray:
+    """(nblocks, 2): the planes [lo, hi) that some visibility of each block
+    can touch, by the kernels' own f32 rule: planes pa .. pa + w_support + 1
+    with pa = floor(w_rel - w_support / 2) (one more on each side than the
+    support, for the rounding); [0, 1) without w-gridding."""
+    if not plan.do_wgridding:
+        return np.tile(np.array([0, 1], np.int64), (blk_start.size, 1))
+    if blk_start.size == 0:
+        return np.zeros((0, 2), np.int64)
+    pa = torch.floor(w_rel - 0.5 * plan.w_support).to(torch.int64).cpu().numpy()
+    return np.stack([np.minimum.reduceat(pa, blk_start), np.maximum.reduceat(pa, blk_start) + plan.w_support + 2], 1)
+
+
+def _reach(ntile: int, nbig: int, span: int) -> np.ndarray:
+    """Along one axis, rows (t, t2, o): tile t2's ``span`` cells from its
+    origin, taken mod nbig, cover tile t's core from position o (< span)
+    on. Besides t itself (o = 0), that is the tile before it, the one
+    before that where the last tile is short, and repeats where nbig <
+    span."""
+    t = np.arange(ntile)
+    o = (TILE * (t[:, None] - t[None, :])) % nbig
+    rows = []
+    while (o < span).any():
+        i, j = np.nonzero(o < span)
+        rows.append(np.stack([i, j, o[i, j]], 1))
+        o = o + nbig
+    return np.concatenate(rows)
+
+
+def _compose_lists(plan: WGridderPlan, ntx: int, nty: int, blk_tile: np.ndarray):
+    """CSR over output tiles: the blocks whose tile plus apron covers part of
+    each tile's core, with where the core starts in their partial (65536 ox
+    + oy), ordered by block, then offset (the compose's fixed order)."""
+    span = TILE + plan.support - 1
+    rx, ry = _reach(ntx, plan.nbig_x, span), _reach(nty, plan.nbig_y, span)
+    dst = (rx[:, None, 0] * nty + ry[None, :, 0]).ravel()
+    src = (rx[:, None, 1] * nty + ry[None, :, 1]).ravel()
+    oxy = (rx[:, None, 2] * 65536 + ry[None, :, 2]).ravel()
+    nbt = np.bincount(blk_tile, minlength=ntx * nty)
+    k = nbt[src]
+    dst, src, oxy, k = dst[k > 0], src[k > 0], oxy[k > 0], k[k > 0]
+    first = np.cumsum(nbt) - nbt
+    blk = np.repeat(first[src], k) + np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)
+    dst, oxy = np.repeat(dst, k), np.repeat(oxy, k)
+    order = np.lexsort((oxy, blk, dst))
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=ntx * nty))])
+    return ptr, blk[order], oxy[order]
+
+
+def chunk_plan(plan: WGridderPlan, tiles: ScatterTiles, p0: int, nw: int) -> ChunkPlan:
+    """Each block's planes within p0 .. p0+nw-1 and its scratch offset, on
+    the plan's device; cached on ``tiles`` per (p0, nw)."""
+    ch = tiles.chunks.get((p0, nw))
+    if ch is None:
+        qa = np.clip(tiles.blk_planes[:, 0] - p0, 0, nw)
+        nq = np.clip(tiles.blk_planes[:, 1] - p0, 0, nw) - qa  # lo < hi, so nq >= 0
+        act = np.flatnonzero(nq)
+        part = 2 * (TILE + plan.support - 1) * (TILE + plan.support)
+        off = np.zeros(tiles.nblocks, np.int64)
+        off[act] = (np.cumsum(nq[act]) - nq[act]) * part
+        dev = tiles.perm.device
+        as_t = lambda a, t: torch.as_tensor(a, dtype=t, device=dev)  # noqa: E731
+        ch = tiles.chunks[(p0, nw)] = ChunkPlan(
+            act=as_t(act, torch.int32), qa=as_t(qa, torch.int32), nq=as_t(nq, torch.int32),
+            off=as_t(off, torch.int64), nq_max=int(nq.max()) if nq.size else 0, scratch=int(nq.sum()) * part)
+    return ch
 
 
 _TILES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
@@ -154,19 +256,21 @@ def scatter_grid_wstack(plan: WGridderPlan, tiles: ScatterTiles, vre, vim, p0: i
     if vre.device.type == "cpu":
         return scatter_grid_wstack_ref(plan, tiles, vre, vim, p0, nw)
     _check_launch(plan, tiles, vre, vim, p0, nw)
-    out = torch.zeros((nw, 2, plan.nbig_x, plan.nbig_y), dtype=torch.float32, device=vre.device)
-    if tiles.nblocks:
-        from ..kernels.build import check, load
+    ch = chunk_plan(plan, tiles, p0, nw)
+    out = torch.empty((nw, 2, plan.nbig_x, plan.nbig_y), dtype=torch.float32, device=vre.device)  # written whole
+    scratch = torch.empty(max(ch.scratch, 1), dtype=torch.float32, device=vre.device)
+    from ..kernels.build import check, load
 
-        code = load().pfb_scatter_grid_wstack(
-            tiles.blk_tile.data_ptr(), tiles.blk_start.data_ptr(), tiles.blk_count.data_ptr(), tiles.lu.data_ptr(),
-            tiles.lv.data_ptr(), tiles.du.data_ptr(), tiles.dv.data_ptr(), tiles.w_rel.data_ptr(),
-            vre.data_ptr(), vim.data_ptr(), out.data_ptr(), tiles.nblocks, plan.support,
-            float(plan.beta), plan.nbig_x, plan.nbig_y, tiles.nty, plan.w_support, int(plan.do_wgridding), p0, nw,
-            torch.cuda.current_stream(vre.device).cuda_stream,
-        )
-        check(code, "scatter_grid_wstack")
-        LAUNCHES["scatter_grid_wstack"] += 1
+    code = load().pfb_scatter_grid_wstack(
+        ch.act.data_ptr(), ch.act.numel(), tiles.blk_start.data_ptr(), tiles.blk_count.data_ptr(), ch.qa.data_ptr(),
+        ch.nq.data_ptr(), ch.off.data_ptr(), ch.nq_max, tiles.cmp_ptr.data_ptr(), tiles.cmp_blk.data_ptr(),
+        tiles.cmp_oxy.data_ptr(), tiles.lu.data_ptr(), tiles.lv.data_ptr(), tiles.du.data_ptr(), tiles.dv.data_ptr(),
+        tiles.w_rel.data_ptr(), vre.data_ptr(), vim.data_ptr(), scratch.data_ptr(), out.data_ptr(), plan.support,
+        float(plan.beta), plan.nbig_x, plan.nbig_y, tiles.ntx, tiles.nty, plan.w_support, int(plan.do_wgridding), p0,
+        nw, torch.cuda.current_stream(vre.device).cuda_stream,
+    )
+    check(code, "scatter_grid_wstack")
+    LAUNCHES["scatter_grid_wstack"] += 1
     return out
 
 
@@ -215,15 +319,16 @@ def gather_grid_wstack(plan: WGridderPlan, tiles: ScatterTiles, grids, p0: int, 
     _check_chunk(plan, p0, nw)
     _check_tensor("grids", grids, (nw, 2, plan.nbig_x, plan.nbig_y), tiles)
     _check_tensor("out", out, (2, plan.nvis), tiles)
-    if tiles.nblocks:
+    ch = chunk_plan(plan, tiles, p0, nw)
+    if ch.act.numel():
         from ..kernels.build import check, load
 
         code = load().pfb_gather_grid_wstack(
-            tiles.blk_tile.data_ptr(), tiles.blk_start.data_ptr(), tiles.blk_count.data_ptr(), tiles.lu.data_ptr(),
-            tiles.lv.data_ptr(), tiles.du.data_ptr(), tiles.dv.data_ptr(), tiles.w_rel.data_ptr(),
-            grids.data_ptr(), out.data_ptr(), plan.nvis, tiles.nblocks, plan.support, float(plan.beta), plan.nbig_x,
-            plan.nbig_y, tiles.nty, plan.w_support, int(plan.do_wgridding), p0, nw,
-            torch.cuda.current_stream(grids.device).cuda_stream,
+            ch.act.data_ptr(), ch.act.numel(), tiles.blk_tile.data_ptr(), tiles.blk_start.data_ptr(),
+            tiles.blk_count.data_ptr(), ch.qa.data_ptr(), ch.nq.data_ptr(), ch.nq_max, tiles.lu.data_ptr(),
+            tiles.lv.data_ptr(), tiles.du.data_ptr(), tiles.dv.data_ptr(), tiles.w_rel.data_ptr(), grids.data_ptr(),
+            out.data_ptr(), plan.nvis, plan.support, float(plan.beta), plan.nbig_x, plan.nbig_y, tiles.nty,
+            plan.w_support, int(plan.do_wgridding), p0, torch.cuda.current_stream(grids.device).cuda_stream,
         )
         check(code, "gather_grid_wstack")
         LAUNCHES["gather_grid_wstack"] += 1
