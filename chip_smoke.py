@@ -81,6 +81,9 @@ LIGHTSPEED = 299792458.0
 # bandwidth and f32 outside the tensor cores; the bounds in the kernel line
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# dense TF32 on the tensor cores; B1/B2 take three passes (3xTF32)
+TF32_FLOPS = 495e12
+IDG_TF32_PASSES = 3
 REPLACES = {
     "patches_from_vals": "pfb_imaging_tpu/ops/idg_fused.py:253",
     "vals_from_patches": "pfb_imaging_tpu/ops/idg_fused.py:329",
@@ -140,65 +143,75 @@ def fitted_wc(S: int, dev, dtype):
     return torch.as_tensor(np.stack([w.real, w.imag]), device=dev).to(dtype)
 
 
-def phase_kernels(dev, ng: int = 4096):
-    """B1/B2 against their plain versions in f64 and f32, and the adjoint."""
+def phase_kernels(dev, ngs=(4096, 4097)):
+    """B1/B2 against their plain versions in f64 and f32, and the adjoint,
+    at each ng of ``ngs`` (4097: a ragged count of groups); timed at the
+    first."""
     import torch
 
     from pfb_imaging_tpu_torch.ops import idg_fused as F
 
     out = {}
     for S in (16, 24, 32):
-        rng = np.random.default_rng(S)
-        tfac, half = 2 * np.pi / S, S // 2
-        k0 = (S - half) // 2
-        scal = np.stack([
-            tfac * (k0 + half * rng.random((ng, F.G))), 0.005 * rng.standard_normal((ng, F.G)),
-            tfac * (k0 + half * rng.random((ng, F.G))), 0.005 * rng.standard_normal((ng, F.G)),
-        ])
-        sc = torch.as_tensor(scal, device=dev).float()
-        va = torch.as_tensor(rng.standard_normal((2, ng, F.G)), device=dev).float()
-        wu = fitted_wc(S, dev, torch.float32)
-        wv = wu.flip(-1).contiguous()
-        y = torch.as_tensor(rng.standard_normal((2, ng, S, S)), device=dev).float()
-        p = F.patches_from_vals(sc, va, wu, wv, S)
-        v = F.vals_from_patches(y, sc, wu, wv, S)
-        torch.cuda.synchronize()
-        d64 = [a.double() for a in (sc, va, wu, wv, y)]
-        p64 = F.patches_from_vals_ref(d64[0], d64[1], d64[2], d64[3], S)
-        v64 = F.vals_from_patches_ref(d64[4], d64[0], d64[2], d64[3], S)
-        p32 = F.patches_from_vals_ref(sc, va, wu, wv, S)
-        v32 = F.vals_from_patches_ref(y, sc, wu, wv, S)
-        lhs = float((p.double() * d64[4]).sum())
-        rhs = float((d64[1] * v.double()).sum())
-        rec = dict(
-            S=S, ng=ng,
-            b1_rel_vs_f64=rel_linf(p.double(), p64), b2_rel_vs_f64=rel_linf(v.double(), v64),
-            b1_rel_vs_f32=rel_linf(p, p32), b2_rel_vs_f32=rel_linf(v, v32),
-            b1_max_abs_err=float((p.double() - p64).abs().max()), b2_max_abs_err=float((v.double() - v64).abs().max()),
-            adjoint_rel=abs(lhs - rhs) / abs(lhs),
-            b1_ms=cuda_ms(lambda: F.patches_from_vals(sc, va, wu, wv, S), 20),
-            b1_plain_ms=cuda_ms(lambda: F.patches_from_vals_ref(sc, va, wu, wv, S), 5),
-            b2_ms=cuda_ms(lambda: F.vals_from_patches(y, sc, wu, wv, S), 20),
-            b2_plain_ms=cuda_ms(lambda: F.vals_from_patches_ref(y, sc, wu, wv, S), 5),
-        )
-        emit({"phase": "kernels", **rec})
-        require(rec["b1_rel_vs_f64"] <= 2e-6 and rec["b2_rel_vs_f64"] <= 2e-6, f"S={S} kernel vs f64 plain")
-        require(rec["b1_rel_vs_f32"] <= 1e-5 and rec["b2_rel_vs_f32"] <= 1e-5, f"S={S} kernel vs f32 plain")
-        require(rec["adjoint_rel"] <= 1e-5, f"S={S} adjoint identity")
-        out[S] = rec
+        for ng in ngs:
+            rng = np.random.default_rng(S if ng == ngs[0] else S + ng)
+            tfac, half = 2 * np.pi / S, S // 2
+            k0 = (S - half) // 2
+            scal = np.stack([
+                tfac * (k0 + half * rng.random((ng, F.G))), 0.005 * rng.standard_normal((ng, F.G)),
+                tfac * (k0 + half * rng.random((ng, F.G))), 0.005 * rng.standard_normal((ng, F.G)),
+            ])
+            sc = torch.as_tensor(scal, device=dev).float()
+            va = torch.as_tensor(rng.standard_normal((2, ng, F.G)), device=dev).float()
+            wu = fitted_wc(S, dev, torch.float32)
+            wv = wu.flip(-1).contiguous()
+            y = torch.as_tensor(rng.standard_normal((2, ng, S, S)), device=dev).float()
+            p = F.patches_from_vals(sc, va, wu, wv, S)
+            v = F.vals_from_patches(y, sc, wu, wv, S)
+            torch.cuda.synchronize()
+            d64 = [a.double() for a in (sc, va, wu, wv, y)]
+            p64 = F.patches_from_vals_ref(d64[0], d64[1], d64[2], d64[3], S)
+            v64 = F.vals_from_patches_ref(d64[4], d64[0], d64[2], d64[3], S)
+            p32 = F.patches_from_vals_ref(sc, va, wu, wv, S)
+            v32 = F.vals_from_patches_ref(y, sc, wu, wv, S)
+            lhs = float((p.double() * d64[4]).sum())
+            rhs = float((d64[1] * v.double()).sum())
+            rec = dict(
+                S=S, ng=ng,
+                b1_rel_vs_f64=rel_linf(p.double(), p64), b2_rel_vs_f64=rel_linf(v.double(), v64),
+                b1_rel_vs_f32=rel_linf(p, p32), b2_rel_vs_f32=rel_linf(v, v32),
+                b1_max_abs_err=float((p.double() - p64).abs().max()),
+                b2_max_abs_err=float((v.double() - v64).abs().max()),
+                adjoint_rel=abs(lhs - rhs) / abs(lhs),
+            )
+            if ng == ngs[0]:
+                rec.update(
+                    b1_ms=cuda_ms(lambda: F.patches_from_vals(sc, va, wu, wv, S), 20),
+                    b1_plain_ms=cuda_ms(lambda: F.patches_from_vals_ref(sc, va, wu, wv, S), 5),
+                    b2_ms=cuda_ms(lambda: F.vals_from_patches(y, sc, wu, wv, S), 20),
+                    b2_plain_ms=cuda_ms(lambda: F.vals_from_patches_ref(y, sc, wu, wv, S), 5),
+                )
+                out[S] = rec
+            emit({"phase": "kernels", **rec})
+            require(rec["b1_rel_vs_f64"] <= 2e-6 and rec["b2_rel_vs_f64"] <= 2e-6, f"S={S} ng={ng} kernel vs f64 plain")
+            require(rec["b1_rel_vs_f32"] <= 1e-5 and rec["b2_rel_vs_f32"] <= 1e-5, f"S={S} ng={ng} kernel vs f32 plain")
+            require(rec["adjoint_rel"] <= 1e-5, f"S={S} ng={ng} adjoint identity")
     return out
 
 
 def idg_bound(ng: int, S: int, G: int = 128):
-    """The least time (ms) for one B1 or B2 call at (ng, S) and what bounds
-    it: 8 flops per complex MAC of the slot contraction (S^2 G per group)
-    and of the taper-DFT products (2 S^3 per group); the angles (4, ng, G),
-    the values (2, ng, G), the patches (2, ng, S, S) and the two (2, S, S)
-    taper factors, each moved once, all f32."""
+    """The least time (ms) for one B1 or B2 call at (ng, S), what bounds it,
+    and the bound on the f32 SIMT units: 8 flops per complex MAC of the slot
+    contraction (S^2 G per group) and of the taper-DFT products (2 S^3 per
+    group), done ``IDG_TF32_PASSES`` times on the tensor cores (3xTF32) or
+    once on the SIMT units; the angles (4, ng, G), the values (2, ng, G),
+    the patches (2, ng, S, S) and the two (2, S, S) taper factors, each
+    moved once, all f32."""
     flops = 8 * ng * (S * S * G + 2 * S**3)
     nbytes = 4 * (4 * ng * G + 2 * ng * G + 2 * ng * S * S + 4 * S * S)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = IDG_TF32_PASSES * flops / TF32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), max(t_bytes, flops / F32_FLOPS * 1e3)
 
 
 def scatter_bound(plan, p0: int, nw: int):
@@ -534,9 +547,83 @@ def sky_vis(uvw_d, freq, srcs, cell: float, nx: int, noise: float, gen):
     return re.float(), im.float()
 
 
+def build_idg_library(src: Path):
+    """A ctypes library of another ``idg_fused.cu`` with the same C interface
+    (for example the parent commit's, unpacked under the gitignored
+    ``build/``), compiled with the tree's nvcc flags into ``build/``."""
+    import ctypes
+
+    from pfb_imaging_tpu_torch.kernels import build
+
+    out = ROOT / "build" / "compare_idg" / "libidg_compare.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-o", str(out), str(src)], check=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for fn in (lib.pfb_patches_from_vals, lib.pfb_vals_from_patches):
+        fn.argtypes = [vp, vp, vp, vp, vp, ll, i, vp]
+        fn.restype = i
+    return lib
+
+
+def slot_contraction_matmul_ms(p, vals, reps: int = 10) -> float:
+    """Yardstick, used nowhere in the port: the slot contraction alone,
+    M_g = Zu_g diag(V_g) Zv_g^T, as one batched complex64 ``torch.matmul``
+    on Z tensors built beforehand, with TF32 off. It is not B1's function
+    (no recurrence, no taper-DFT products)."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops import idg_fused as F
+
+    zu = F._rot_rows(p.scal[0], p.scal[1], p.S, False).permute(1, 0, 2).contiguous()
+    bv = (F._rot_rows(p.scal[2], p.scal[3], p.S, False) * torch.complex(vals[0], vals[1])).permute(1, 2, 0).contiguous()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_ms(lambda: torch.matmul(zu, bv), reps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def idg_turns(lib, p, vals, pat, reps: int = 10) -> dict:
+    """B1 and B2 from ``lib`` and from the tree, timed in turns (compared,
+    tree, tree, compared) at plan ``p``, with the compared library's rel Linf
+    against the tree's kernels."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops import idg_fused as F
+
+    st = torch.cuda.current_stream(pat.device).cuda_stream
+    o1, o2 = torch.empty_like(pat), torch.empty_like(vals)
+    args1 = (p.scal.data_ptr(), vals.data_ptr(), p.wcu.data_ptr(), p.wcv.data_ptr(), o1.data_ptr(), p.ngroups, p.S, st)
+    args2 = (pat.data_ptr(), p.scal.data_ptr(), p.wcu.data_ptr(), p.wcv.data_ptr(), o2.data_ptr(), p.ngroups, p.S, st)
+
+    def compare_b1():
+        require(lib.pfb_patches_from_vals(*args1) == 0, "the compared B1 launched")
+
+    def compare_b2():
+        require(lib.pfb_vals_from_patches(*args2) == 0, "the compared B2 launched")
+
+    def tree_b1():
+        F.patches_from_vals(p.scal, vals, p.wcu, p.wcv, p.S)
+
+    def tree_b2():
+        F.vals_from_patches(pat, p.scal, p.wcu, p.wcv, p.S)
+
+    rec = {}
+    for tag, compared, tree in (("b1", compare_b1, tree_b1), ("b2", compare_b2, tree_b2)):
+        rec[f"{tag}_ms_compare_tree_tree_compare"] = [cuda_ms(f, reps) for f in (compared, tree, tree, compared)]
+    rec["b1_compare_vs_tree_rel"] = rel_linf(o1, F.patches_from_vals(p.scal, vals, p.wcu, p.wcv, p.S))
+    rec["b2_compare_vs_tree_rel"] = rel_linf(o2, F.vals_from_patches(pat, p.scal, p.wcu, p.wcv, p.S))
+    return rec
+
+
 def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 500, nband: int = 4,
-               nchan_band: int = 4, niter: int = 3, eps: float = 1e-7, seed: int = 42, nsrc: int = 24):
-    """Build a .dt tree on the card with the port's gridding, then deconv."""
+               nchan_band: int = 4, niter: int = 3, eps: float = 1e-7, seed: int = 42, nsrc: int = 24,
+               compare_idg=None):
+    """Build a .dt tree on the card with the port's gridding, then deconv.
+    With ``compare_idg`` (a ctypes library from ``build_idg_library``), its
+    B1/B2 are timed in turns with the tree's at band 0's plan."""
     import torch
 
     from pfb_imaging_tpu_torch.core import deconv as tdeconv
@@ -635,7 +722,10 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
         b1_max_abs_err=err_b1, b2_max_abs_err=err_b2, b1_rel_vs_f64=rel_b1, b2_rel_vs_f64=rel_b2,
         patch_scale=float(pat.abs().max()), vals_scale=float(back.abs().max()),
         hessian_vis_ms=cuda_ms(lambda: hessian_vis_idg(p, img, wgt_g), 5),
+        yardstick_slot_contraction_complex64_matmul_ms=slot_contraction_matmul_ms(p, vals),
     )
+    if compare_idg is not None:
+        timing["compare"] = idg_turns(compare_idg, p, vals, pat)
     emit({"phase": "main_path", "stage": "kernels_at_main_shapes", **timing})
     require(rel_b1 <= 2e-6 and rel_b2 <= 2e-6, "B1/B2 vs f64 plain at the main path's shapes")
     del main_plan, main_v, p, vals, pat, back, vr, vi, wgt, wgt_g, img
@@ -1066,9 +1156,16 @@ def phase_profile(dev, dt_path: Path, lam: float, iters: int = 20):
     return rec
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--compare-idg", type=Path, default=None,
+                    help="another idg_fused.cu (same C interface, e.g. the parent commit's) whose B1/B2 are "
+                         "timed in turns with the tree's at the main plan")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1090,19 +1187,26 @@ def main() -> int:
     scat, gath = phase_kernels_scatter(dev)
     phase_accuracy(dev)
     phase_accuracy_pallas(dev)
-    timing, launches, _ = phase_main(dev, ROOT / "build" / "chip_smoke")
+    compare = build_idg_library(args.compare_idg.resolve()) if args.compare_idg else None
+    timing, launches, _ = phase_main(dev, ROOT / "build" / "chip_smoke", compare_idg=compare)
     b3, im_launches, ctx = phase_imager(dev, ROOT / "build" / "chip_smoke_imager")
     b4, dg_launches, _ = phase_degrid(dev, ctx)
 
     kernels = []
     for name, tag in (("patches_from_vals", "b1"), ("vals_from_patches", "b2")):
-        bound_ms, bound_by = idg_bound(timing["ng"], timing["S"])
+        bound_ms, bound_by, bound_simt = idg_bound(timing["ng"], timing["S"])
+        ms = timing[f"{tag}_ms"]
         kernels.append(dict(
             name=name, route="cuda", source="pfb_imaging_tpu_torch/csrc/idg_fused.cu", replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=timing[f"{tag}_max_abs_err"], ms=timing[f"{tag}_ms"],
+            launches=launches[name], max_abs_err=timing[f"{tag}_max_abs_err"], ms=ms,
             plain_ms=timing[f"{tag}_plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            tf32_passes=IDG_TF32_PASSES, bound_ms_f32_simt=bound_simt, bound_share=bound_ms / ms,
+            bound_share_f32_simt=bound_simt / ms, rel_vs_f64=timing[f"{tag}_rel_vs_f64"],
+            yardstick_slot_contraction_complex64_matmul_ms=timing["yardstick_slot_contraction_complex64_matmul_ms"],
             ms_ng4096={S: kern[S][f"{tag}_ms"] for S in kern},
             plain_ms_ng4096={S: kern[S][f"{tag}_plain_ms"] for S in kern},
+            **({"ms_compare_tree_tree_compare": timing["compare"][f"{tag}_ms_compare_tree_tree_compare"]}
+               if "compare" in timing else {}),
         ))
     kernels.append(dict(
         name="scatter_grid_wstack", route="cuda", source="pfb_imaging_tpu_torch/csrc/gridder_scatter.cu",

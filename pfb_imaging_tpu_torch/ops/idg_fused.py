@@ -3,25 +3,29 @@ trip, their plain PyTorch versions, and the wrappers that pick between
 them (port of pfb_imaging_tpu/ops/idg_fused.py).
 
 * ``patches_from_vals`` (adjoint) replaces the Pallas kernel
-  ``idg_fused.patches_from_vals`` (``_adj_kernel_body``):
+  ``idg_fused.patches_from_vals`` (pfb_imaging_tpu/ops/idg_fused.py:253,
+  body ``_adj_kernel_body`` :228):
   P_g = Wu (Zu diag(V_g) Zv^T) Wv^T, (2, ng, G) values -> (2, ng, S, S).
 * ``vals_from_patches`` (forward, its exact transpose) replaces
-  ``idg_fused.vals_from_patches`` (``_fwd_kernel_body``):
+  ``idg_fused.vals_from_patches`` (:329, body ``_fwd_kernel_body`` :287):
   V_g[v] = sum_{k,l} conj(Au)[k,v] P[k,l] conj(Av)[l,v]. It takes patches
   as (2, ng, S, S): the x-major transpose the TPU kernel wanted was a lane
   layout need.
 
 Z[x, v] = exp(i (du_v xc[x] + phi_v xc[x]^2)), xc = fftfreq(S)*S, is
 rebuilt from the plan's per-slot angles ``scal`` (4, ng, G) by the
-rotation-power recurrence of the TPU kernel (angles < 2 pi, so f32 never
-reduces a large phase); Au = Wu Zu with the taper-DFT constant
-``wcu`` (2, S, S) = [re, im] of W diag(c).
+rotation-power recurrence of the TPU kernel (angles < 2 pi, so no large
+phase is ever reduced; the kernels run it in f64); Au = Wu Zu with the
+taper-DFT constant ``wcu`` (2, S, S) = [re, im] of W diag(c).
 
-What bounds the kernels on the card, and what their design does about it,
-is in the header of ``csrc/idg_fused.cu``: both are f32-FMA bound (about
-S^2 G complex MACs per group), one block per group, one thread per slot,
-all operands in shared memory, plain f32 FMAs instead of the TPU's bf16
-split matmuls.
+The kernels are bound by operations (S^2 G complex MACs per group for the
+slot contraction, 2 S^3 for the taper-DFT products). Every complex product
+runs on the tensor cores as one real product of stacked operands, in three
+TF32 passes (3xTF32: each operand split into a TF32 big part and a TF32
+small part, small*big + big*small + big*big with f32 sums), which is as
+accurate as plain f32 here; one TF32 pass would miss the 2e-6 contract
+~150x. Persistent blocks walk the groups one at a time, so any ng >= 0 is
+taken as it is. The header of ``csrc/idg_fused.cu`` gives the design.
 
 The wrappers run the plain version only for tensors on the CPU. For CUDA
 tensors they launch the kernel (f32 only) or raise; ``LAUNCHES`` counts
