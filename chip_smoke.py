@@ -29,10 +29,14 @@ exits non-zero:
                card, DIRTY and PSF gridded by the port, a .dt tree in the
                imager's schema, then ``deconv(niter=3, epsilon=1e-7)`` in f32
                at 2048^2 with a 4096^2 PSF. Launch counts are zeroed right
-               before ``deconv`` and B1/B2's must have risen after it; the rms
-               must fall. B1/B2 are also held against their f64 plain
-               versions (rel Linf <= 2e-6) on the first band's plan at its
-               own ng;
+               before ``deconv`` and B1/B2's must have risen after it; every
+               cycle's residual must take the multiband route; the rms must
+               fall. B1/B2 are held against their f64 plain versions (rel
+               Linf <= 2e-6) on the first band's plan and at the launch
+               shape deconv ran (every band's groups in one launch, on the
+               values that launch takes), and the final model's residual by
+               the multiband and the per-band route, both timed and traced,
+               within ``ROUTE_REL_LIMIT`` of each other;
   5. profile — at the main path's shapes, CUDA-event ms of the PSF Hessian
                matvec, Psi.dot/hdot and the dual update, then 20 primal-dual
                and 20 CG iterations on the host clock and under
@@ -57,9 +61,34 @@ exits non-zero:
                within 1e-5 of its f64 plain version at bin 0's plan; then
                the main phase's array as a store and ``degrid(gridder="auto",
                epsilon=1e-7)``: B2 launched, MODEL_DATA within 1e-5 of the
-               noise-free visibilities.
+               noise-free visibilities;
+  8. widefield accuracy — f32 wplanes IDG (``w_mode="auto"`` must pick it)
+               at 256^2 on 100k visibilities with their own w, against the
+               direct f64 DFT both ways (``vis2dirty_idg`` within
+               ``delivered_accuracy``, ``dirty2vis_idg`` within its edge
+               budget) and the adjoint identity (<= 1e-5), at epsilon 1e-5
+               and 1e-7;
+  9. widefield — the main phase's array with its own w at 2048^2, 4 bands,
+               epsilon 1e-7: a tree on wplanes plans (every band must have
+               w_support > 1), B1/B2 at band 0's wplanes plan against their
+               plain versions (f64 on its middle 65,536 groups, rel Linf <=
+               2e-6), ``deconv(niter=2)`` with its default routing, counts
+               zeroed right before it (every cycle on the multiband route,
+               no band falling back, rms falling), B1/B2 at that route's
+               launch shape (1.2M groups, patch offsets past 2^31; f64 on
+               the last 65,536 groups), the final model's residual by the
+               multiband and the per-band route (both on wplanes IDG plans,
+               timed and traced, within ``ROUTE_REL_LIMIT``),
+               ``imager(gridder="auto")`` on a store of the array's sky
+               visibilities (IDG, every image and PSF plan wplanes), and
+               ``degrid(gridder="auto")`` into that store (every bin on
+               wplanes IDG, MODEL_DATA within 1e-5 of the noise-free
+               visibilities); host planning seconds and peak memory per
+               stage.
 Then the kernel summary line (every kernel with its launches on its main
-path, error, ms, plain ms and bound), the ``nvidia-smi`` line and, last,
+path, error, ms, plain ms and bound at the shape those launches take; B1/B2
+also at band 0's plan and at the widefield multiband launch and band plan,
+with the widefield phase's launches), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
@@ -80,6 +109,10 @@ LIGHTSPEED = 299792458.0
 # published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3
 # bandwidth and f32 outside the tensor cores; the bounds in the kernel line
 HBM_BYTES_PER_S = 3.35e12
+# rel Linf between the multiband and the per-band residual of one model, and
+# between deconv's residual and the multiband route's recomputation (f32
+# plans on different w grids, the assembly's atomic sums in another order)
+ROUTE_REL_LIMIT = 1e-4
 F32_FLOPS = 67e12
 # dense TF32 on the tensor cores; B1/B2 take three passes (3xTF32)
 TF32_FLOPS = 495e12
@@ -105,6 +138,10 @@ def require(cond, what: str) -> None:
 
 def rel_linf(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
+
+
+def rel_linf_np(a, b) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -618,44 +655,31 @@ def idg_turns(lib, p, vals, pat, reps: int = 10) -> dict:
     return rec
 
 
-def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 500, nband: int = 4,
-               nchan_band: int = 4, niter: int = 3, eps: float = 1e-7, seed: int = 42, nsrc: int = 24,
-               compare_idg=None):
-    """Build a .dt tree on the card with the port's gridding, then deconv.
-    With ``compare_idg`` (a ctypes library from ``build_idg_library``), its
-    B1/B2 are timed in turns with the tree's at band 0's plan."""
+def build_tree(dev, workdir: Path, uvw, chans, nband: int, nchan_band: int, srcs, nx: int, cell: float, eps: float,
+               gen, phase: str):
+    """A .dt tree in the imager's schema at ``workdir / "smoke.dt"``, built on
+    the card: per band the port's IDG plan (``w_mode="auto"``, the 8x slot
+    budget), sky visibilities plus noise, DIRTY and the PSF (its rfft2 padded
+    to 2 nx as PSFHAT). Emits each band's plan layout. Returns (planning s,
+    gridding s, band 0's plan, band 0's (vr, vi, wgt), the band records)."""
     import torch
 
-    from pfb_imaging_tpu_torch.core import deconv as tdeconv
-    from pfb_imaging_tpu_torch.core.imager import IDG_MAX_SLOT_FACTOR, PLAN_STATS
-    from pfb_imaging_tpu_torch.ops import idg_fused as F
-    from pfb_imaging_tpu_torch.ops.gridder_idg import (
-        _idg_prepare, hessian_vis_idg, plan_idg, to_group_layout, vis2dirty_idg,
-    )
+    from pfb_imaging_tpu_torch.core.imager import IDG_MAX_SLOT_FACTOR
+    from pfb_imaging_tpu_torch.ops.gridder_idg import plan_idg, vis2dirty_idg
     from pfb_imaging_tpu_torch.utils.store import TreeStore
 
     nx_psf = 2 * nx
-    cell = 8e-6 * 1024 / nx
-    uvw = synth_array(nant, ntime, seed)
-    chans = channels(nband * nchan_band)
-    srcs = point_sources(nx, nsrc, seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    nvis = uvw.shape[0] * chans.size
-    rec = dict(nx=nx, nx_psf=nx_psf, nband=nband, nrow=uvw.shape[0], nvis=nvis, epsilon=eps, cell_rad=cell)
-    emit({"phase": "main_path", "stage": "layout", **rec})
-
     if workdir.exists():
         shutil.rmtree(workdir)
-    dt_path = workdir / "smoke.dt"
-    root = TreeStore(dt_path, mode="w")  # the tree format deconv reads
+    root = TreeStore(workdir / "smoke.dt", mode="w")  # the tree format deconv reads
     uvw_d = torch.as_tensor(uvw, device=dev)
-    plan_s, grid_s = 0.0, 0.0
-    wsum_tot = 0.0
-    main_plan = None
+    plan_s, grid_s, wsum_tot = 0.0, 0.0, 0.0
+    main_plan = main_v = None
+    bands = []
     for b in range(nband):
         freq = chans[b * nchan_band : (b + 1) * nchan_band]
         t0 = time.perf_counter()
-        # plan_idg raises if the layout needs wplanes or pads slots > 8x
+        # plan_idg raises ValueError if the group padding exceeds the budget
         plan = plan_idg(uvw, freq, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=eps,
                         max_slot_factor=IDG_MAX_SLOT_FACTOR, device=dev)
         torch.cuda.synchronize()
@@ -684,15 +708,177 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
         pg.write("WEIGHT", wgt.cpu().numpy())
         pg.write("MASK", np.ones(tuple(wgt.shape), np.uint8))
         pg.write("PSFHAT", psfhat)
-        emit({"phase": "main_path", "stage": "band", "band": b, "S": plan.S, "nbins": plan.nbins,
-              "ngroups": plan.ngroups, "slots_per_vis": plan.ngroups * plan.G / (vr.numel()),
-              "dirty_peak": float(dirty.max()) / wsum})
+        bands.append({"phase": phase, "stage": "band", "band": b, "S": plan.S, "w_support": plan.w_support,
+                      "nbins": plan.nbins, "ngroups": plan.ngroups,
+                      "slots_per_vis": plan.ngroups * plan.G / (vr.numel()), "dirty_peak": float(dirty.max()) / wsum})
+        emit(bands[-1])
         if b == 0:
             main_plan, main_v = plan, (vr, vi, wgt)
         del plan
     root.set_attrs(nx=nx, ny=nx, nx_psf=nx_psf, ny_psf=nx_psf, nband=nband, ntime=1,
                    freq_out=[float(chans[b * nchan_band : (b + 1) * nchan_band].mean()) for b in range(nband)],
                    cell_rad=cell, wsum=wsum_tot, complete=True)
+    return plan_s, grid_s, main_plan, main_v, bands
+
+
+def idg_kernels_at_plan(p, vals, f64_groups: int | None = None, reps: int = 10, f64_at_end: bool = False):
+    """B1 and B2 at plan ``p`` (anything with ``scal``, ``wcu``, ``wcv``,
+    ``S`` and ``ngroups``) on group values ``vals``: CUDA-event ms of the
+    kernels and of their f32 plain versions over all ng groups, and each
+    kernel's error against its f64 plain version on ``f64_groups`` groups
+    (all of them when None; groups are independent), the middle ones or,
+    with ``f64_at_end``, the last ones, whose patch offsets are the largest.
+    Returns (record, B1's patches)."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops import idg_fused as F
+
+    pat = F.patches_from_vals(p.scal, vals, p.wcu, p.wcv, p.S)
+    back = F.vals_from_patches(pat, p.scal, p.wcu, p.wcv, p.S)
+    n = p.ngroups if f64_groups is None else min(f64_groups, p.ngroups)
+    g0 = p.ngroups - n if f64_at_end else (p.ngroups - n) // 2
+    sl = slice(g0, g0 + n)
+    d64 = [t[:, sl].double().contiguous() for t in (p.scal, vals, pat)]
+    w64 = [p.wcu.double(), p.wcv.double()]
+    ref_b1 = F.patches_from_vals_ref(d64[0], d64[1], *w64, p.S)
+    ref_b2 = F.vals_from_patches_ref(d64[2], d64[0], *w64, p.S)
+    err_b1 = float((pat[:, sl].double() - ref_b1).abs().max())
+    err_b2 = float((back[:, sl].double() - ref_b2).abs().max())
+    rec = dict(
+        ng=p.ngroups, S=p.S, f64_groups=[g0, g0 + n],
+        b1_ms=cuda_ms(lambda: F.patches_from_vals(p.scal, vals, p.wcu, p.wcv, p.S), reps),
+        b1_plain_ms=cuda_ms(lambda: F.patches_from_vals_ref(p.scal, vals, p.wcu, p.wcv, p.S), 2),
+        b2_ms=cuda_ms(lambda: F.vals_from_patches(pat, p.scal, p.wcu, p.wcv, p.S), reps),
+        b2_plain_ms=cuda_ms(lambda: F.vals_from_patches_ref(pat, p.scal, p.wcu, p.wcv, p.S), 2),
+        b1_max_abs_err=err_b1, b2_max_abs_err=err_b2,
+        b1_rel_vs_f64=err_b1 / float(ref_b1.abs().max()), b2_rel_vs_f64=err_b2 / float(ref_b2.abs().max()),
+        patch_scale=float(pat.abs().max()), vals_scale=float(back.abs().max()),
+    )
+    del d64, ref_b1, ref_b2, back
+    torch.cuda.empty_cache()
+    return rec, pat
+
+
+def multiband_kernels(model, f64_groups: int | None = None, f64_at_end: bool = False, reps: int = 10):
+    """B1 and B2 at the launch shape of the multiband residual that the
+    main path just ran: its cached multiband plan (every band's groups end
+    to end), on the group values its B1 launch takes for ``model``
+    (forward patches of each band, B2, each band's weighting), checked and
+    timed by :func:`idg_kernels_at_plan`. Returns (record, the plan)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from pfb_imaging_tpu_torch import real_dtype, to_device
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.ops import idg_fused as F
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_bins_to_grid_patches, _weighted_round_trip
+
+    mb = [v for k, v in TI._PLAN_CACHE.items() if k[0] == "multiband"]
+    require(len(mb) == 1, "one multiband plan cached by the main path")
+    mplan, wgt = mb[0][0], mb[0][1]
+    p0 = mplan.plans[0]
+    x = to_device(model, p0.device, real_dtype(p0.device))
+    pat = torch.empty((2, mplan.nband * mplan.ngroups, p0.S, p0.S), dtype=p0.rdt, device=p0.device)
+    for b, p in enumerate(mplan.plans):
+        _idg_bins_to_grid_patches(p, x[b], out=pat[:, mplan.band(b)])
+    vals = F.vals_from_patches(pat, mplan.scal, p0.wcu, p0.wcv, p0.S)
+    del pat
+    for b, p in enumerate(mplan.plans):
+        vals[:, mplan.band(b)] = _weighted_round_trip(p, vals[:, mplan.band(b)], wgt[b])
+    at = SimpleNamespace(scal=mplan.scal, wcu=p0.wcu, wcv=p0.wcv, S=p0.S, ngroups=mplan.nband * mplan.ngroups)
+    rec, _ = idg_kernels_at_plan(at, vals, f64_groups=f64_groups, reps=reps, f64_at_end=f64_at_end)
+    rec.update(nband=mplan.nband, ng_band=mplan.ngroups, w_support=mplan.w_support, nbins=p0.nbins,
+               patch_elements=2 * rec["ng"] * p0.S**2)
+    del vals
+    torch.cuda.empty_cache()
+    return rec, mplan
+
+
+def residual_routes(dev, dt, keys, model, eps: float, residual, trace: bool):
+    """The residual of ``model`` by the multiband and by the per-band route,
+    each queued whole on the card before it is fetched, as ``deconv`` does:
+    seconds of a first call (the per-band route plans here; the multiband
+    plans are cached by the main path) and of a second, optionally one
+    traced call each (device busy ms and idle share), and each route's
+    difference from the other and from ``residual`` (deconv's own, by the
+    multiband route), rel Linf. Both must stay within ``ROUTE_REL_LIMIT``."""
+    import torch
+
+    from pfb_imaging_tpu_torch import to_host
+    from pfb_imaging_tpu_torch.core import imager as TI
+
+    def multiband():
+        r = TI.residual_from_parts_multiband(dt, keys, model, epsilon=eps, as_device=True, device=dev)
+        require(r is not None, "the multiband route took the final model")
+        return to_host(r).astype(np.float64)
+
+    def per_band():
+        rs = [TI.residual_from_parts(dt.group(k), model[b], epsilon=eps, as_device=True, device=dev)
+              for b, k in enumerate(keys)]
+        return np.stack([to_host(r).astype(np.float64) for r in rs])
+
+    rec = {}
+    for rep in ("first", "steady"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        r_mb = multiband()
+        t1 = time.perf_counter()
+        r_pb = per_band()
+        rec[rep] = dict(multiband_seconds=t1 - t0, per_band_seconds=time.perf_counter() - t1,
+                        max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    if trace:
+        rec["traced"] = {}
+        for name, fn in (("multiband", multiband), ("per_band", per_band)):
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_prof = (time.perf_counter() - t0) * 1e3
+            busy = device_busy_ms(prof)
+            rec["traced"][name] = dict(profiled_wall_ms=wall_prof, device_busy_ms=busy,
+                                       idle_share=max(0.0, 1.0 - busy / wall_prof), top_kernels=top_device_ops(prof, 8))
+    pb = [v for k, v in TI._PLAN_CACHE.items() if k[0] not in ("multiband", "multiband_declined")]
+    rec.update(per_band_plans=[dict(idg=c[4], w_support=c[0].w_support if c[4] else None,
+                                    ngroups=c[0].ngroups if c[4] else None) for c in pb],
+               multiband_vs_per_band_rel=rel_linf_np(r_mb, r_pb),
+               deconv_residual_vs_multiband_rel=rel_linf_np(residual, r_mb),
+               limit=ROUTE_REL_LIMIT)
+    require(np.isfinite(r_mb).all() and np.isfinite(r_pb).all(), "both residual routes finite")
+    require(len(pb) == len(keys) and all(c[4] for c in pb), "the per-band route ran on IDG plans")
+    require(rec["multiband_vs_per_band_rel"] <= ROUTE_REL_LIMIT, "the multiband residual matches the per-band one")
+    require(rec["deconv_residual_vs_multiband_rel"] <= ROUTE_REL_LIMIT, "deconv's residual matches the multiband one")
+    return rec
+
+
+def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 500, nband: int = 4,
+               nchan_band: int = 4, niter: int = 3, eps: float = 1e-7, seed: int = 42, nsrc: int = 24,
+               compare_idg=None):
+    """Build a .dt tree on the card with the port's gridding, then deconv.
+    With ``compare_idg`` (a ctypes library from ``build_idg_library``), its
+    B1/B2 are timed in turns with the tree's at band 0's plan."""
+    import torch
+
+    from pfb_imaging_tpu_torch.core import deconv as tdeconv
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.core.imager import PLAN_STATS
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_prepare, hessian_vis_idg, to_group_layout, vis2dirty_idg
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    nx_psf = 2 * nx
+    cell = 8e-6 * 1024 / nx
+    uvw = synth_array(nant, ntime, seed)
+    chans = channels(nband * nchan_band)
+    srcs = point_sources(nx, nsrc, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nvis = uvw.shape[0] * chans.size
+    rec = dict(nx=nx, nx_psf=nx_psf, nband=nband, nrow=uvw.shape[0], nvis=nvis, epsilon=eps, cell_rad=cell)
+    emit({"phase": "main_path", "stage": "layout", **rec})
+
+    dt_path = workdir / "smoke.dt"
+    plan_s, grid_s, main_plan, main_v, _ = build_tree(dev, workdir, uvw, chans, nband, nchan_band, srcs, nx, cell,
+                                                      eps, gen, "main_path")
 
     # gridding throughput and the kernels at the main path's shapes (band 0)
     vr, vi, wgt = main_v
@@ -702,33 +888,17 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     mvis_s = vr.numel() / (time.perf_counter() - t0) / 1e6
     p = main_plan
     vals = _idg_prepare(p, vr, vi, wgt)
-    pat = F.patches_from_vals(p.scal, vals, p.wcu, p.wcv, p.S)
-    back = F.vals_from_patches(pat, p.scal, p.wcu, p.wcv, p.S)
-    d64 = [t.double() for t in (p.scal, vals, p.wcu, p.wcv, pat)]
-    ref_b1 = F.patches_from_vals_ref(d64[0], d64[1], d64[2], d64[3], p.S)
-    ref_b2 = F.vals_from_patches_ref(d64[4], d64[0], d64[2], d64[3], p.S)
-    err_b1 = float((pat.double() - ref_b1).abs().max())
-    err_b2 = float((back.double() - ref_b2).abs().max())
-    rel_b1, rel_b2 = err_b1 / float(ref_b1.abs().max()), err_b2 / float(ref_b2.abs().max())
-    del d64, ref_b1, ref_b2
+    timing, pat = idg_kernels_at_plan(p, vals)
     wgt_g = to_group_layout(p, wgt)
     img = torch.ones((nx, nx), dtype=torch.float32, device=dev)
-    timing = dict(
-        ng=p.ngroups, S=p.S,
-        b1_ms=cuda_ms(lambda: F.patches_from_vals(p.scal, vals, p.wcu, p.wcv, p.S), 10),
-        b1_plain_ms=cuda_ms(lambda: F.patches_from_vals_ref(p.scal, vals, p.wcu, p.wcv, p.S), 2),
-        b2_ms=cuda_ms(lambda: F.vals_from_patches(pat, p.scal, p.wcu, p.wcv, p.S), 10),
-        b2_plain_ms=cuda_ms(lambda: F.vals_from_patches_ref(pat, p.scal, p.wcu, p.wcv, p.S), 2),
-        b1_max_abs_err=err_b1, b2_max_abs_err=err_b2, b1_rel_vs_f64=rel_b1, b2_rel_vs_f64=rel_b2,
-        patch_scale=float(pat.abs().max()), vals_scale=float(back.abs().max()),
-        hessian_vis_ms=cuda_ms(lambda: hessian_vis_idg(p, img, wgt_g), 5),
-        yardstick_slot_contraction_complex64_matmul_ms=slot_contraction_matmul_ms(p, vals),
-    )
+    timing.update(hessian_vis_ms=cuda_ms(lambda: hessian_vis_idg(p, img, wgt_g), 5),
+                  yardstick_slot_contraction_complex64_matmul_ms=slot_contraction_matmul_ms(p, vals))
     if compare_idg is not None:
         timing["compare"] = idg_turns(compare_idg, p, vals, pat)
     emit({"phase": "main_path", "stage": "kernels_at_main_shapes", **timing})
-    require(rel_b1 <= 2e-6 and rel_b2 <= 2e-6, "B1/B2 vs f64 plain at the main path's shapes")
-    del main_plan, main_v, p, vals, pat, back, vr, vi, wgt, wgt_g, img
+    require(timing["b1_rel_vs_f64"] <= 2e-6 and timing["b2_rel_vs_f64"] <= 2e-6,
+            "B1/B2 vs f64 plain at the main path's shapes")
+    del main_plan, main_v, p, vals, pat, vr, vi, wgt, wgt_g, img
     torch.cuda.empty_cache()
 
     # the main path: counters zeroed right before deconv
@@ -758,9 +928,23 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     require(model.shape == (nband, nx, nx), "model shape")
     require(launches["patches_from_vals"] > 0 and launches["vals_from_patches"] > 0, "both kernels launched")
     require(near <= 1, "brightest model pixel on a true source")
+    require(cyc[-1]["residual_dispatch"]["multiband_parts"] == niter and
+            cyc[-1]["residual_dispatch"]["fallback_bands"] == 0, "every residual took the multiband route")
+
+    # B1/B2 at the launch shape deconv ran (all bands' groups), f64 on all
+    mb_kern, _ = multiband_kernels(model)
+    emit({"phase": "main_path", "stage": "kernels_at_multiband_launch", **mb_kern})
+    require(mb_kern["b1_rel_vs_f64"] <= 2e-6 and mb_kern["b2_rel_vs_f64"] <= 2e-6,
+            "B1/B2 vs f64 plain at the main path's multiband launch")
+    keys = [f"band{b:04d}_time0000" for b in range(nband)]
+    routes = residual_routes(dev, TreeStore(dt_path), keys, model, eps, residual, trace=True)
+    emit({"phase": "main_path", "stage": "residual_routes", **routes})
+    TI._PLAN_CACHE.clear()
+    TI._PLAN_CACHE_BYTES = 0
+    torch.cuda.empty_cache()
     phase_profile(dev, dt_path, cyc[-1]["lam"])
     shutil.rmtree(workdir)
-    return timing, launches, summary
+    return timing, mb_kern, launches, summary
 
 
 def write_xds(path: Path, uvw, chans, re, im) -> None:
@@ -1039,6 +1223,229 @@ def phase_degrid(dev, ctx: dict, eps_pallas: float = 1e-5, eps_auto: float = 1e-
     return b4, launches, dict(pallas=rec, checks=checks, auto=rec_auto)
 
 
+def dft_vis(uvw, freq, img, cell: float, dev, chunk: int = 1024):
+    """Direct f64 forward DFT on the card, the adjoint of ``dft_dirty``:
+    V = sum_pixels img e^{-2 pi i phase}."""
+    import torch
+
+    nx = img.shape[0]
+    c = (torch.arange(nx, device=dev, dtype=torch.float64) - nx // 2) * cell
+    ll, mm = torch.meshgrid(c, c, indexing="ij")
+    lmn = torch.stack([ll.ravel(), -mm.ravel(), -(torch.sqrt(1.0 - ll**2 - mm**2) - 1.0).ravel()])
+    u = torch.as_tensor(uvw, device=dev, dtype=torch.float64)
+    x = torch.as_tensor(img, device=dev, dtype=torch.float64).reshape(-1)
+    out = torch.empty((u.shape[0], len(freq)), dtype=torch.complex128, device=dev)
+    for f, nu in enumerate(freq):
+        for s in range(0, u.shape[0], chunk):
+            ph = (2.0 * np.pi * nu / LIGHTSPEED) * (u[s : s + chunk] @ lmn)
+            out[s : s + chunk, f] = torch.complex(torch.cos(ph) @ x, -(torch.sin(ph) @ x))
+    return out
+
+
+def phase_widefield_accuracy(dev, nrow: int = 50_000, nchan: int = 2, nx: int = 256):
+    """f32 wplanes IDG on the card against the direct f64 DFT, both ways:
+    the TPU bench's coordinates with their own w (|w| to ~5.9e4 wavelengths)
+    at 256^2, where ``w_mode="auto"`` must pick wplanes; ``vis2dirty_idg``
+    within ``delivered_accuracy`` (interior and edge), ``dirty2vis_idg`` of a
+    random image within the edge budget of max|V|, and the adjoint identity
+    of the pair (<= 1e-5, sums in f64), at epsilon 1e-5 and 1e-7."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops.gridder_idg import delivered_accuracy, dirty2vis_idg, plan_idg, vis2dirty_idg
+
+    rng = np.random.default_rng(7)
+    uvw = rng.uniform(-16000, 16000, (nrow, 3))
+    freq = np.linspace(1.0e9, 1.1e9, nchan)
+    cell = 8e-6 * 1024 / nx
+    vis = rng.standard_normal((nrow, nchan)) + 1j * rng.standard_normal((nrow, nchan))
+    img = rng.standard_normal((nx, nx))
+    ref = dft_dirty(uvw, freq, vis, nx, cell, dev)
+    vref = dft_vis(uvw, freq, img, cell, dev)
+    vr, vi = (torch.as_tensor(a, device=dev).float() for a in (vis.real, vis.imag))
+    img_t = torch.as_tensor(img, device=dev).float()
+    out = []
+    for eps in (1e-5, 1e-7):
+        plan = plan_idg(uvw, freq, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=eps, w_mode="auto", device=dev)
+        require(plan.w_support > 1, f"w_mode='auto' picks wplanes at epsilon {eps}")
+        d = vis2dirty_idg(plan, vr, vis_im=vi).double()
+        v = dirty2vis_idg(plan, img_t).to(torch.complex128)
+        err = (d - ref).abs() / ref.abs().max()
+        q = nx // 4
+        budget = delivered_accuracy(plan)
+        lhs = float((d * img_t.double()).sum())
+        rhs = float((torch.complex(vr, vi).to(torch.complex128).conj() * v).real.sum())
+        rec = dict(gridder="idg_wplanes", nx=nx, nvis=nrow * nchan, epsilon=eps, subgrid=plan.S,
+                   w_support=plan.w_support, nbins=plan.nbins, ngroups=plan.ngroups,
+                   rel_linf=float(err.max()), rel_linf_inner=float(err[q:-q, q:-q].max()),
+                   degrid_rel_linf=float((v - vref).abs().max() / vref.abs().max()),
+                   adjoint_rel=abs(lhs - rhs) / abs(lhs), budget_inner=budget["interior"], budget_edge=budget["edge"],
+                   edge_amp=budget["edge_amp"])
+        emit({"phase": "widefield", "stage": "accuracy", **rec})
+        require(all(np.isfinite([rec["rel_linf"], rec["degrid_rel_linf"]])), "widefield accuracy finite")
+        require(rec["rel_linf_inner"] < budget["interior"], f"wplanes interior accuracy at {eps}")
+        require(rec["rel_linf"] < budget["edge"], f"wplanes edge accuracy at {eps}")
+        require(rec["degrid_rel_linf"] < budget["edge"], f"wplanes degrid accuracy at {eps}")
+        require(rec["adjoint_rel"] <= 1e-5, f"wplanes adjoint identity at {eps}")
+        out.append(rec)
+        del plan
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 500, nband: int = 4,
+                    nchan_band: int = 4, niter: int = 2, eps: float = 1e-7, seed: int = 42, nsrc: int = 24):
+    """The main phase's array with its own w (``synth_array(..., wscale=1)``,
+    |w| to ~7.3e4 wavelengths) at 2048^2, 4 bands, epsilon 1e-7, where the
+    IDG planner picks wplanes: a .dt tree built on the card (every band's
+    plan must have w_support > 1), B1/B2 at band 0's wplanes plan against
+    their plain versions, ``deconv(niter=2)`` with its default routing
+    (counts zeroed right before it; every band must take the multiband
+    route, none fall back; the rms must fall), B1/B2 at the launch shape of
+    that route (all bands' groups, past 2^31 patch elements; f64 on the
+    last 65,536 groups), the final model's residual by the multiband and
+    the per-band route (within ``ROUTE_REL_LIMIT`` of each other, both on
+    wplanes IDG plans, timed and traced), ``imager(gridder="auto")`` on a
+    store of the array's sky visibilities (the IDG route, every image and
+    PSF plan a wplanes plan), then ``degrid(gridder="auto", epsilon=1e-7)``
+    of the sources into that store (every bin on wplanes IDG, MODEL_DATA
+    within 1e-5 of the noise-free visibilities). Each stage reports its
+    host planning seconds and peak device memory."""
+    import torch
+
+    from pfb_imaging_tpu_torch.core import deconv as tdeconv
+    from pfb_imaging_tpu_torch.core import degrid as TD
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_prepare
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    cell = 8e-6 * 1024 / nx
+    uvw = synth_array(nant, ntime, seed, wscale=1.0)
+    chans = channels(nband * nchan_band)
+    srcs = point_sources(nx, nsrc, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    emit({"phase": "widefield", "stage": "layout", "nx": nx, "nband": nband, "nrow": uvw.shape[0],
+          "nvis": uvw.shape[0] * chans.size, "epsilon": eps, "cell_rad": cell,
+          "max_abs_w_lambda": float(np.abs(uvw[:, 2]).max() * chans.max() / LIGHTSPEED)})
+    dt_path = workdir / "smoke.dt"
+    TI._PLAN_CACHE.clear()  # the earlier phases' plans; this phase's are read back below
+    TI._PLAN_CACHE_BYTES = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    plan_s, grid_s, p, (vr, vi, wgt), bands = build_tree(dev, workdir, uvw, chans, nband, nchan_band, srcs, nx, cell,
+                                                         eps, gen, "widefield")
+    tree = dict(plan_seconds=plan_s, grid_seconds=grid_s, max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    emit({"phase": "widefield", "stage": "tree", **tree})
+    require(len(bands) == nband and all(b["w_support"] > 1 for b in bands), "every band's plan is a wplanes plan")
+
+    # B1/B2 at band 0's wplanes plan: ES-weighted slot phases, chirp rows 0
+    require(not bool(p.scal[1].any()) and not bool(p.scal[3].any()), "wplanes angles carry no chirp")
+    vals = _idg_prepare(p, vr, vi, wgt)
+    kern_band, _ = idg_kernels_at_plan(p, vals, f64_groups=65536)
+    kern_band["w_support"], kern_band["nbins"] = p.w_support, p.nbins
+    emit({"phase": "widefield", "stage": "kernels_at_wplanes_band_plan", **kern_band})
+    require(kern_band["b1_rel_vs_f64"] <= 2e-6 and kern_band["b2_rel_vs_f64"] <= 2e-6,
+            "B1/B2 vs f64 plain at band 0's wplanes plan")
+    del p, vals, vr, vi, wgt
+    torch.cuda.empty_cache()
+
+    # deconv with its default routing: counts zeroed right before it
+    keys = [f"band{b:04d}_time0000" for b in range(nband)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in TI.RESIDUAL_DISPATCH_STATS:
+        TI.RESIDUAL_DISPATCH_STATS[k] = 0
+    plan0 = TI.PLAN_STATS["seconds"]
+    zero_counts()
+    t0 = time.perf_counter()
+    model, residual = tdeconv.deconv(str(dt_path), niter=niter, epsilon=eps, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    cyc = tdeconv.CYCLE_STATS
+    for s in cyc:
+        emit({"phase": "widefield", "stage": "cycle", **s})
+    summary = dict(deconv_seconds=wall, plan_seconds=TI.PLAN_STATS["seconds"] - plan0,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches,
+                   residual_dispatch=dict(TI.RESIDUAL_DISPATCH_STATS))
+    emit({"phase": "widefield", "stage": "deconv", **summary})
+    require(len(cyc) == niter and all(np.isfinite([s["rms"], s["rmax"]]).all() for s in cyc), "cycles ran, finite")
+    require(cyc[-1]["rms"] < cyc[0]["rms"], "widefield rms falls")
+    require(np.isfinite(model).all() and np.isfinite(residual).all(), "widefield model and residual finite")
+    require(TI.RESIDUAL_DISPATCH_STATS["multiband_parts"] == niter and TI.RESIDUAL_DISPATCH_STATS["fallback_bands"] == 0,
+            "every widefield residual took the multiband route")
+    require(launches["patches_from_vals"] > 0 and launches["vals_from_patches"] > 0, "B1/B2 launched in deconv")
+
+    # B1/B2 at the launch shape deconv ran: f64 on the last groups, whose
+    # patch offsets pass 2^31 elements
+    kern, mplan = multiband_kernels(model, f64_groups=65536, f64_at_end=True)
+    int32_groups = 2**31 // (2 * kern["S"] ** 2)
+    kern["f64_groups_past_int32_offsets"] = max(0, kern["f64_groups"][1] - max(kern["f64_groups"][0], int32_groups))
+    emit({"phase": "widefield", "stage": "kernels_at_multiband_launch", **kern})
+    require(mplan.w_support > 1, "the multiband plan is a wplanes plan")
+    require(kern["b1_rel_vs_f64"] <= 2e-6 and kern["b2_rel_vs_f64"] <= 2e-6,
+            "B1/B2 vs f64 plain at the widefield multiband launch")
+    require(kern["ng"] <= int32_groups or kern["f64_groups_past_int32_offsets"] > 0,
+            "the f64 check reaches the groups past 2^31 patch elements")
+    del mplan
+
+    # the final model's residual by both routes (multiband plans cached)
+    routes = residual_routes(dev, TreeStore(dt_path), keys, model, eps, residual, trace=True)
+    emit({"phase": "widefield", "stage": "residual_routes", **routes})
+    require(all(c["w_support"] > 1 for c in routes["per_band_plans"]), "the per-band route ran on wplanes plans")
+    TI._PLAN_CACHE.clear()
+    TI._PLAN_CACHE_BYTES = 0
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir)
+
+    # imager(gridder="auto") on the array's sky visibilities
+    workdir.mkdir(parents=True)
+    xds = workdir / "wide.xds"
+    re, im = sky_vis(torch.as_tensor(uvw, device=dev), chans, srcs, cell, nx, 1.0, gen)
+    write_xds(xds, uvw, chans, re, im)
+    del re, im
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = TI.imager(str(xds), str(workdir / "wide.dt"), nband=nband, nx=nx, ny=nx,
+                    cell_size=cell * 180 / np.pi * 3600, psf_oversize=2.0, epsilon=eps, gridder="auto",
+                    double_precision=False, fits_out=False, device=dev)
+    torch.cuda.synchronize()
+    stats = dict(TI.IMAGER_STATS)
+    rec_im = dict(imager_seconds=time.perf_counter() - t0, route=stats["route"], plan_seconds=stats["plan_seconds"],
+                  wait_seconds=stats["wait_seconds"], grid_seconds=stats["grid_seconds"], plans=stats["plans"],
+                  launches=read_counts(), max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    emit({"phase": "widefield", "stage": "imager", **rec_im})
+    require(rec_im["route"] == "idg" and rec_im["launches"]["patches_from_vals"] > 0, "imager(auto) on IDG (B1)")
+    require(len(stats["plans"]) == nband and
+            all(q[k]["w_support"] > 1 for q in stats["plans"] for k in ("image", "psf")),
+            "imager(auto): every image and PSF plan a wplanes plan")
+    d0 = np.asarray(out.group("band0000_time0000").read("DIRTY"))
+    require(np.isfinite(d0).all(), "imager(auto) DIRTY finite")
+    del out, d0
+
+    # degrid at real w into the same store
+    mds = sky_model_mds(workdir / "wide.mds", srcs, nx, chans.reshape(nband, -1).mean(axis=1), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    TD.degrid(mds, str(xds), cell, gridder="auto", epsilon=eps, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dg_launches = read_counts()
+    stats = {k: v for k, v in TD.DEGRID_STATS.items() if k != "bins"}
+    rec_dg = dict(degrid_seconds=wall, **stats, bins=TD.DEGRID_STATS["bins"], launches=dg_launches,
+                  max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                  vs_sky=model_data_error(xds, srcs, cell, nx, dev))
+    emit({"phase": "widefield", "stage": "degrid", **rec_dg})
+    require(all(b["route"] == "idg" and b["w_support"] > 1 for b in rec_dg["bins"]), "degrid: every bin on wplanes IDG")
+    require(dg_launches["vals_from_patches"] > 0, "B2 launched during the widefield degrid")
+    require(rec_dg["vs_sky"]["rel_linf"] <= 1e-5, "widefield MODEL_DATA within 1e-5 of the sky")
+    shutil.rmtree(workdir)
+    return kern, kern_band, launches, dg_launches, dict(tree=tree, deconv=summary, routes=routes, imager=rec_im,
+                                                        degrid=rec_dg)
+
+
 def zero_counts() -> None:
     """Every kernel's launch count to 0."""
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
@@ -1188,23 +1595,39 @@ def main(argv=None) -> int:
     phase_accuracy(dev)
     phase_accuracy_pallas(dev)
     compare = build_idg_library(args.compare_idg.resolve()) if args.compare_idg else None
-    timing, launches, _ = phase_main(dev, ROOT / "build" / "chip_smoke", compare_idg=compare)
+    timing, main_mb, launches, _ = phase_main(dev, ROOT / "build" / "chip_smoke", compare_idg=compare)
     b3, im_launches, ctx = phase_imager(dev, ROOT / "build" / "chip_smoke_imager")
     b4, dg_launches, _ = phase_degrid(dev, ctx)
+    phase_widefield_accuracy(dev)
+    wide, wide_band, wf_launches, wf_dg_launches, _ = phase_widefield(dev, ROOT / "build" / "chip_smoke_widefield")
 
     kernels = []
     for name, tag in (("patches_from_vals", "b1"), ("vals_from_patches", "b2")):
-        bound_ms, bound_by, bound_simt = idg_bound(timing["ng"], timing["S"])
-        ms = timing[f"{tag}_ms"]
+        # ms, plain_ms, bound_ms and the error at the main path's launch shape:
+        # its multiband residual, every band's groups in one launch
+        bound_ms, bound_by, bound_simt = idg_bound(main_mb["ng"], main_mb["S"])
+        bound_band, _, _ = idg_bound(timing["ng"], timing["S"])
+        bound_wide, bound_wide_by, _ = idg_bound(wide["ng"], wide["S"])
+        bound_wide_band, _, _ = idg_bound(wide_band["ng"], wide_band["S"])
+        ms = main_mb[f"{tag}_ms"]
         kernels.append(dict(
             name=name, route="cuda", source="pfb_imaging_tpu_torch/csrc/idg_fused.cu", replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=timing[f"{tag}_max_abs_err"], ms=ms,
-            plain_ms=timing[f"{tag}_plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            tf32_passes=IDG_TF32_PASSES, bound_ms_f32_simt=bound_simt, bound_share=bound_ms / ms,
-            bound_share_f32_simt=bound_simt / ms, rel_vs_f64=timing[f"{tag}_rel_vs_f64"],
+            launches=launches[name], max_abs_err=main_mb[f"{tag}_max_abs_err"], ms=ms,
+            plain_ms=main_mb[f"{tag}_plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            ng=main_mb["ng"], S=main_mb["S"], tf32_passes=IDG_TF32_PASSES, bound_ms_f32_simt=bound_simt,
+            bound_share=bound_ms / ms, bound_share_f32_simt=bound_simt / ms, rel_vs_f64=main_mb[f"{tag}_rel_vs_f64"],
+            ms_band_plan=timing[f"{tag}_ms"], ng_band_plan=timing["ng"], plain_ms_band_plan=timing[f"{tag}_plain_ms"],
+            bound_ms_band_plan=bound_band, rel_vs_f64_band_plan=timing[f"{tag}_rel_vs_f64"],
             yardstick_slot_contraction_complex64_matmul_ms=timing["yardstick_slot_contraction_complex64_matmul_ms"],
             ms_ng4096={S: kern[S][f"{tag}_ms"] for S in kern},
             plain_ms_ng4096={S: kern[S][f"{tag}_plain_ms"] for S in kern},
+            ms_wplanes_plan=wide[f"{tag}_ms"], ng_wplanes_plan=wide["ng"], plain_ms_wplanes_plan=wide[f"{tag}_plain_ms"],
+            bound_ms_wplanes_plan=bound_wide, bound_by_wplanes_plan=bound_wide_by,
+            rel_vs_f64_wplanes_plan=wide[f"{tag}_rel_vs_f64"], f64_groups_wplanes_plan=wide["f64_groups"],
+            ms_wplanes_band_plan=wide_band[f"{tag}_ms"], ng_wplanes_band_plan=wide_band["ng"],
+            plain_ms_wplanes_band_plan=wide_band[f"{tag}_plain_ms"], bound_ms_wplanes_band_plan=bound_wide_band,
+            rel_vs_f64_wplanes_band_plan=wide_band[f"{tag}_rel_vs_f64"],
+            launches_widefield_deconv=wf_launches[name], launches_widefield_degrid=wf_dg_launches[name],
             **({"ms_compare_tree_tree_compare": timing["compare"][f"{tag}_ms_compare_tree_tree_compare"]}
                if "compare" in timing else {}),
         ))

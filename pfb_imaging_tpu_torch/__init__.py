@@ -55,3 +55,29 @@ def to_device(a, device, dtype: torch.dtype) -> torch.Tensor:
     """Array-like -> tensor on ``device`` in ``dtype``, cast on the host
     first so a single copy of the final size crosses to the device."""
     return torch.from_numpy(np.array(a, dtype=_NP_DTYPE[dtype])).to(device)
+
+
+def to_device_async(a, device, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`to_device` that does not make the host wait for a card: the
+    array is cast into pinned host memory and copied on the current stream,
+    so the host goes on (reading the next input, queueing the next launch)
+    while the card works. The caching host allocator holds the pinned
+    buffer until its copy is done."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return to_device(a, dev, dtype)
+    a = np.asarray(a)
+    host = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+    host.numpy()[...] = a
+    return host.to(dev, non_blocking=True)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of its dtype; from a card through pinned
+    host memory, with one wait for the stream."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()

@@ -9,9 +9,13 @@ Behaviour kept from the JAX ``deconv``:
     the PD dual warm-starts from DUAL; ``hess_norm`` is cached in attrs;
   * divergence counting (consecutive rms-and-rmax rises) and best-model
     tracking;
-  * the component-model fit to .mds and the model re-evaluation from it.
-The exact residual runs band by band (the JAX per-band fallback route);
-the multiband residual, the device mesh and multi-host are not ported.
+  * the component-model fit to .mds and the model re-evaluation from it;
+  * the exact residual's routing: the bands of each time slice try the
+    multiband route first (``residual_from_parts_multiband``, one B1 and one
+    B2 launch per partition for all its bands); the bands that fall back run
+    ``residual_from_parts`` one by one, all queued on the device before any
+    is fetched. ``RESIDUAL_DISPATCH_STATS`` counts both.
+The device mesh and multi-host are not ported.
 """
 
 from __future__ import annotations
@@ -21,12 +25,12 @@ import time
 import numpy as np
 import torch
 
-from .. import real_dtype, resolve_device, to_device
+from .. import real_dtype, resolve_device, to_device, to_host
 from ..deconv.presets import PRESETS
 from ..utils.logging import get_logger
 from ..utils.modelspec import eval_coeffs_to_cube, fit_image_cube, save_mds
 from ..utils.store import TreeStore, require_complete
-from .imager import residual_from_parts
+from .imager import RESIDUAL_DISPATCH_STATS, residual_from_parts, residual_from_parts_multiband
 
 log = get_logger("DECONV")
 
@@ -170,9 +174,23 @@ def deconv(
             model = mcube.transpose(1, 0, 2, 3).reshape(nband, nx, ny)
 
         t1 = time.perf_counter()
+        by_time: dict = {}
         for b, key in enumerate(band_nodes):
-            residual[b] = residual_from_parts(dt.group(key), model[b], epsilon=epsilon, do_wgridding=do_wgridding,
-                                              device=dev)
+            by_time.setdefault(key.split("_time")[-1], []).append((b, key))
+        serial, queued = [], []
+        for items in by_time.values():
+            idxs = [b for b, _ in items]
+            out = residual_from_parts_multiband(dt, [key for _, key in items], model[idxs], epsilon=epsilon,
+                                                do_wgridding=do_wgridding, as_device=True, device=dev)
+            if out is not None:
+                queued.append((idxs, out))
+            else:
+                serial.extend(items)
+        RESIDUAL_DISPATCH_STATS["fallback_bands"] += len(serial)
+        queued += [([b], residual_from_parts(dt.group(key), model[b], epsilon=epsilon, do_wgridding=do_wgridding,
+                                             as_device=True, device=dev)[None]) for b, key in serial]
+        for idxs, r in queued:  # everything is queued on the device before the first fetch
+            residual[idxs] = to_host(r)
         t_resid = time.perf_counter() - t1
 
         rms_p, rmax_p = rms, rmax
@@ -180,7 +198,7 @@ def deconv(
         rms, rmax = float(np.std(mfs)), float(np.abs(mfs).max())
         stats = dict(iter=k + 1, seconds=time.perf_counter() - t0, minor_seconds=t_minor, residual_seconds=t_resid,
                      lam=lam, rms=rms, rmax=rmax, cg_iters=int(getattr(solver.forward_alg, "niter_last", -1)),
-                     pd_iters=int(getattr(bwd, "niter_last", -1)))
+                     pd_iters=int(getattr(bwd, "niter_last", -1)), residual_dispatch=dict(RESIDUAL_DISPATCH_STATS))
         CYCLE_STATS.append(stats)
         log.info("iter %d: lam=%.3e rms=%.3e rmax=%.3e cg=%d pd=%d (%.2f s)", k + 1, lam, rms, rmax,
                  stats["cg_iters"], stats["pd_iters"], stats["seconds"])

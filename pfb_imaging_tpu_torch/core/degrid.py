@@ -181,7 +181,8 @@ def degrid(
             route = "idg" if is_idg else ("pallas" if use_pallas else "stack")
             plans[bin_id] = (plan, route, chans)
             DEGRID_STATS["bins"].append(dict(part=key, bin=bin_id, route=route, nvis=uvw.shape[0] * chans.size,
-                                             **({"nbins": plan.nbins} if is_idg else {"nw": plan.nw})))
+                                             **({"nbins": plan.nbins, "w_support": plan.w_support} if is_idg
+                                                else {"nw": plan.nw})))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         DEGRID_STATS["plan_seconds"] += time.perf_counter() - t0

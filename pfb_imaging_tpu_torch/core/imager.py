@@ -17,11 +17,15 @@ otherwise, "pallas" included, as in the JAX package) and subtracted, and
 ``l2_reweight_dof`` then reweights the residual visibilities (Student-t).
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the device mesh, multi-host runs and IDG wplanes layouts.
+ROADMAP.md item: the device mesh and multi-host runs.
 
 ``residual_from_parts`` computes DIRTY - sum_p R_p^H W_p R_p (B_p model) per
-band: the IDG round trip where the planner accepts the partition, else (for
-``gridder="auto"``, per partition) the classic ES w-stacking gridder.
+band: the IDG round trip (chirp or wplanes) where the planner accepts the
+partition, else (for ``gridder="auto"``, per partition) the classic ES
+w-stacking gridder. ``residual_from_parts_multiband`` computes it for all
+bands of one time slice at once, per partition one multiband IDG plan whose
+patch kernels take every band in one launch; it returns ``None`` where the
+layout does not qualify, and the caller then goes band by band.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import real_dtype, resolve_device, to_device
+from .. import real_dtype, resolve_device, to_device, to_device_async, to_host
 from ..constants import LIGHTSPEED
 from ..geometry import fitcleanbeam, set_image_size, wgridder_conventions
 from ..ops.gridder import dirty2vis, plan_wgridder, vis2dirty
@@ -59,6 +63,9 @@ _PLAN_CACHE_BYTES_CAP = 32 << 30
 _PLAN_CACHE_BYTES = 0
 # residual planning telemetry (read by chip_smoke.py): plans built and their seconds
 PLAN_STATS = {"plans": 0, "seconds": 0.0}
+# which residual route ran (as in the JAX package): partitions taken by the
+# multiband route, and bands that fell back to ``residual_from_parts``
+RESIDUAL_DISPATCH_STATS = {"multiband_parts": 0, "fallback_bands": 0}
 # telemetry of the last ``imager`` call (read by chip_smoke.py)
 IMAGER_STATS: dict = {}
 
@@ -258,7 +265,9 @@ def imager(
         return img.double().cpu().numpy()
 
     def plan_info(plan):
-        return {"nbins": plan.nbins} if use_idg else {"nw": plan.nw, "support": plan.support, "nbig": plan.nbig_x}
+        if use_idg:
+            return {"nbins": plan.nbins, "w_support": plan.w_support}
+        return {"nw": plan.nw, "support": plan.support, "nbig": plan.nbig_x}
 
     # time binning: partitions land in ntime contiguous bins over scan time
     part_times = np.asarray([xds.group(k).attrs.get("time", 0.0) for k in parts], dtype=float)
@@ -389,6 +398,8 @@ def imager(
 
 
 def _cached_nbytes(cached) -> int:
+    if cached is None:  # a multiband slice's refusal
+        return 0
     plan, wgt, mask, beam, _ = cached
     return plan.nbytes + sum(t.numel() * t.element_size() for t in (wgt, mask, beam) if t is not None)
 
@@ -401,6 +412,12 @@ def _plan_cache_put(key, cached):
         _PLAN_CACHE_BYTES -= _cached_nbytes(old)
     _PLAN_CACHE[key] = cached
     _PLAN_CACHE_BYTES += nb
+
+
+def _plan_cache_drop(key):
+    global _PLAN_CACHE_BYTES
+    if key in _PLAN_CACHE:
+        _PLAN_CACHE_BYTES -= _cached_nbytes(_PLAN_CACHE.pop(key))
 
 
 def _part_stamp(pg: TreeStore) -> tuple:
@@ -420,10 +437,11 @@ def _cell_from_root(band_node: TreeStore) -> float:
 
 def _plan_partition(pg: TreeStore, pk: str, kw: dict, gridder: str, want_idg: bool, dev, rdt):
     """(plan, wgt, mask, beam, is_idg) of one partition: an IDG plan with
-    the masked weights in group layout, or the classic plan with the
-    weights and mask as they are. ``gridder="auto"`` falls back to the
-    classic plan on the IDG planner's ``ValueError``; an explicit "idg"
-    propagates it, and wplanes layouts raise ``NotImplementedError``."""
+    the masked weights (in group layout for chirp plans, in original layout
+    for wplanes plans, which weight the replica sum), or the classic plan
+    with the weights and mask as they are. ``gridder="auto"`` falls back to
+    the classic plan on the IDG planner's ``ValueError``; an explicit "idg"
+    propagates it."""
     uvw, f = np.asarray(pg.read("UVW")), np.asarray(pg.read("FREQ"))
     wgt = to_device(pg.read("WEIGHT"), dev, rdt)
     mask = to_device(pg.read("MASK"), dev, rdt)
@@ -437,14 +455,28 @@ def _plan_partition(pg: TreeStore, pk: str, kw: dict, gridder: str, want_idg: bo
             log.info("partition %s: %s", pk, e)
     beam = to_device(pg.read("BEAM"), dev, rdt) if pg.has("BEAM") else None
     if plan is not None:
-        return plan, to_group_layout(plan, wgt * mask), None, beam, True
+        wm = wgt * mask
+        return plan, (wm if plan.w_support > 1 else to_group_layout(plan, wm)), None, beam, True
     return plan_wgridder(uvw, f, **kw), wgt, mask, beam, False
 
 
+def _timed_plan(fn, dev):
+    """fn() with its seconds, to the device's sync, added to ``PLAN_STATS``."""
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    PLAN_STATS["plans"] += 1
+    PLAN_STATS["seconds"] += time.perf_counter() - t0
+    return out
+
+
 def residual_from_parts(band_node: TreeStore, model_b, epsilon: float = 1e-7, do_wgridding: bool = True,
-                        gridder: str = "auto", *, device="cuda"):
+                        gridder: str = "auto", as_device: bool = False, *, device="cuda"):
     """DIRTY - sum_p R_p^H W_p R_p (B_p model) for one band, un-normalised,
-    computed on ``device`` and returned as an f64 numpy array.
+    computed on ``device`` and returned as an f64 numpy array, or with
+    ``as_device`` as the tensor on ``device`` without waiting for it (so a
+    caller can queue every band before it fetches any).
 
     ``gridder``: "idg", "stack" (classic ES w-stacking), or "auto" (IDG
     where its accuracy envelope covers ``epsilon`` and its planner accepts
@@ -454,32 +486,114 @@ def residual_from_parts(band_node: TreeStore, model_b, epsilon: float = 1e-7, do
         raise ValueError(f"gridder {gridder!r} not in ('auto', 'idg', 'stack')")
     dev = resolve_device(device)
     rdt = real_dtype(dev)
-    dirty = np.asarray(band_node.read("DIRTY"))
-    nx, ny = dirty.shape
-    model_t = to_device(model_b, dev, rdt)
-    resid = to_device(dirty, dev, rdt)
+    nx, ny = band_node.read("DIRTY", mmap=True).shape
+    model_t = to_device_async(model_b, dev, rdt)
+    conv = torch.zeros((nx, ny), dtype=rdt, device=dev)
     want_idg = gridder == "idg" or (gridder == "auto" and epsilon >= IDG_MIN_EPS)
     for pk in band_node.groups():
         pg = band_node.group(pk)
         key = (str(pg.path), _part_stamp(pg), nx, ny, epsilon, do_wgridding, gridder, str(dev))
         cached = _PLAN_CACHE.get(key)
         if cached is None:
-            t0 = time.perf_counter()
             cell = band_node.attrs.get("cell_rad", 0.0) or _cell_from_root(band_node)
             kw = dict(nx=nx, ny=ny, cellx=cell, celly=cell, l0=pg.attrs.get("l0", 0.0), m0=pg.attrs.get("m0", 0.0),
                       epsilon=epsilon, do_wgridding=do_wgridding, divide_by_n=False, dtype=rdt, device=dev)
-            cached = _plan_partition(pg, pk, kw, gridder, want_idg, dev, rdt)
+            cached = _timed_plan(lambda: _plan_partition(pg, pk, kw, gridder, want_idg, dev, rdt), dev)
             _plan_cache_put(key, cached)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            PLAN_STATS["plans"] += 1
-            PLAN_STATS["seconds"] += time.perf_counter() - t0
         else:
             _PLAN_CACHE.move_to_end(key)
         plan, wgt, mask, beam, is_idg = cached
         xin = model_t if beam is None else model_t * beam
         if is_idg:
-            resid = resid - hessian_vis_idg(plan, xin, wgt_g=wgt)
+            conv += hessian_vis_idg(plan, xin, wgt_g=wgt)
         else:
-            resid = resid - vis2dirty(plan, dirty2vis(plan, xin), wgt=wgt, mask=mask)
-    return resid.cpu().numpy().astype(np.float64)
+            conv += vis2dirty(plan, dirty2vis(plan, xin), wgt=wgt, mask=mask)
+    # DIRTY is read while the card works through the queued round trips
+    resid = to_device_async(band_node.read("DIRTY", mmap=True), dev, rdt) - conv
+    return resid if as_device else to_host(resid).astype(np.float64)
+
+
+def residual_from_parts_multiband(dt: TreeStore, band_keys: list, model, epsilon: float = 1e-7,
+                                  do_wgridding: bool = True, as_device: bool = False, *, device="cuda"):
+    """The raw residual (nband, nx, ny) of all bands of one time slice, per
+    partition one multiband IDG plan (``parallel.sharded``) whose B1 and B2
+    launches take every band; f64 numpy, or with ``as_device`` the tensor
+    on ``device`` without waiting for it. Returns ``None`` where the JAX
+    package does: below IDG's accuracy envelope, fewer than 2 bands,
+    partitions that differ between the bands, uvw the bands do not share, or
+    a layout the planner refuses (``ValueError``, the slot budget of
+    ``gridder="auto"`` included); the caller then runs
+    :func:`residual_from_parts` band by band. Every partition is planned
+    before any is computed; a refusal is cached with the plans, so later
+    major cycles decline at once, and ``RESIDUAL_DISPATCH_STATS`` counts the
+    partitions only when the whole slice ran. The beam multiplies the model
+    once, as in the per-band route (the JAX multiband route also multiplies
+    the result by it, which its per-band route does not)."""
+    from ..parallel.sharded import multiband_hessian_vis_idg, multiband_to_group_layout, plan_idg_multiband_freqs
+
+    if epsilon < IDG_MIN_EPS or len(band_keys) < 2:
+        return None
+    dev = resolve_device(device)
+    rdt = real_dtype(dev)
+    nodes = [dt.group(k) for k in band_keys]
+    part_keys = nodes[0].groups()
+    if not part_keys or any(n.groups() != part_keys for n in nodes[1:]):
+        return None
+    nband = len(nodes)
+    nx, ny = nodes[0].read("DIRTY", mmap=True).shape
+    pgs_of = {pk: [n.group(pk) for n in nodes] for pk in part_keys}
+    keys = {pk: ("multiband", tuple(str(pg.path) for pg in pgs), tuple(_part_stamp(pg) for pg in pgs), nx, ny,
+                 epsilon, do_wgridding, str(dev)) for pk, pgs in pgs_of.items()}
+    decline_key = ("multiband_declined",) + tuple(keys.values())
+    if decline_key in _PLAN_CACHE:
+        return None
+
+    def build(pgs, uvw):
+        freqs = [np.asarray(pg.read("FREQ")) for pg in pgs]
+        cell = float(dt.attrs["cell_rad"])
+        kw = dict(nx=nx, ny=ny, cellx=cell, celly=cell, l0=pgs[0].attrs.get("l0", 0.0), m0=pgs[0].attrs.get("m0", 0.0),
+                  epsilon=epsilon, do_wgridding=do_wgridding, divide_by_n=False, dtype=rdt,
+                  max_slot_factor=IDG_MAX_SLOT_FACTOR, device=dev)
+        mplan, nch = plan_idg_multiband_freqs(uvw, freqs, **kw)
+        wm = np.zeros((nband, uvw.shape[0], nch))
+        for b, pg in enumerate(pgs):
+            w = np.asarray(pg.read("WEIGHT")) * np.asarray(pg.read("MASK"))
+            wm[b, :, : w.shape[1]] = w
+        wm = to_device(wm, dev, rdt)
+        wgt = wm if mplan.w_support > 1 else multiband_to_group_layout(mplan, wm)
+        beam = (to_device(np.stack([np.asarray(pg.read("BEAM")) for pg in pgs]), dev, rdt)
+                if all(pg.has("BEAM") for pg in pgs) else None)
+        return mplan, wgt, None, beam, True
+
+    plans, built = {}, []  # built: made by this call, dropped again if a later partition declines
+    for pk, pgs in pgs_of.items():
+        if keys[pk] in _PLAN_CACHE:
+            _PLAN_CACHE.move_to_end(keys[pk])
+            plans[pk] = _PLAN_CACHE[keys[pk]]
+            continue
+        uvw = np.asarray(pgs[0].read("UVW"))
+        try:
+            if any(not np.array_equal(np.asarray(pg.read("UVW")), uvw) for pg in pgs[1:]):
+                raise ValueError("the bands do not share uvw")
+            cached = _timed_plan(lambda: build(pgs, uvw), dev)
+        except ValueError as e:
+            log.info("multiband partition %s: %s; the slice goes band by band", pk, e)
+            for k in built:
+                _plan_cache_drop(k)
+            _plan_cache_put(decline_key, None)
+            return None
+        _plan_cache_put(keys[pk], cached)
+        plans[pk] = cached
+        built.append(keys[pk])
+
+    xs = [to_device_async(model[b], dev, rdt) for b in range(nband)]
+    conv = torch.zeros((nband, nx, ny), dtype=rdt, device=dev)
+    for pk in part_keys:
+        mplan, wgt, _, beam, _ = plans[pk]
+        conv += multiband_hessian_vis_idg(mplan, xs if beam is None else [x * beam[b] for b, x in enumerate(xs)],
+                                          wgt)
+    RESIDUAL_DISPATCH_STATS["multiband_parts"] += len(part_keys)
+    # DIRTY is read while the card works through the queued round trips
+    for b, n in enumerate(nodes):
+        conv[b] = to_device_async(n.read("DIRTY", mmap=True), dev, rdt) - conv[b]
+    return conv if as_device else to_host(conv).astype(np.float64)

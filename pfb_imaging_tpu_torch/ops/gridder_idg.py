@@ -1,17 +1,28 @@
-"""Image-domain gridding (IDG), chirp mode (port of
-pfb_imaging_tpu/ops/gridder_idg.py, ``w_support == 1`` only).
+"""Image-domain gridding (IDG): the chirp and windowed w-plane modes (port
+of pfb_imaging_tpu/ops/gridder_idg.py).
 
 Host planning (numpy, f64): visibilities are bucketed into ``half``-cell uv
-tiles and w-bins (native OpenMP pass of the port's ``native`` module where
-it loads, a vectorised numpy pass otherwise); each <= G visibility chunk of
-a bucket becomes a group whose footprint fits an S x S subgrid. Per slot
-the plan keeps only the angles ``scal`` = [2 pi du/S, phi_u, 2 pi dv/S,
-phi_v]; the taper-DFT factors ``wcu``/``wcv`` = W diag(c) come from the
-free-taper fit (``fit_taper``, copied with its disk cache). The image
-arrays (n-1, the 1/(Tu Tv) correction, the w-bin screens) are computed
-directly in f64 and cast to the working dtype.
+tiles; each <= G visibility chunk of a (w-bin, bucket) becomes a group whose
+footprint fits an S x S subgrid. ``w_mode`` picks how w is handled, with the
+JAX planner's slot-unit cost model under "auto":
+  chirp    w-bins plus a per-visibility quadratic chirp (one slot per
+           visibility; native OpenMP bucketing where the port's ``native``
+           module loads, a vectorised numpy pass otherwise);
+  wplanes  improved w-stacking over the patch machinery: each visibility
+           sits on ``w_support`` adjacent w-planes with ES-kernel weights in
+           w. Visibilities are sorted by (bucket, base plane), so each
+           (plane, bucket) group is a contiguous window of the sorted table
+           (``win_start``/``win_off``/``win_len``); the per-slot constants
+           are expanded from the per-visibility table on the device, in f64,
+           then cast.
+Per slot the plan keeps only the angles ``scal`` = [2 pi du/S, phi_u, 2 pi
+dv/S, phi_v] (phi = 0 in wplanes mode); the taper-DFT factors ``wcu``/``wcv``
+= W diag(c) come from the free-taper fit (``fit_taper``, copied with its
+disk cache). The image arrays (n-1, the 1/(Tu Tv) correction, times
+dw / khat_w(n-1 - z0) in wplanes mode, the w screens) are computed directly
+in f64 and cast to the working dtype.
 
-Runtime (torch, per w-bin loop):
+Runtime (torch, per w-bin or w-plane loop):
   adjoint  vis -> group values (one gather) -> patches (CUDA kernel B1,
            ``idg_fused.patches_from_vals``) -> ``index_add_`` onto the
            bucket lattice -> shifted-slice placement + periodic fold ->
@@ -19,15 +30,18 @@ Runtime (torch, per w-bin loop):
   forward  its exact transpose: correction -> screen -> fft2 -> periodic
            window extraction -> patches -> group values (kernel B2,
            ``idg_fused.vals_from_patches``) -> slot phase and hermitian
-           sign -> one scatter back to the visibilities (``dirty2vis_idg``).
-The production major cycle keeps weights in group layout
-(``to_group_layout``) so ``hessian_vis_idg`` runs gather-free.
+           sign -> back to the visibilities (``dirty2vis_idg``): one scatter
+           in chirp mode, a gather of each visibility's ``w_support``
+           replica slots (``rep_idx``) and their sum in wplanes mode.
+The production major cycle keeps chirp-mode weights in group layout
+(``to_group_layout``) so ``hessian_vis_idg`` runs gather-free; wplanes
+plans weight the replica sum, so they take original-layout weights.
 
 Left out, because the card does not need them: the TPU's one-hot assembly
 matmuls, the batched/compact/``lax.scan`` bin variants, bf16 and Veltkamp
-splits, split-f32 phase evaluation (phases are f64 on the host), and the
-windowed wplanes layout (see ROADMAP.md: wplanes planning is still to be
-ported, and a layout that needs it raises ``NotImplementedError``).
+splits, split-f32 phase evaluation (phases are f64 until the cast), and the
+packed-row window gathers (a windowed plan is held as the per-slot
+``cg_idx`` map, whose windows keep the JAX planner's 8-aligned starts).
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ from .. import complex_dtype, real_dtype, to_device
 from ..constants import LIGHTSPEED
 from ..geometry import conventions_signs, good_size
 from . import idg_fused
+from .gridder import _kernel_ft, _kernel_params, es_kernel
 
 __all__ = ["IDGPlan", "plan_idg", "vis2dirty_idg", "vis2dirty_idg_grouped", "dirty2vis_idg", "dirty2vis_idg_grouped",
            "to_group_layout", "hessian_vis_idg", "delivered_accuracy", "plan_from_jax", "idg_slot_factor",
@@ -55,6 +70,14 @@ W_RESID_FRACTION = 1.0  # fraction of epsilon budgeted to the w-phase residual
 # cache the per-bin w screens on the device up to this many bytes
 _SCREEN_CACHE_BYTES = 256 << 20
 _MAX_BINS = 4096
+W_MODES = ("auto", "chirp", "wplanes")
+W_SIGMA = 2.0  # w-axis kernel oversampling: plane spacing 1/(2 W_SIGMA (n-1 halfrange))
+# windowed plans: window starts aligned down to a multiple of this (the JAX
+# planner's pack width, kept so the two planners build the same groups)
+_WIN_ALIGN = 8
+# groups per slab of the windowed plan's device expansion (bounds its f64
+# (slab, G) temporaries to ~70 MB each)
+_WIN_SLAB = 1 << 16
 
 
 # ── free-taper separable fit (numpy, copied from the JAX package) ────
@@ -77,7 +100,8 @@ def _fit_rows(S, xis, dus, phis, xc, ks, F):
     return blocks
 
 
-def fit_taper(S: int, half: int, ximax: float, chirp_max: float = CHIRP_BUDGET, tol: float | None = None):
+def fit_taper(S: int, half: int, ximax: float, chirp_max: float = CHIRP_BUDGET, tol: float | None = None,
+              widen: bool = False):
     """Joint (taper c, band response T) optimisation; returns (c, T_of_xi, err).
 
     Minimises the deviation of the patch's demodulated image response from
@@ -85,9 +109,17 @@ def fit_taper(S: int, half: int, ximax: float, chirp_max: float = CHIRP_BUDGET, 
     chirp budget, in the SVD subspace of the smallest deviation directions;
     with ``tol`` it bisects a flatness penalty to the flattest taper whose
     deviation stays <= tol (see the JAX ``fit_taper`` for the derivation).
+
+    The JAX bisection searches the penalty weight lam in [1e-2, 1e16]. Where
+    even lam = 1e16 misses ``tol`` (the chirp-free S = 32 fit below epsilon
+    ~3e-7, which wplanes plans take), it keeps the unflattened taper: 1/T
+    ~940 at the image edge per axis, ~9e5 at the corners, which multiplies
+    the f32 substrate noise there. ``widen`` then bisects on in [1e16,
+    1e24]; f32 plans ask for it, f64 plans keep the JAX taper. Fits that
+    the JAX bracket serves come out the same either way.
     """
     key = (S, half, round(ximax, 4), round(chirp_max, 4),
-           None if tol is None else float(np.format_float_scientific(tol, 2)))
+           None if tol is None else float(np.format_float_scientific(tol, 2))) + (("widen",) if widen else ())
     if key in _FIT_CACHE:
         return _FIT_CACHE[key]
     disk = _fit_disk_load().get(key)
@@ -143,15 +175,19 @@ def fit_taper(S: int, half: int, ximax: float, chirp_max: float = CHIRP_BUDGET, 
     c = Vk @ Y[:, 0]
     err, Ts = _validate(c)
     if tol is not None and err <= tol:
-        lo, hi = -2.0, 16.0  # log10(lam) bracket
-        for _ in range(18):
-            mid = 0.5 * (lo + hi)
-            cm = _solve(10.0**mid)
-            em, Tm = _validate(cm)
-            if em <= tol:
-                hi, c, err, Ts = mid, cm, em, Tm
-            else:
-                lo = mid
+        brackets = [(-2.0, 16.0)] + ([(16.0, 24.0)] if widen else [])  # log10(lam)
+        for lo, hi in brackets:
+            top = hi
+            for _ in range(18):
+                mid = 0.5 * (lo + hi)
+                cm = _solve(10.0**mid)
+                em, Tm = _validate(cm)
+                if em <= tol:
+                    hi, c, err, Ts = mid, cm, em, Tm
+                else:
+                    lo = mid
+            if hi < top:  # a weight inside this bracket met tol
+                break
     c = c / Ts[len(Ts) // 2]  # T(0) ~ 1
     _FIT_CACHE[key] = (c, _make_T(S, half, c), err)
     _fit_disk_put(key, c, err)
@@ -219,16 +255,20 @@ def _fit_disk_put(key, c, err) -> None:
 
 @dataclasses.dataclass
 class IDGPlan:
-    """Static layout + device tensors for one (uvw, freq) layout (chirp mode).
+    """Static layout + device tensors for one (uvw, freq) layout.
 
     Tensors (``rdt`` = f64 on CPU, f32 on CUDA):
         scal (4, ng, G) per-slot angles; wcu, wcv (2, S, S) taper-DFT [re, im];
         sg (ng, G) hermitian-fold conjugation signs; cg_idx (ng, G) int64
         original flat (row*chan) index of each slot (nvis = empty slot);
         bid (ng,) int64 bucket id bu*nbv + bv; phase_re/phase_im (ng, G)
-        forward per-slot phase; corr_re/corr_im (nx, ny) image correction;
-        nm1 (nx, ny) f64 n-1; scr (nbins, nx, ny) complex cached sign=-1
-        screens or None.
+        forward per-slot phase (ES w-weighted in wplanes mode); corr_re/
+        corr_im (nx, ny) image correction; nm1 (nx, ny) f64 n-1; scr
+        (nbins, nx, ny) complex cached sign=-1 screens or None; rep_idx
+        (nvis, w_support) int64 flat slot of each visibility's replicas,
+        plane by plane (wplanes mode only, else None).
+    ``w_support`` is 1 in chirp mode, where bins are w-bins; in wplanes mode
+    it is the w-kernel support and the bins are w-planes.
     """
 
     nx: int
@@ -263,6 +303,8 @@ class IDGPlan:
     corr_im: torch.Tensor
     nm1: torch.Tensor
     scr: torch.Tensor | None = None
+    w_support: int = 1
+    rep_idx: torch.Tensor | None = None
 
     @property
     def device(self):
@@ -346,22 +388,169 @@ def _fill_numpy(order, starts, counts, gbase, G, ng, nvis, payload):
     return (cg_idx, *out, phase, inv_orig)
 
 
+def _lattice(nx: int, ny: int, S: int, half: int, sigma: float):
+    """(nbig_x, nbig_y): the oversampled grid, 5-smooth multiples of ``half``."""
+    return (_good_multiple(max(int(np.ceil(sigma * nx)), nx + 2 * S), half),
+            _good_multiple(max(int(np.ceil(sigma * ny)), ny + 2 * S), half))
+
+
+def _windowed_layout(uvw, invlam, signs, cux, cvy, l0, m0, nbig_x, nbig_y, half, nbu, nbv, k0_off, G, nbins, Ws,
+                     w0, dw, count_only):
+    """The JAX planner's windowed wplanes layout (host numpy, f64).
+
+    Visibilities (not replicas) are sorted by (bucket, base plane i0); a
+    visibility touches planes i0 .. i0+Ws-1, and i0 is monotone in w inside a
+    bucket, so each (bucket, plane) pair's members are one contiguous window
+    of the sorted table, cut into <= G slot groups ordered by (plane,
+    bucket). Returns the per-bin group counts, and unless ``count_only`` the
+    per-group windows (``win_start``/``win_off``/``win_len``, ``plane_g``,
+    ``bid_g``) and the sorted per-visibility table (``order``, ``i0``, ``du``,
+    ``dv``, ``wfrac`` relative to the base plane, ``ph`` the phase-centre
+    shift)."""
+    su, sv, sw = signs
+    u_l = su * np.multiply.outer(uvw[:, 0], invlam)
+    v_l = sv * np.multiply.outer(uvw[:, 1], invlam)
+    w_lam = (sw * np.multiply.outer(uvw[:, 2], invlam)).ravel()
+    um = np.mod((u_l * cux).ravel(), nbig_x)
+    vm = np.mod((v_l * cvy).ravel(), nbig_y)
+    shift_cycles = u_l.ravel() * (-l0) + v_l.ravel() * m0
+    del u_l, v_l
+    bu = np.minimum((um // half).astype(np.int64), nbu - 1)
+    bv = np.minimum((vm // half).astype(np.int64), nbv - 1)
+    i0 = np.floor((w_lam - w0) / dw - Ws / 2.0).astype(np.int64) + 1
+    i0 = np.clip(i0, 0, max(nbins - Ws, 0))
+    bkey = bu * nbv + bv
+    order = np.lexsort((i0, bkey))
+    bkey_s, i0_s = bkey[order], i0[order]
+    ub, bstart, bcount = np.unique(bkey_s, return_index=True, return_counts=True)
+    # candidate (bucket, plane) pairs: the planes each bucket's members touch
+    pl_lo = i0_s[bstart]
+    span = (i0_s[bstart + bcount - 1] + Ws - 1 - pl_lo + 1).astype(np.int64)
+    cum = np.concatenate([[0], np.cumsum(span)])
+    pair_bi = np.repeat(np.arange(ub.size), span)
+    pair_p = np.arange(int(cum[-1])) - cum[pair_bi] + pl_lo[pair_bi]
+    # plane p's members have i0 in [p - Ws + 1, p]: one searchsorted over the
+    # composite (bucket, i0) key, sorted by construction
+    P = nbins + 2 * Ws + 2
+    K = bkey_s * P + (i0_s + Ws)
+    pb = ub[pair_bi] * P
+    lo = np.searchsorted(K, pb + (pair_p + 1), side="left")
+    cnt = np.searchsorted(K, pb + (pair_p + Ws), side="right") - lo
+    keep = cnt > 0
+    pair_p, lo, cnt, pair_bkey = pair_p[keep], lo[keep], cnt[keep], ub[pair_bi[keep]]
+    ord2 = np.lexsort((pair_bkey, pair_p))  # groups by (plane, bucket): planes stay contiguous
+    pair_p, lo, cnt, pair_bkey = pair_p[ord2], lo[ord2], cnt[ord2], pair_bkey[ord2]
+    a0 = (lo // _WIN_ALIGN) * _WIN_ALIGN
+    gper = -(-(lo + cnt - a0) // G)
+    gbase = np.concatenate([[0], np.cumsum(gper)])
+    bin_gcount = np.zeros(nbins, np.int64)
+    np.add.at(bin_gcount, pair_p, gper)
+    if count_only:
+        return dict(bin_gcount=bin_gcount)
+    gi_of = np.repeat(np.arange(pair_p.size), gper)
+    win_start = a0[gi_of] + (np.arange(int(gbase[-1])) - gbase[:-1][gi_of]) * G
+    win_off = np.maximum(lo[gi_of] - win_start, 0)
+    win_len = np.minimum(lo[gi_of] + cnt[gi_of], win_start + G) - np.maximum(lo[gi_of], win_start)
+    return dict(bin_gcount=bin_gcount, win_start=win_start, win_off=win_off, win_len=win_len,
+                plane_g=pair_p[gi_of], bid_g=pair_bkey[gi_of], order=order, i0=i0_s,
+                du=(um - (bu * half - k0_off))[order], dv=(vm - (bv * half - k0_off))[order],
+                wfrac=((w_lam - w0) / dw)[order] - i0_s, ph=np.exp(-2j * np.pi * shift_cycles[order]))
+
+
+def _window_constants(lay, nvis, G, Ws, S, wk, sflat, dev, rdt):
+    """Per-slot constants of a windowed plan, expanded on ``dev`` in f64 from
+    the sorted per-visibility table and the group windows, then cast:
+    (cg_idx, scal, phase_re, phase_im, sg, rep_idx). Slot (g, k) holds sorted
+    visibility win_start[g] + k when win_off[g] <= k < win_off[g] + win_len[g]
+    and is dead (cg_idx = nvis, zero angles and phase) otherwise; its phase is
+    the shift phase times the ES w-weight ES(2 dfr / Ws) and the recentring
+    e^{2 pi i dfr dw z0}, dfr = wfrac - (plane - i0). ``rep_idx`` lists each
+    visibility's Ws live slots in slot order, which is plane order."""
+    f64 = torch.float64
+
+    def tab(a, dt=f64, fill=0):  # one sentinel entry at nvis for dead slots
+        return to_device(np.append(np.asarray(a), fill), dev, dt)
+
+    order = tab(lay["order"], torch.int64, nvis)
+    du, dv, wfrac = tab(lay["du"]), tab(lay["dv"]), tab(lay["wfrac"])
+    i0 = tab(lay["i0"], torch.int64)
+    ph_re, ph_im = tab(lay["ph"].real), tab(lay["ph"].imag)
+    ws, wo, wl, pg = (to_device(lay[k], dev, torch.int64) for k in ("win_start", "win_off", "win_len", "plane_g"))
+    ng = ws.shape[0]
+    lane = torch.arange(G, device=dev)
+    cg_idx = torch.empty((ng, G), dtype=torch.int64, device=dev)
+    scal = torch.zeros((4, ng, G), dtype=rdt, device=dev)
+    phase_re = torch.empty((ng, G), dtype=rdt, device=dev)
+    phase_im = torch.empty((ng, G), dtype=rdt, device=dev)
+    tfac = 2.0 * np.pi / S
+    for s in range(0, ng, _WIN_SLAB):
+        e = min(ng, s + _WIN_SLAB)
+        live = (lane >= wo[s:e, None]) & (lane < (wo + wl)[s:e, None])
+        pos = torch.where(live, ws[s:e, None] + lane, nvis)
+        cg_idx[s:e] = order[pos]
+        scal[0, s:e] = tfac * du[pos]
+        scal[2, s:e] = tfac * dv[pos]
+        dfr = wfrac[pos] - (pg[s:e, None] - i0[pos]).to(f64)
+        wt = torch.where(live, es_kernel(2.0 * dfr / Ws, wk["beta"]), 0.0)
+        rot = (2.0 * np.pi) * (dfr * wk["dw"]) * wk["z0"]
+        c, sn = torch.cos(rot), torch.sin(rot)
+        phase_re[s:e] = (ph_re[pos] * c - ph_im[pos] * sn) * wt
+        phase_im[s:e] = (ph_re[pos] * sn + ph_im[pos] * c) * wt
+    sg = to_device(sflat, dev, rdt)[cg_idx]
+    flat = cg_idx.reshape(-1)
+    rep = torch.sort(flat, stable=True).indices[: nvis * Ws]
+    if nvis and not bool((flat[rep] == torch.arange(nvis, device=dev).repeat_interleave(Ws)).all()):
+        raise RuntimeError("windowed layout: a visibility does not have exactly w_support replica slots")
+    return cg_idx, scal, phase_re, phase_im, sg, rep.reshape(nvis, Ws)
+
+
+def _pad_to_caps(bin_gstart, bin_gcount, bin_gcap, arrays: dict):
+    """Pad every bin's group block to its capacity ``bin_gcap`` with empty
+    groups: (new bin_gstart, new bin_gcount, padded arrays); ``arrays`` maps
+    name -> (array with the group axis first, fill)."""
+    cap = np.asarray([int(x) for x in bin_gcap], np.int64)
+    if cap.size != len(bin_gcount) or np.any(cap < np.asarray(bin_gcount)):
+        raise ValueError("bin_gcap smaller than this layout's group count")
+    new_start = np.concatenate([[0], np.cumsum(cap)])[:-1]
+    ng = int(sum(bin_gcount))
+    remap = np.empty(ng, np.int64)
+    for b, (s, c) in enumerate(zip(bin_gstart, bin_gcount)):
+        remap[s : s + c] = new_start[b] + np.arange(c)
+    out = {}
+    for name, (a, fill) in arrays.items():
+        p = np.full((int(cap.sum()),) + a.shape[1:], fill, a.dtype)
+        p[remap] = a
+        out[name] = p
+    return new_start, cap, out
+
+
 def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: float = 0.0, m0: float = 0.0,
              epsilon: float = 1e-5, do_wgridding: bool = True, max_slot_factor: float | None = None,
-             divide_by_n: bool = False, dtype: torch.dtype | None = None, count_only: bool = False,
+             divide_by_n: bool = False, w_mode: str = "auto", force_w_range: tuple | None = None,
+             bin_gcap: tuple | None = None, dtype: torch.dtype | None = None, count_only: bool | str = False,
              device="cuda") -> IDGPlan:
-    """Host-side chirp-mode IDG planning onto ``device``: the JAX
-    ``plan_idg`` with its defaults (pinned sign conventions, hermitian
-    fold, epsilon-adaptive subgrid and oversampling, ``w_mode="auto"``)
-    and ``divide_by_n=False``, the convention of the vis-space Hessian and
-    of the imager. Layouts for which "auto" picks wplanes raise
-    ``NotImplementedError``; ``max_slot_factor`` refuses layouts whose group
-    padding exceeds it. ``dtype`` defaults to f32 on CUDA (the kernels'
-    type) and f64 on the CPU. ``count_only`` stops after the bucket pass and
-    returns (nbins, per-bin group counts), as the JAX count pass does.
-    ``divide_by_n=True`` is not ported (ROADMAP.md, queue A)."""
+    """Host-side IDG planning onto ``device``: the JAX ``plan_idg`` with its
+    defaults (pinned sign conventions, hermitian fold, epsilon-adaptive
+    subgrid and oversampling) and ``divide_by_n=False``, the convention of
+    the vis-space Hessian and of the imager.
+
+    ``w_mode``: "chirp", "wplanes" or "auto" (the JAX slot-unit cost model:
+    per-visibility slots plus a lattice-area cost per bin or plane). A
+    wplanes plan moves to the S = 32 / half = 16 / sigma 1.5 tier.
+    ``force_w_range=(wmin, wmax, nbins)`` and ``bin_gcap`` (per-bin group
+    capacities, padded with empty groups) give several layouts one bin grid
+    and one group layout, as the multiband planner needs. ``max_slot_factor``
+    refuses layouts whose group padding exceeds it. ``dtype`` defaults to
+    f32 on CUDA (the kernels' type) and f64 on the CPU. ``count_only`` stops
+    after the bucket pass and returns (nbins, per-bin group counts, (wlo,
+    whi, w_support)), as the JAX count pass does; ``count_only="w"`` stops
+    before it, once the w scheme is chosen, and returns (nbins, None, (wlo,
+    whi, w_support)). ``divide_by_n=True`` is not
+    ported (ROADMAP.md, queue A)."""
     if divide_by_n:
         raise NotImplementedError("plan_idg(divide_by_n=True) is not ported yet (ROADMAP.md, queue A)")
+    if w_mode not in W_MODES:
+        raise ValueError(f"w_mode {w_mode!r} not in {W_MODES}")
     rdt = dtype or real_dtype(device)
     uvw = np.asarray(uvw, np.float64)
     freq = np.asarray(freq, np.float64)
@@ -376,14 +565,10 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
     # epsilon-adaptive subgrid: S=16/half=8 down to 4e-6, S=32/half=16 below
     S, half = (16, 8) if epsilon >= 4e-6 else (32, 16)
     G = idg_fused.G
-    k0_off = (S - half) // 2
     sigma = 1.5 if S == 32 or epsilon >= 2e-5 else 1.75
-    nbig_x = _good_multiple(max(int(np.ceil(sigma * nx)), nx + 2 * S), half)
-    nbig_y = _good_multiple(max(int(np.ceil(sigma * ny)), ny + 2 * S), half)
-    nbu, nbv = nbig_x // half, nbig_y // half
+    nbig_x, nbig_y = _lattice(nx, ny, S, half, sigma)
     invlam = freq / LIGHTSPEED
     nvis = nrow * nchan
-    cux, cvy = cellx * nbig_x, celly * nbig_y
     if nvis:
         wext = np.array([(sw * uvw[:, 2]).min(), (sw * uvw[:, 2]).max()])
         wall = np.concatenate([wext * invlam.min(), wext * invlam.max()])
@@ -415,8 +600,18 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
     if nx > 256 or ny > 256:
         resid_max *= 1.1
 
+    if force_w_range is not None:
+        do_w = True
+    w_support = 1
+    wk = None  # wplanes: the w kernel (plane spacing dw, first plane w0, recentring z0, ES beta)
+    edges = None
     if do_w:
         wmin, wmax = w_min_all, w_max_all
+        if force_w_range is not None:
+            fw0, fw1, _ = force_w_range
+            if nvis and (wmin < fw0 - 1e-9 or wmax > fw1 + 1e-9):
+                raise ValueError("force_w_range does not cover this layout's w range")
+            wmin, wmax = float(fw0), float(fw1)
         ximax_x = nx / (2.0 * nbig_x) + 0.01
         ximax_y = ny / (2.0 * nbig_y) + 0.01
         tol_resid = max(epsilon * W_RESID_FRACTION, 1e-13)
@@ -424,107 +619,162 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
         chirp_l = 2.0 * np.pi * abs(gl) * (nbig_x * cellx * ximax_x) ** 2
         chirp_m = 2.0 * np.pi * abs(gm) * (nbig_y * celly * ximax_y) ** 2
         delta = min(c1, CHIRP_BUDGET / max(chirp_l, chirp_m))
-        nbins = max(1, int(np.ceil((wmax - wmin) / (2.0 * delta)))) if wmax > wmin else 1
-        # the JAX "auto" slot-unit cost model: per-vis slots + per-bin cost
-        ws_cand = max(4, min(int(np.ceil(-np.log10(epsilon))) + 1, 16)) + 1  # w-kernel support + 1
+        nbins_chirp = max(1, int(np.ceil((wmax - wmin) / (2.0 * delta)))) if wmax > wmin else 1
+        # wplanes: an ES kernel along w, one support point over the uv rule;
+        # the plane spacing is set by the n-1 halfrange alone
+        ws_cand, _ = _kernel_params(epsilon, W_SIGMA)
+        ws_cand += 1
         r2_min = float((ell1**2).min() + (emm1**2).min())
         r2_max = float((ell1**2).max() + (emm1**2).max())
         z_lo = float(np.sqrt(max(1.0 - r2_max, 0.0)) - 1.0)
         z_hi = float(np.sqrt(max(1.0 - r2_min, 0.0)) - 1.0)
-        wk_dw = 1.0 / (2.0 * 2.0 * max(0.5 * (z_hi - z_lo), 1e-12))
+        dw = 1.0 / (2.0 * W_SIGMA * max(0.5 * (z_hi - z_lo), 1e-12))
         shift = int(np.floor(-ws_cand / 2.0)) + 1
-        nplanes = int(np.floor((wmax - wmin) / wk_dw - ws_cand / 2.0)) + 1 - shift + ws_cand
-        fbin = nbig_x * nbig_y / 4.0
-        if ws_cand * nvis + nplanes * fbin < nvis + nbins * fbin:
-            raise NotImplementedError(
-                "this layout needs the wplanes (windowed w-plane) IDG mode, which is not ported yet "
-                "(ROADMAP.md, queue A: wplanes planning)"
-            )
-        if nbins > _MAX_BINS:
-            raise ValueError(f"IDG needs {nbins} w-bins (> {_MAX_BINS}); field too wide")
-        edges = np.linspace(wmin, wmax, nbins + 1)
-        wc = 0.5 * (edges[:-1] + edges[1:])
+        nplanes = int(np.floor((wmax - wmin) / dw - ws_cand / 2.0)) + 1 - shift + ws_cand
+        if w_mode == "auto":
+            # slot-unit cost model: per-vis slots + per-bin (big iFFT +
+            # assembly ~ lattice area / 4 slots)
+            fbin = nbig_x * nbig_y / 4.0
+            mode = "wplanes" if ws_cand * nvis + nplanes * fbin < nvis + nbins_chirp * fbin else "chirp"
+        else:
+            mode = w_mode
+        if mode == "wplanes":
+            if S != 32:  # the coarse-lattice tier: fewer, fuller (plane, bucket) groups
+                S, half, sigma = 32, 16, 1.5
+                nbig_x, nbig_y = _lattice(nx, ny, S, half, sigma)
+            w_support = ws_cand
+            nbins = nplanes
+            if force_w_range is not None and int(force_w_range[2]) != nbins:
+                raise ValueError(f"force_w_range nbins={int(force_w_range[2])} != derived wplane count {nbins}")
+            wk = dict(dw=dw, w0=wmin + shift * dw, z0=0.5 * (z_lo + z_hi), beta=2.30 * ws_cand)
+            wc = wk["w0"] + np.arange(nbins) * dw
+        else:
+            nbins = int(force_w_range[2]) if force_w_range is not None else nbins_chirp
+            if nbins > _MAX_BINS:
+                raise ValueError(f"IDG needs {nbins} w-bins (> {_MAX_BINS}); field too wide")
+            edges = np.linspace(wmin, wmax, nbins + 1)
+            wc = 0.5 * (edges[:-1] + edges[1:])
     else:
         wmin = wmax = 0.0
         nbins = 1
         wc = np.zeros(1)
-        edges = None
+    wlo, whi = (w_min_all, w_max_all) if do_w else (0.0, 0.0)
+    if count_only == "w":
+        return nbins, None, (wlo, whi, w_support)
 
-    blsu = bl * nbig_x * cellx
-    bmsv = bm * nbig_y * celly
-    chiru = -2.0 * np.pi * gl * (nbig_x * cellx) ** 2 / S**2
-    chirv = -2.0 * np.pi * gm * (nbig_y * celly) ** 2 / S**2
-    binw = (wmax - wmin) / nbins if do_w else 0.0
-
-    # ── bucketing + grouping (numpy when the native library is missing) ──
-    from ..native import idg_bucket_group, idg_fill_groups
-
-    nat = idg_bucket_group(
-        uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, float(wmin) if do_w else 0.0, float(binw),
-        float(alpha), float(blsu), float(bmsv), float(chiru), float(chirv), nbig_x, nbig_y, half, nbu, nbv,
-        k0_off, G,
-    )
-    if nat is None:
-        nat = _bucket_numpy(uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, edges, wc, do_w, alpha, blsu,
-                            bmsv, chiru, chirv, nbig_x, nbig_y, half, nbu, nbv, k0_off)
-        fill = _fill_numpy
-    else:
-        fill = idg_fill_groups
-    order, uniq, starts, counts, payload = nat
-    gper = -(-counts // G)
-    gbase = np.concatenate([[0], np.cumsum(gper)])
-    ng = int(gbase[-1])
-    bin_gcount = np.zeros(nbins, np.int64)
-    np.add.at(bin_gcount, uniq // (nbu * nbv), gper)
-    bin_gstart = np.concatenate([[0], np.cumsum(bin_gcount)])[:-1]
-    if count_only:
-        return nbins, tuple(int(x) for x in bin_gcount)
-    _check_slot_budget(ng, G, nvis, nbins, max_slot_factor)
-    cg_idx, du_g, dv_g, phiu_g, phiv_g, phase_g, _ = fill(order, starts, counts, gbase[:-1], G, ng, nvis, payload)
-    bid_g = np.repeat(uniq % (nbu * nbv), gper)
-
-    # ── taper fit, taper-DFT constants, per-slot angles ──────────────
-    chirp = CHIRP_BUDGET if do_w else 0.0
-    cu, Tu_fn, _ = fit_taper(S, half, nx / (2.0 * nbig_x) + 0.01, chirp, tol=0.25 * epsilon)
-    cv, Tv_fn, _ = fit_taper(S, half, ny / (2.0 * nbig_y) + 0.01, chirp, tol=0.25 * epsilon)
-    W = np.exp(-2j * np.pi * np.outer(np.arange(S), np.arange(S)) / S)
-    tfac = 2.0 * np.pi / S
-    scal = np.stack([tfac * du_g, phiu_g, tfac * dv_g, phiv_g])
+    k0_off = (S - half) // 2
+    nbu, nbv = nbig_x // half, nbig_y // half
+    cux, cvy = cellx * nbig_x, celly * nbig_y
     sflat = np.ones(nvis + 1)
     sflat[:nvis] = np.where(np.repeat(fold_row, nchan), -1.0, 1.0)
-    sg = sflat[cg_idx]
+    if w_support > 1:
+        lay = _windowed_layout(uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbig_x, nbig_y, half, nbu, nbv, k0_off,
+                               G, nbins, w_support, wk["w0"], wk["dw"], count_only)
+        bin_gcount = lay["bin_gcount"]
+        if count_only:
+            return nbins, tuple(int(x) for x in bin_gcount), (wlo, whi, w_support)
+        bin_gstart = np.concatenate([[0], np.cumsum(bin_gcount)])[:-1]
+        ng = int(bin_gcount.sum())
+        _check_slot_budget(ng, G, nvis * w_support, nbins, max_slot_factor)
+        if bin_gcap is not None:
+            keys = ("win_start", "win_off", "win_len", "plane_g", "bid_g")
+            bin_gstart, bin_gcount, padded = _pad_to_caps(bin_gstart, bin_gcount, bin_gcap,
+                                                          {k: (lay[k], 0) for k in keys})
+            lay.update(padded)
+            ng = int(bin_gcount.sum())
+        bid_g = lay["bid_g"]
+    else:
+        blsu = bl * nbig_x * cellx
+        bmsv = bm * nbig_y * celly
+        chiru = -2.0 * np.pi * gl * (nbig_x * cellx) ** 2 / S**2
+        chirv = -2.0 * np.pi * gm * (nbig_y * celly) ** 2 / S**2
+        binw = (wmax - wmin) / nbins if do_w else 0.0
 
-    # ── image arrays in f64: n-1, 1/(Tu Tv), screens ─────────────────
+        # ── bucketing + grouping (numpy when the native library is missing) ──
+        from ..native import idg_bucket_group, idg_fill_groups
+
+        nat = idg_bucket_group(
+            uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, float(wmin) if do_w else 0.0, float(binw),
+            float(alpha), float(blsu), float(bmsv), float(chiru), float(chirv), nbig_x, nbig_y, half, nbu, nbv,
+            k0_off, G,
+        )
+        if nat is None:
+            nat = _bucket_numpy(uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, edges, wc, do_w, alpha, blsu,
+                                bmsv, chiru, chirv, nbig_x, nbig_y, half, nbu, nbv, k0_off)
+            fill = _fill_numpy
+        else:
+            fill = idg_fill_groups
+        order, uniq, starts, counts, payload = nat
+        gper = -(-counts // G)
+        gbase = np.concatenate([[0], np.cumsum(gper)])
+        ng = int(gbase[-1])
+        bin_gcount = np.zeros(nbins, np.int64)
+        np.add.at(bin_gcount, uniq // (nbu * nbv), gper)
+        bin_gstart = np.concatenate([[0], np.cumsum(bin_gcount)])[:-1]
+        if count_only:
+            return nbins, tuple(int(x) for x in bin_gcount), (wlo, whi, 1)
+        _check_slot_budget(ng, G, nvis, nbins, max_slot_factor)
+        cg_idx, du_g, dv_g, phiu_g, phiv_g, phase_g, _ = fill(order, starts, counts, gbase[:-1], G, ng, nvis,
+                                                              payload)
+        bid_g = np.repeat(uniq % (nbu * nbv), gper)
+        if bin_gcap is not None:
+            arrays = dict(cg_idx=(cg_idx, nvis), du=(du_g, 0.0), dv=(dv_g, 0.0), phiu=(phiu_g, 0.0),
+                          phiv=(phiv_g, 0.0), phase=(phase_g, 0.0), bid=(bid_g, 0))
+            bin_gstart, bin_gcount, p = _pad_to_caps(bin_gstart, bin_gcount, bin_gcap, arrays)
+            cg_idx, du_g, dv_g, phiu_g, phiv_g, phase_g, bid_g = (p[k] for k in arrays)
+            ng = int(bin_gcount.sum())
+
+    # ── taper fit, taper-DFT constants ───────────────────────────────
+    chirp = CHIRP_BUDGET if (do_w and w_support == 1) else 0.0
+    widen = rdt == torch.float32
+    cu, Tu_fn, _ = fit_taper(S, half, nx / (2.0 * nbig_x) + 0.01, chirp, tol=0.25 * epsilon, widen=widen)
+    cv, Tv_fn, _ = fit_taper(S, half, ny / (2.0 * nbig_y) + 0.01, chirp, tol=0.25 * epsilon, widen=widen)
+    W = np.exp(-2j * np.pi * np.outer(np.arange(S), np.arange(S)) / S)
+
+    # ── image arrays in f64: n-1, 1/(Tu Tv) [x dw / khat_w(n-1 - z0)] ──
     nm1 = np.sqrt(np.maximum(1.0 - ell1[:, None] ** 2 - emm1[None, :] ** 2, 0.0)) - 1.0
     corr = 1.0 / np.outer(Tu_fn((np.arange(nx) - nx // 2) / nbig_x), Tv_fn((np.arange(ny) - ny // 2) / nbig_y))
+    if w_support > 1:
+        corr = corr * (wk["dw"] / _kernel_ft(nm1 - wk["z0"], w_support, wk["beta"], delta=wk["dw"]))
 
     dev = torch.device(device)
     as_t = lambda a, t=rdt: to_device(a, dev, t)  # noqa: E731
+    rep_idx = None
+    if w_support > 1:
+        cg_idx_t, scal_t, phre_t, phim_t, sg_t, rep_idx = _window_constants(lay, nvis, G, w_support, S, wk, sflat,
+                                                                            dev, rdt)
+    else:
+        scal_t = as_t(np.stack([2.0 * np.pi / S * du_g, phiu_g, 2.0 * np.pi / S * dv_g, phiv_g]))
+        cg_idx_t, sg_t = as_t(cg_idx, torch.int64), as_t(sflat[cg_idx])
+        phre_t, phim_t = as_t(phase_g.real), as_t(phase_g.imag)
     plan = IDGPlan(
         nx=nx, ny=ny, nbig_x=nbig_x, nbig_y=nbig_y, S=S, half=half, G=G, ngroups=ng, nbu=nbu, nbv=nbv,
         k0_off=k0_off, nrow=nrow, nchan=nchan, nbins=nbins,
         bin_gstart=tuple(int(x) for x in bin_gstart), bin_gcount=tuple(int(x) for x in bin_gcount),
         bin_wc=tuple(float(x) for x in wc), do_wgridding=do_w, hermitian=True, epsilon=float(epsilon),
-        scal=as_t(scal), wcu=as_t(np.stack([(W * cu).real, (W * cu).imag])),
-        wcv=as_t(np.stack([(W * cv).real, (W * cv).imag])), sg=as_t(sg),
-        cg_idx=as_t(cg_idx, torch.int64), bid=as_t(bid_g, torch.int64),
-        phase_re=as_t(phase_g.real), phase_im=as_t(phase_g.imag),
+        scal=scal_t, wcu=as_t(np.stack([(W * cu).real, (W * cu).imag])),
+        wcv=as_t(np.stack([(W * cv).real, (W * cv).imag])), sg=sg_t, cg_idx=cg_idx_t,
+        bid=as_t(bid_g, torch.int64), phase_re=phre_t, phase_im=phim_t,
         corr_re=as_t(corr.real), corr_im=as_t(corr.imag), nm1=as_t(nm1, torch.float64),
+        w_support=int(w_support), rep_idx=rep_idx,
     )
     return _with_screens(plan)
 
 
 def idg_slot_factor(uvw, freq, **kw):
-    """IDG viability probe (the JAX ``idg_slot_factor``): (slots per
-    visibility, nbins) from the bucket/count pass of :func:`plan_idg` alone,
-    for ``gridder="auto"`` routing. A layout that needs the wplanes mode
-    raises ``NotImplementedError`` (ROADMAP.md, queue A: wplanes planning)."""
+    """IDG viability probe (the JAX ``idg_slot_factor``): (padding factor,
+    nbins) from the bucket/count pass of :func:`plan_idg` alone, for
+    ``gridder="auto"`` routing. The factor is slots per visibility over the
+    chosen w scheme's own slots per visibility (``w_support`` replicas in
+    wplanes mode)."""
     nvis = uvw.shape[0] * freq.shape[0]
     if nvis == 0:
         return 1.0, 1
+    kw = dict(kw, count_only=True)
+    kw.pop("max_slot_factor", None)
     kw.setdefault("device", "cpu")
-    nbins, gcount = plan_idg(uvw, freq, count_only=True, **kw)
-    return sum(gcount) * idg_fused.G / nvis, nbins
+    nbins, gcount, (_, _, ws) = plan_idg(uvw, freq, **kw)
+    return sum(gcount) * idg_fused.G / (nvis * ws), nbins
 
 
 def _screen(plan: IDGPlan, b: int, sign: float) -> torch.Tensor:
@@ -687,11 +937,16 @@ def _extract_bin(plan, grid, bid_b):
     return torch.stack(planes)
 
 
-def _idg_bins_to_grid_patches(plan: IDGPlan, image):
-    """Forward: image -> (2, ng, S, S) patch uv samples, bin-contiguous."""
+def _idg_bins_to_grid_patches(plan: IDGPlan, image, out=None):
+    """Forward: image -> (2, ng, S, S) patch uv samples, bin-contiguous,
+    written into ``out`` when it is given."""
     cdt = complex_dtype(plan.rdt)
     y = image.to(plan.rdt).to(cdt) * torch.complex(plan.corr_re, plan.corr_im).conj()
-    patches = torch.zeros((2, plan.ngroups, plan.S, plan.S), dtype=plan.rdt, device=plan.device)
+    if out is None:
+        patches = torch.zeros((2, plan.ngroups, plan.S, plan.S), dtype=plan.rdt, device=plan.device)
+    else:
+        patches = out
+        patches.zero_()
     px0 = plan.nbig_x // 2 - plan.nx // 2
     py0 = plan.nbig_y // 2 - plan.ny // 2
     for b in range(plan.nbins):
@@ -713,40 +968,64 @@ def dirty2vis_idg_grouped(plan: IDGPlan, image):
     return idg_fused.vals_from_patches(patches, plan.scal, plan.wcu, plan.wcv, plan.S)
 
 
-def dirty2vis_idg(plan: IDGPlan, image, mask=None, split: bool = False):
-    """Degrid an (nx, ny) image to (nrow, nchan) visibilities, the exact
-    conjugate transpose of :func:`vis2dirty_idg`: group values times the
-    slot phase, the hermitian sign on the imaginary part, then one scatter
-    of the slots back to their visibilities (empty slots land on a dropped
-    extra entry). Complex, or (2, nrow, nchan) with ``split``."""
-    image = torch.as_tensor(image).to(device=plan.device, dtype=plan.rdt)
-    vals = dirty2vis_idg_grouped(plan, image)
+def _slots_to_vis(plan: IDGPlan, vals):
+    """Group values (2, ng, G) -> (2, nvis) visibilities: the slot phase, the
+    hermitian sign on the imaginary part, then each visibility's slot (one
+    scatter; empty slots land on a dropped extra entry) or, in wplanes mode,
+    the sum of its ``w_support`` replica slots (one gather of ``rep_idx``
+    and a sum: no atomics, so the sums do not depend on the order of adds)."""
     pre, pim = plan.phase_re, plan.phase_im
     vre = vals[0] * pre - vals[1] * pim
     vim = vals[0] * pim + vals[1] * pre
     if plan.hermitian:
         vim = vim * plan.sg
+    flat = torch.stack([vre.reshape(-1), vim.reshape(-1)])
+    if plan.rep_idx is not None:
+        return flat[:, plan.rep_idx].sum(-1)
     nvis = plan.nrow * plan.nchan
     out = vals.new_zeros((2, nvis + 1))
-    out[:, plan.cg_idx.reshape(-1)] = torch.stack([vre.reshape(-1), vim.reshape(-1)])
-    out = out[:, :nvis].reshape(2, plan.nrow, plan.nchan)
+    out[:, plan.cg_idx.reshape(-1)] = flat
+    return out[:, :nvis]
+
+
+def dirty2vis_idg(plan: IDGPlan, image, mask=None, split: bool = False):
+    """Degrid an (nx, ny) image to (nrow, nchan) visibilities, the exact
+    conjugate transpose of :func:`vis2dirty_idg`. Complex, or (2, nrow,
+    nchan) with ``split``."""
+    image = torch.as_tensor(image).to(device=plan.device, dtype=plan.rdt)
+    out = _slots_to_vis(plan, dirty2vis_idg_grouped(plan, image)).reshape(2, plan.nrow, plan.nchan)
     if mask is not None:
         out = out * torch.as_tensor(mask).to(device=plan.device, dtype=plan.rdt)[None]
     return out if split else torch.complex(out[0], out[1])
 
 
 def to_group_layout(plan: IDGPlan, arr):
-    """(nrow, nchan) real array -> (ng, G) group layout (one gather)."""
+    """(nrow, nchan) real array -> (ng, G) group layout (one gather; empty
+    slots get 0)."""
     flat = arr.to(device=plan.device, dtype=plan.rdt).reshape(-1)
     return torch.cat([flat, flat.new_zeros(1)])[plan.cg_idx]
 
 
+def _weighted_round_trip(plan: IDGPlan, vals, wgt):
+    """R R^H step between B2 and B1 of the vis-space Hessian: chirp plans
+    multiply the group values by ``wgt`` in group layout; wplanes plans sum
+    each visibility's replicas, weight the sum by ``wgt`` in original
+    (nrow, nchan) layout and spread it back to the replicas."""
+    if plan.w_support == 1:
+        return vals if wgt is None else vals * wgt[None]
+    mvis = _slots_to_vis(plan, vals)
+    if wgt is not None:
+        mvis = mvis * wgt.to(plan.rdt).reshape(1, -1)
+    return _idg_prepare(plan, mvis[0], mvis[1])
+
+
 def hessian_vis_idg(plan: IDGPlan, x, wgt_g=None):
-    """Exact vis-space Hessian R^H W R x, gather-free: ``wgt_g`` is the
-    masked weight in group layout (:func:`to_group_layout`)."""
-    vals = dirty2vis_idg_grouped(plan, x)
-    if wgt_g is not None:
-        vals = vals * wgt_g[None]
+    """Exact vis-space Hessian R^H W R x. ``wgt_g`` is the masked weight: in
+    group layout (:func:`to_group_layout`) for chirp plans, whose round trip
+    is then gather-free; in original (nrow, nchan) layout for wplanes plans,
+    where the weight applies to the replica sum, so the round trip pays the
+    replica gather each way."""
+    vals = _weighted_round_trip(plan, dirty2vis_idg_grouped(plan, x), wgt_g)
     return vis2dirty_idg_grouped(plan, vals)
 
 
@@ -755,22 +1034,26 @@ def hessian_vis_idg(plan: IDGPlan, x, wgt_g=None):
 
 def plan_from_jax(leaves: dict, meta: dict, *, device="cuda") -> IDGPlan:
     """The port's IDGPlan from the numpy leaves and static fields of a JAX
-    chirp-mode ``IDGPlan`` (e.g. ``{f.name: np.asarray(getattr(p, f.name))}``).
+    ``IDGPlan`` (e.g. ``{f.name: np.asarray(getattr(p, f.name))}``), chirp
+    or windowed wplanes.
 
     A fused plan carries its angles (``scal``) and permuted-kron constants
     (``wcu8``/``wcv8``, unpacked by ``wc_from_perm_kron``). An einsum plan
     stores only A~ = W diag(c) Z: the taper c comes from the same fit
     (``fit_taper`` on the plan's geometry) and the angles are read off
     Z = diag(1/c) W^-1 A~: phi = arg(Z[1] Z[-1]) / 2, du = arg(Z[1]) - phi
-    (mod 2 pi, all the rotation recurrence needs).
+    (mod 2 pi, all the rotation recurrence needs). A windowed plan's slot
+    map comes from its windows: slot (g, k) holds ``sort_idx[win_start[g] +
+    k]`` where ``win_off[g] <= k < win_off[g] + win_len[g]``; its signs
+    ``sg`` are per visibility, and ``rep_idx`` lists the replica slots.
     """
-    if int(meta.get("w_support", 1)) != 1 or meta.get("windowed", False):
-        raise NotImplementedError("wplanes plans are not ported (ROADMAP.md, queue A: wplanes planning)")
     rdt = real_dtype(device)
     dev = torch.device(device)
     as_t = lambda a, t=rdt: to_device(a, dev, t)  # noqa: E731
     S, half, nx, ny = int(meta["S"]), int(meta["half"]), int(meta["nx"]), int(meta["ny"])
     ng, G = int(meta["ngroups"]), int(meta["G"])
+    ws = int(meta.get("w_support", 1))
+    nvis = int(meta["nrow"]) * int(meta["nchan"])
     if meta["fused"]:
         scal = np.asarray(leaves["scal"], np.float64)
         wcu = idg_fused.wc_from_perm_kron(leaves["wcu8"], S)
@@ -778,7 +1061,7 @@ def plan_from_jax(leaves: dict, meta: dict, *, device="cuda") -> IDGPlan:
     else:
         if meta.get("onfly", False):
             raise NotImplementedError("onfly JAX plans: convert a fused or einsum plan")
-        chirp = CHIRP_BUDGET if meta["do_wgridding"] else 0.0
+        chirp = CHIRP_BUDGET if meta["do_wgridding"] and ws == 1 else 0.0
         eps = float(meta["epsilon"])
         W = np.exp(-2j * np.pi * np.outer(np.arange(S), np.arange(S)) / S)
         scal = np.zeros((4, ng, G))
@@ -793,16 +1076,28 @@ def plan_from_jax(leaves: dict, meta: dict, *, device="cuda") -> IDGPlan:
             scal[2 * ax + 1] = phi
             wcs.append(np.stack([(W * c).real, (W * c).imag]))
         wcu, wcv = wcs
+    if ws > 1:
+        lane = np.arange(G)
+        wo, wl = np.asarray(leaves["win_off"], np.int64), np.asarray(leaves["win_len"], np.int64)
+        live = (lane >= wo[:, None]) & (lane < (wo + wl)[:, None])
+        sort_idx = np.append(np.asarray(leaves["sort_idx"], np.int64), nvis)
+        cg_idx = sort_idx[np.where(live, np.asarray(leaves["win_start"], np.int64)[:, None] + lane, nvis)]
+        sgv = np.asarray(leaves["sg"], np.float64) if meta["hermitian"] else np.ones(nvis)
+        sg = np.append(sgv, 1.0)[cg_idx]
+        rep_idx = as_t(leaves["rep_idx"], torch.int64)
+    else:
+        cg_idx = np.asarray(leaves["cg_idx"], np.int64)
+        sg = np.asarray(leaves["sg"]) if meta["hermitian"] else np.ones((ng, G))
+        rep_idx = None
     nm1 = np.asarray(leaves["nm1"], np.float64) + np.asarray(leaves["nm1_lo"], np.float64)
-    sg = np.asarray(leaves["sg"]) if meta["hermitian"] else np.ones((ng, G))
     plan = IDGPlan(
         nx=nx, ny=ny, nbig_x=int(meta["nbig_x"]), nbig_y=int(meta["nbig_y"]), S=S, half=half, G=G, ngroups=ng,
         nbu=int(meta["nbu"]), nbv=int(meta["nbv"]), k0_off=int(meta["k0_off"]), nrow=int(meta["nrow"]),
         nchan=int(meta["nchan"]), nbins=int(meta["nbins"]), bin_gstart=tuple(meta["bin_gstart"]),
         bin_gcount=tuple(meta["bin_gcount"]), bin_wc=tuple(meta["bin_wc"]), do_wgridding=bool(meta["do_wgridding"]),
         hermitian=bool(meta["hermitian"]), epsilon=float(meta["epsilon"]), scal=as_t(scal), wcu=as_t(wcu),
-        wcv=as_t(wcv), sg=as_t(sg), cg_idx=as_t(leaves["cg_idx"], torch.int64), bid=as_t(leaves["bid"], torch.int64),
+        wcv=as_t(wcv), sg=as_t(sg), cg_idx=as_t(cg_idx, torch.int64), bid=as_t(leaves["bid"], torch.int64),
         phase_re=as_t(leaves["phase_re"]), phase_im=as_t(leaves["phase_im"]), corr_re=as_t(leaves["corr_re"]),
-        corr_im=as_t(leaves["corr_im"]), nm1=as_t(nm1, torch.float64),
+        corr_im=as_t(leaves["corr_im"]), nm1=as_t(nm1, torch.float64), w_support=ws, rep_idx=rep_idx,
     )
     return _with_screens(plan)

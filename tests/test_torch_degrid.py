@@ -204,13 +204,38 @@ def test_degrid_region_split_matches_jax(sparse, tmp_path):
             fn(str(reg2), nx, nx)
 
 
+@pytest.fixture(scope="module")
+def wide(tmp_path_factory):
+    """One partition of 8 stacked snapshots of 24 antennas: dense enough
+    that at a cell of 1e-3 rad and epsilon 1e-7 the IDG planner takes every
+    bin in wplanes mode within the slot budget."""
+    d = tmp_path_factory.mktemp("degrid_wide")
+    ms = str(d / "d.ms.tree")
+    _, truth = simulate_vis_store(ms, nant=24, ntime=8, times_per_scan=8, nchan=4, nx=24)
+    return d, ms, truth, _mds(d, truth, ms)
+
+
+@pytest.mark.parametrize("which, eps, route", [("sparse", 1e-5, "stack"), ("wide", 1e-7, "idg")])
+def test_degrid_auto_on_wide_field_matches_jax(which, eps, route, request):
+    """``gridder="auto"`` at a cell of 1e-3 rad (a wide field for these
+    arrays): where the planner picks wplanes and accepts the layout, every
+    bin runs on wplanes IDG plans; where the slot budget refuses it, the
+    bins fall back to stack. Either way MODEL_DATA matches JAX's to 1e-9,
+    which IDG and stack (1e-7 apart) would break."""
+    d, ms, truth, mds = request.getfixturevalue(which)
+    TD.degrid(mds, ms, 1e-3, column="W_T", gridder="auto", epsilon=eps, device=CPU)
+    jax_degrid(mds, ms, 1e-3, column="W_J", gridder="auto", epsilon=eps)
+    bins = TD.DEGRID_STATS["bins"]
+    assert {b["route"] for b in bins} == {route}
+    if route == "idg":
+        assert all(b["w_support"] > 1 for b in bins)
+    for a, b in _columns(ms, "W_T", "W_J"):
+        assert _rel(a, b) < 1e-9
+
+
 def test_degrid_checks_its_arguments(sparse):
     d, ms, truth, mds = sparse
     with pytest.raises(ValueError, match="gridder"):
         TD.degrid(mds, ms, truth["cell_rad"], gridder="wsclean", device=CPU)
     with pytest.raises(ValueError, match="IDG accuracy envelope"):
         TD.degrid(mds, ms, truth["cell_rad"], gridder="idg", epsilon=1e-10, device=CPU)
-    # a wide field needs the wplanes IDG mode, not ported yet: "auto" does
-    # not fall back on it, it propagates
-    with pytest.raises(NotImplementedError, match="wplanes"):
-        TD.degrid(mds, ms, 1e-3, column="W", gridder="auto", epsilon=1e-5, device=CPU)

@@ -265,3 +265,28 @@ def test_cuda_kernels_match_plain_versions(S, ng):
     assert F.LAUNCHES["vals_from_patches"] == n0["vals_from_patches"] + (ng > 0)
     with pytest.raises(TypeError):
         F.patches_from_vals(*f64, S)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_versions_at_a_wplanes_plan():
+    """B1/B2 on the input a wplanes plan gives them: S = 32, the chirp rows
+    of ``scal`` zero, group values carrying ES-weighted slot phases; each
+    against its f64 plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_prepare, plan_idg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    uvw = rng.uniform(-800, 800, (4000, 3))
+    uvw[:, 2] = rng.uniform(-2200, 2200, 4000)
+    freq = np.linspace(1e9, 1.1e9, 2)
+    plan = plan_idg(uvw, freq, nx=128, ny=128, cellx=1e-4, celly=1e-4, epsilon=1e-7, w_mode="wplanes", device=dev)
+    assert plan.S == 32 and plan.w_support > 1 and not plan.scal[1].any() and not plan.scal[3].any()
+    vis = torch.as_tensor(rng.standard_normal((2, 4000, 2)), device=dev).float()
+    vals = _idg_prepare(plan, vis[0], vis[1])
+    p = F.patches_from_vals(plan.scal, vals, plan.wcu, plan.wcv, plan.S)
+    v = F.vals_from_patches(p, plan.scal, plan.wcu, plan.wcv, plan.S)
+    f64 = [t.double() for t in (plan.scal, vals, plan.wcu, plan.wcv, p)]
+    assert _rel(p.double().cpu(), F.patches_from_vals_ref(*f64[:4], plan.S).cpu()) < 2e-6
+    assert _rel(v.double().cpu(), F.vals_from_patches_ref(f64[4], f64[0], f64[2], f64[3], plan.S).cpu()) < 2e-6

@@ -49,6 +49,18 @@ def dense_xds(tmp_path_factory):
     return d
 
 
+@pytest.fixture(scope="module")
+def wide_xds(tmp_path_factory):
+    """One partition of 8 stacked snapshots of 24 antennas, imaged below
+    at 100 arcsec cells: a wide field, where the IDG planner picks wplanes
+    and the slot-padding probe accepts it."""
+    d = tmp_path_factory.mktemp("imager_wide")
+    ms = str(d / "sim.ms.tree")
+    simulate_vis_store(ms, nant=24, ntime=8, times_per_scan=8, nchan=4, nx=24, noise=0.1)
+    init(ms, str(d / "sim.xds"), product="I")
+    return d
+
+
 def _run_both(d, name, **kw):
     kw = {**COMMON, **kw}
     tj, tt = str(d / f"{name}_j.dt"), str(d / f"{name}_t.dt")
@@ -124,6 +136,17 @@ def test_auto_routes_as_jax(xds, dense_xds, layout, eps, route):
     d = dense_xds if layout == "dense" else xds
     sj, st = _run_both(d, f"auto{eps:.0e}", gridder="auto", epsilon=eps)
     assert TI.IMAGER_STATS["route"] == route
+    _compare(sj, st, 1e-9)
+
+
+def test_auto_wide_field_grids_on_wplanes_as_jax(wide_xds):
+    """``gridder="auto"`` on a wide field: the probe keeps IDG, every image
+    and PSF plan is a wplanes plan, and the products match JAX's to 1e-9."""
+    sj, st = _run_both(wide_xds, "wide", gridder="auto", epsilon=1e-7, cell_size=100.0, nband=1,
+                        use_mesh=False)
+    assert TI.IMAGER_STATS["route"] == "idg"
+    plans = [p[k] for p in TI.IMAGER_STATS["plans"] for k in ("image", "psf")]
+    assert plans and all(p["w_support"] > 1 for p in plans)
     _compare(sj, st, 1e-9)
 
 

@@ -47,6 +47,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+assert "pfb_imaging_tpu_torch.parallel.sharded" in names
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pfb_imaging_tpu"))
 print(len(names), bad)
 assert not bad, bad
@@ -59,15 +60,17 @@ assert not bad, bad
 def _entry_points():
     from pfb_imaging_tpu_torch.core.deconv import deconv
     from pfb_imaging_tpu_torch.core.degrid import degrid
-    from pfb_imaging_tpu_torch.core.imager import imager, residual_from_parts
+    from pfb_imaging_tpu_torch.core.imager import imager, residual_from_parts, residual_from_parts_multiband
     from pfb_imaging_tpu_torch.core.model2comps import model2comps
     from pfb_imaging_tpu_torch.deconv.presets import make_sara
     from pfb_imaging_tpu_torch.ops.gridder import plan_wgridder, wgridder_plan_from_jax
     from pfb_imaging_tpu_torch.ops.gridder_idg import plan_from_jax, plan_idg
     from pfb_imaging_tpu_torch.ops.hessian import HessianCube
+    from pfb_imaging_tpu_torch.parallel.sharded import plan_idg_multiband_freqs
 
     return [deconv, imager, residual_from_parts, make_sara, plan_wgridder, wgridder_plan_from_jax, plan_idg,
-            plan_from_jax, HessianCube.build, degrid, model2comps]
+            plan_from_jax, HessianCube.build, degrid, model2comps, residual_from_parts_multiband,
+            plan_idg_multiband_freqs]
 
 
 @pytest.mark.parametrize("fn", _entry_points(), ids=lambda f: f.__qualname__)
