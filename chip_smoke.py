@@ -84,11 +84,34 @@ exits non-zero:
                ``degrid(gridder="auto")`` into that store (every bin on
                wplanes IDG, MODEL_DATA within 1e-5 of the noise-free
                visibilities); host planning seconds and peak memory per
-               stage.
+               stage;
+ 10. pipeline — a user's whole run through the port's front end at 2048^2:
+               ``core.simulate.simulate_vis_store`` (the simulator's
+               64-antenna array, 500 integrations in one partition of
+               1,008,000 rows, 16 channels over 856-1712 MHz, 24 seeded
+               point sources, noise 1, two linear correlations; the sky by
+               the f64 DFT on the card, held to a direct sum over the
+               sources within 1e-10 on 4096 rows, the noise rms 1 +- 0.02),
+               then ``cli.main``: ``init`` (VIS = (XX + YY) / 2 within
+               1e-12, WEIGHT 2), ``imager`` (defaults, the simulator's cell:
+               IDG with every plan wplanes, B1), ``sara --niter 2`` (every
+               cycle multiband, B1/B2, rms falling), ``restore`` (six finite
+               FITS products), ``model2comps`` and ``degrid`` (every bin on
+               wplanes IDG, B2, MODEL_DATA reducing the rms), then
+               ``imager`` at the CLI's own default cell (IDG: chirp and
+               wplanes band plans) and ``sara --niter 1`` on it (the
+               multiband route), each step with the counts zeroed right
+               before it, its seconds, launches and peak memory; B1/B2 at
+               the launch shapes these steps take (band 0's image and 4096^2
+               PSF plan at both cells, which degrid's bins share, and each
+               sara's multiband launch), each against its f64 plain version
+               (rel Linf <= 2e-6).
 Then the kernel summary line (every kernel with its launches on its main
 path, error, ms, plain ms and bound at the shape those launches take; B1/B2
 also at band 0's plan and at the widefield multiband launch and band plan,
-with the widefield phase's launches), the ``nvidia-smi`` line and, last,
+with the widefield phase's launches, and at the pipeline's launch shapes
+under ``*_pipeline_*`` keys; every kernel's ``launches_pipeline``, which
+must be positive for B1/B2), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
@@ -489,7 +512,7 @@ def phase_accuracy(dev, nrow: int = 50_000, nchan: int = 2, nx: int = 256, eps: 
     uvw, freq = bench_coords(rng, nrow, nchan)
     cell = 8e-6 * 1024 / nx
     vis = rng.standard_normal((nrow, nchan)) + 1j * rng.standard_normal((nrow, nchan))
-    plan = plan_idg(uvw, freq, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=eps, device=dev)
+    plan = plan_idg(uvw, freq, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=eps, divide_by_n=False, device=dev)
     d = vis2dirty_idg(plan, torch.as_tensor(vis.real, device=dev).float(),
                       vis_im=torch.as_tensor(vis.imag, device=dev).float()).double()
     ref = dft_dirty(uvw, freq, vis, nx, cell, dev)
@@ -565,23 +588,34 @@ def point_sources(nx: int, nsrc: int, seed: int) -> list:
 
 
 def sky_vis(uvw_d, freq, srcs, cell: float, nx: int, noise: float, gen):
-    """Point-source visibilities summed on the card in f64, plus complex
-    Gaussian noise; returned as (re, im) f32 tensors (nrow, nchan)."""
+    """Visibilities of flat-spectrum point sources (``point_sum_vis``) plus
+    complex Gaussian noise; returned as (re, im) f32 tensors (nrow, nchan)."""
+    import torch
+
+    dev = uvw_d.device
+    comps = [((p - nx // 2) * cell, (q - nx // 2) * cell, np.full(len(freq), flux)) for p, q, flux in srcs]
+    vis = point_sum_vis(uvw_d, freq, comps)
+    re, im = vis.real.clone(), vis.imag.clone()
+    re += noise * torch.randn(re.shape, generator=gen, device=dev, dtype=torch.float64)
+    im += noise * torch.randn(im.shape, generator=gen, device=dev, dtype=torch.float64)
+    return re.float(), im.float()
+
+
+def point_sum_vis(uvw_d, freq, comps):
+    """Noise-free visibilities (nrow, nchan) complex128 of point components
+    ``comps`` = [(l, m, flux per channel)], summed directly on the card in
+    f64 from the pinned convention (geometry.py, no 1/n):
+    V = sum_k I_k exp(-2 pi i (u l - v m - w (n - 1)) f / c)."""
     import torch
 
     dev = uvw_d.device
     nu = torch.as_tensor(freq, device=dev, dtype=torch.float64) / LIGHTSPEED
-    re = torch.zeros((uvw_d.shape[0], len(freq)), dtype=torch.float64, device=dev)
-    im = torch.zeros_like(re)
-    for p, q, flux in srcs:
-        l, m = (p - nx // 2) * cell, (q - nx // 2) * cell
+    acc = torch.zeros((uvw_d.shape[0], len(freq)), dtype=torch.complex128, device=dev)
+    for l, m, flux in comps:
         geo = uvw_d @ torch.tensor([l, -m, -(np.sqrt(1.0 - l * l - m * m) - 1.0)], dtype=torch.float64, device=dev)
         ph = -2.0 * np.pi * geo[:, None] * nu[None, :]
-        re += flux * torch.cos(ph)
-        im += flux * torch.sin(ph)
-    re += noise * torch.randn(re.shape, generator=gen, device=dev, dtype=torch.float64)
-    im += noise * torch.randn(im.shape, generator=gen, device=dev, dtype=torch.float64)
-    return re.float(), im.float()
+        acc += torch.as_tensor(flux, device=dev)[None, :] * torch.complex(torch.cos(ph), torch.sin(ph))
+    return acc
 
 
 def build_idg_library(src: Path):
@@ -681,7 +715,7 @@ def build_tree(dev, workdir: Path, uvw, chans, nband: int, nchan_band: int, srcs
         t0 = time.perf_counter()
         # plan_idg raises ValueError if the group padding exceeds the budget
         plan = plan_idg(uvw, freq, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=eps,
-                        max_slot_factor=IDG_MAX_SLOT_FACTOR, device=dev)
+                        max_slot_factor=IDG_MAX_SLOT_FACTOR, divide_by_n=False, device=dev)
         torch.cuda.synchronize()
         plan_s += time.perf_counter() - t0
         vr, vi = sky_vis(uvw_d, freq, srcs, cell, nx, 1.0, gen)
@@ -793,6 +827,72 @@ def multiband_kernels(model, f64_groups: int | None = None, f64_at_end: bool = F
     del vals
     torch.cuda.empty_cache()
     return rec, mplan
+
+
+def imager_plan_kernels(dev, dt_path: str, plans: list, band: int = 0, eps: float = 1e-7, f64_groups: int = 65536):
+    """B1 at the imager's own launch shapes for ``band``: its image plan and
+    its PSF plan, planned again from the partition the imager wrote to the
+    tree with the imager's arguments (epsilon ``eps``, w-gridding, no slot
+    budget, the device's type) and required equal to the imager's plans
+    (``plans``, from ``IMAGER_STATS``) in bins, w-support and groups, on the
+    group values the imager's B1 launch takes (weighted visibilities; unit
+    ones for the PSF); B2 on B1's patches at the same plan. Each checked
+    and timed by :func:`idg_kernels_at_plan` (f64 on ``f64_groups`` middle
+    groups), and required within 2e-6 of f64. Returns {"image": record,
+    "psf": record}."""
+    import torch
+
+    from pfb_imaging_tpu_torch import real_dtype, to_device
+    from pfb_imaging_tpu_torch.core.imager import _psf_vis
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_prepare, plan_idg
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    tree = TreeStore(dt_path)
+    a = tree.attrs
+    pg = tree.group(f"band{band:04d}_time0000").group("part0000")
+    uvw, f = np.asarray(pg.read("UVW")), np.asarray(pg.read("FREQ"))
+    l0, m0 = pg.attrs.get("l0", 0.0), pg.attrs.get("m0", 0.0)
+    rdt = real_dtype(dev)
+    wm = to_device(np.asarray(pg.read("WEIGHT")) * np.asarray(pg.read("MASK")), dev, rdt)
+    kw = dict(cellx=a["cell_rad"], celly=a["cell_rad"], l0=l0, m0=m0, epsilon=eps, do_wgridding=True,
+              divide_by_n=False, dtype=rdt, device=dev)
+    info = next(q for q in plans if q["band"] == band)
+    out = {}
+    for kind, n, vis in (("image", a["nx"], np.asarray(pg.read("VIS"))), ("psf", a["nx_psf"], _psf_vis(uvw, f, l0, m0))):
+        p = plan_idg(uvw, f, nx=n, ny=n, **kw)
+        shape = dict(nbins=p.nbins, w_support=p.w_support, ngroups=p.ngroups)
+        require(shape == info[kind], f"band {band}'s {kind} plan planned again equals the imager's")
+        vals = _idg_prepare(p, to_device(vis.real, dev, rdt), to_device(vis.imag, dev, rdt), wm)
+        rec, _ = idg_kernels_at_plan(p, vals, f64_groups=f64_groups)
+        rec.update(nx=n, **shape)
+        require(rec["b1_rel_vs_f64"] <= 2e-6 and rec["b2_rel_vs_f64"] <= 2e-6,
+                f"B1/B2 vs f64 plain at band {band}'s {kind} plan")
+        out[kind] = rec
+        del p, vals
+        torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_multiband_kernels(dt_path: str, nband: int) -> dict:
+    """B1/B2 at the launch shape of the multiband residual that ``sara``
+    just ran on ``dt_path`` (its cached plan, on the tree's final MODEL),
+    f64 on the last 65,536 groups, required within 2e-6; then the plan
+    cache is emptied."""
+    import torch
+
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    tree = TreeStore(dt_path)
+    model = np.stack([np.asarray(tree.group(f"band{b:04d}_time0000").read("MODEL")) for b in range(nband)])
+    kern, mplan = multiband_kernels(model, f64_groups=65536, f64_at_end=True)
+    require(kern["b1_rel_vs_f64"] <= 2e-6 and kern["b2_rel_vs_f64"] <= 2e-6,
+            f"B1/B2 vs f64 plain at sara's multiband launch on {Path(dt_path).name}")
+    del mplan
+    TI._PLAN_CACHE.clear()
+    TI._PLAN_CACHE_BYTES = 0
+    torch.cuda.empty_cache()
+    return kern
 
 
 def residual_routes(dev, dt, keys, model, eps: float, residual, trace: bool):
@@ -1265,7 +1365,8 @@ def phase_widefield_accuracy(dev, nrow: int = 50_000, nchan: int = 2, nx: int = 
     img_t = torch.as_tensor(img, device=dev).float()
     out = []
     for eps in (1e-5, 1e-7):
-        plan = plan_idg(uvw, freq, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=eps, w_mode="auto", device=dev)
+        plan = plan_idg(uvw, freq, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=eps, w_mode="auto",
+                        divide_by_n=False, device=dev)
         require(plan.w_support > 1, f"w_mode='auto' picks wplanes at epsilon {eps}")
         d = vis2dirty_idg(plan, vr, vis_im=vi).double()
         v = dirty2vis_idg(plan, img_t).to(torch.complex128)
@@ -1446,6 +1547,235 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
                                                         degrid=rec_dg)
 
 
+def cli_step(name: str, fn, dev, steps: dict):
+    """Run one pipeline step with the launch counts zeroed right before it;
+    record its seconds, launches and peak device memory, and print them."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    steps[name] = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+                       max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    emit({"phase": "pipeline", "stage": name, **steps[name]})
+    return out
+
+
+def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 500, nchan: int = 16,
+                   nband: int = 4, niter: int = 2, seed: int = 44, nsrc: int = 24, ncheck: int = 4096):
+    """A user's whole run through the port's own front end at 2048^2: the
+    simulator (the JAX simulator's 64-antenna array, 500 integrations in one
+    partition of 1,008,000 rows, 16 channels over 856-1712 MHz, 24 seeded
+    point sources with spectral indices in [-1, 0], noise 1, two linear
+    correlations: the sky predicted by the f64 DFT on the card), then
+    ``pfb-torch`` ``init`` -> ``imager`` (defaults: epsilon 1e-7, gridder
+    auto; the simulator's cell) -> ``sara --niter 2`` -> ``restore`` ->
+    ``model2comps`` -> ``degrid``, through ``cli.main``. Launch counts are
+    zeroed right before each step and read right after; each step reports
+    its seconds and peak device memory. Checks: the DFT against a direct
+    sum over the sources on ``ncheck`` seeded rows (1e-10) and the store's
+    noise (rms 1 +- 0.02 a part); init's Stokes I and weights; the imager on
+    wplanes IDG (B1) with PSF peak / WSUM = 1 and band 0's brightest pixel
+    on a source; every sara cycle on the multiband route (B1, B2) with the
+    rms falling; six finite FITS products with the MFS image's brightest
+    pixel on a source; every degrid bin on wplanes IDG (B2), MODEL_DATA
+    finite and reducing the visibilities' rms. Then ``imager`` at the
+    CLI's own default cell (bands 0-2 plan chirp there) and ``sara --niter
+    1`` on that tree: IDG (B1), one multiband residual, no band falling
+    back. B1/B2 are held to their f64 plain versions at the launch shapes
+    of these steps: band 0's image and PSF plans at both cells (degrid's
+    bin 0 has band 0's image plan; the record says whether they agree) and
+    each sara's multiband launch. Returns (launches summed over the steps,
+    {where: kernel record}, the steps' records)."""
+    import torch
+
+    from pfb_imaging_tpu_torch.cli import main as cli_main
+    from pfb_imaging_tpu_torch.core import deconv as tdeconv
+    from pfb_imaging_tpu_torch.core import degrid as TD
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store
+    from pfb_imaging_tpu_torch.ops.dft import dirty2vis_dft
+    from pfb_imaging_tpu_torch.utils.fits import load_fits
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    if workdir.exists():
+        shutil.rmtree(workdir)
+    workdir.mkdir(parents=True)
+    ms, xds, dt, mds = (str(workdir / n) for n in ("sim.ms.tree", "sim_I.xds", "sim_I.dt", "sim_I.mds"))
+    rng = np.random.default_rng(seed)
+    pix = point_sources(nx, nsrc, seed)
+    alphas = rng.uniform(-1.0, 0.0, nsrc)
+    sources = [(p / nx, q / nx, flux, float(a)) for (p, q, flux), a in zip(pix, alphas)]
+    TI._PLAN_CACHE.clear()
+    TI._PLAN_CACHE_BYTES = 0
+    torch.cuda.empty_cache()
+    steps: dict = {}
+    on = ["--device", str(dev)]
+
+    _, truth = cli_step("simulate", lambda: simulate_vis_store(
+        ms, nant=nant, ntime=ntime, times_per_scan=ntime, nchan=nchan, nx=nx, sources=sources, freq0=856e6,
+        freq1=1712e6, noise=1.0, ncorr=2, feed_type="linear", device=dev), dev, steps)
+    cell, freqs = float(truth["cell_rad"]), truth["freqs"]
+    g = TreeStore(ms).group("scan0000")
+    vis_raw = g.read("VIS", mmap=True)
+    nrow = vis_raw.shape[1]
+    rows = np.sort(rng.choice(nrow, ncheck, replace=False))
+    uvw_rows = torch.as_tensor(np.asarray(g.read("UVW"))[rows], device=dev)
+    comps = [((p - nx // 2) * cell, (q - nx // 2) * cell, flux * (freqs / freqs[0]) ** a)
+             for (p, q, flux), a in zip(pix, alphas)]
+    ref = point_sum_vis(uvw_rows, freqs, comps)
+    dft = torch.cat([dirty2vis_dft(uvw_rows, freqs[c:c + 1], truth["model"][c], nx=nx, ny=nx, cellx=cell, celly=cell,
+                                   divide_by_n=False, device=dev) for c in range(nchan)], dim=1)
+    xx = torch.as_tensor(np.asarray(vis_raw[0, rows]), device=dev)
+    resid = xx - ref
+    sim = dict(nrow=nrow, nvis_per_corr=nrow * nchan, cell_rad=cell, dft_dtype=str(dft.dtype),
+               max_abs_w_lambda=float(np.abs(np.asarray(g.read("UVW"))[:, 2]).max() * freqs.max() / LIGHTSPEED),
+               dft_vs_direct_sum_rel=rel_linf(dft, ref), noise_rms_re=float(resid.real.pow(2).mean().sqrt()),
+               noise_rms_im=float(resid.imag.pow(2).mean().sqrt()))
+    emit({"phase": "pipeline", "stage": "simulate_checks", **sim})
+    require(nrow == nant * (nant - 1) // 2 * ntime and dft.dtype == torch.complex128, "one partition, f64 DFT")
+    require(sim["dft_vs_direct_sum_rel"] <= 1e-10, "simulator DFT vs the direct sum over the sources")
+    require(abs(sim["noise_rms_re"] - 1.0) <= 0.02 and abs(sim["noise_rms_im"] - 1.0) <= 0.02,
+            "simulated noise rms 1 a part")
+    del dft, resid, truth
+
+    cli_step("init", lambda: cli_main(["init", ms, xds, *on]), dev, steps)
+    gi = TreeStore(xds).group("scan0000")
+    yy = torch.as_tensor(np.asarray(vis_raw[1, rows]), device=dev)
+    vis_i = torch.as_tensor(np.asarray(gi.read("VIS", mmap=True)[rows]), device=dev)
+    wgt_i = np.asarray(gi.read("WEIGHT", mmap=True)[rows])
+    init_rel = rel_linf(vis_i, (xx + yy) / 2)
+    emit({"phase": "pipeline", "stage": "init_checks", "vis_vs_xx_yy_mean_rel": init_rel,
+          "weight_min": float(wgt_i.min()), "weight_max": float(wgt_i.max())})
+    require(init_rel <= 1e-12 and (wgt_i == 2.0).all(), "init: VIS = (XX + YY) / 2, WEIGHT = 2")
+    del xx, yy, vis_i, vis_raw
+
+    cell_arcsec = cell * 180.0 / np.pi * 3600.0
+    cli_step("imager", lambda: cli_main(["imager", xds, dt, "--nband", str(nband), "--nx", str(nx),
+                                         "--psf-oversize", "2", "--cell-size", repr(cell_arcsec), *on]), dev, steps)
+    stats = dict(TI.IMAGER_STATS)
+    steps["imager"].update(route=stats["route"], plan_seconds=stats["plan_seconds"], grid_seconds=stats["grid_seconds"],
+                           w_support=[[q["image"]["w_support"], q["psf"]["w_support"]] for q in stats["plans"]])
+    require(stats["route"] == "idg" and steps["imager"]["launches"]["patches_from_vals"] > 0, "imager on IDG (B1)")
+    require(len(stats["plans"]) == nband and
+            all(q[k]["w_support"] > 1 for q in stats["plans"] for k in ("image", "psf")),
+            "imager: every image and PSF plan a wplanes plan")
+    tree = TreeStore(dt)
+    bands = []
+    for b in range(nband):
+        node = tree.group(f"band{b:04d}_time0000")
+        wsum = float(np.asarray(node.read("WSUM"))[0])
+        dirty, psf = np.asarray(node.read("DIRTY")), np.asarray(node.read("PSF"))
+        require(np.isfinite(dirty).all() and np.isfinite(psf).all(), f"band {b} DIRTY and PSF finite")
+        peak = np.unravel_index(np.argmax(dirty), dirty.shape)
+        bands.append(dict(band=b, psf_peak_over_wsum=float(psf.max()) / wsum,
+                          dirty_peak_offset_px=min(abs(int(peak[0]) - p) + abs(int(peak[1]) - q) for p, q, _ in pix)))
+        require(abs(bands[-1]["psf_peak_over_wsum"] - 1.0) <= 1e-4, f"band {b} PSF peak / WSUM = 1")
+    emit({"phase": "pipeline", "stage": "imager_checks", "cell_rad": float(tree.attrs["cell_rad"]), "bands": bands,
+          **{k: steps["imager"][k] for k in ("route", "plan_seconds", "grid_seconds", "w_support")}})
+    require(bands[0]["dirty_peak_offset_px"] <= 1, "band 0's brightest DIRTY pixel on a true source")
+    kern = {f"{k}_plan": r for k, r in imager_plan_kernels(dev, dt, stats["plans"]).items()}
+    for k, r in kern.items():
+        emit({"phase": "pipeline", "stage": f"kernels_at_imager_{k}", **r})
+
+    for k in TI.RESIDUAL_DISPATCH_STATS:
+        TI.RESIDUAL_DISPATCH_STATS[k] = 0
+    cli_step("sara", lambda: cli_main(["sara", dt, "--niter", str(niter), *on]), dev, steps)
+    cyc = list(tdeconv.CYCLE_STATS)
+    steps["sara"].update(rms=[c["rms"] for c in cyc], residual_dispatch=dict(TI.RESIDUAL_DISPATCH_STATS))
+    emit({"phase": "pipeline", "stage": "sara_checks", "rms": steps["sara"]["rms"],
+          "residual_dispatch": steps["sara"]["residual_dispatch"]})
+    require(len(cyc) == niter and all(np.isfinite([c["rms"], c["rmax"]]).all() for c in cyc), "sara cycles finite")
+    require(cyc[-1]["rms"] < cyc[0]["rms"], "sara: the rms falls")
+    disp = steps["sara"]["residual_dispatch"]
+    require(disp["multiband_parts"] == niter and disp["fallback_bands"] == 0, "sara: every cycle on the multiband route")
+    la = steps["sara"]["launches"]
+    require(la["patches_from_vals"] > 0 and la["vals_from_patches"] > 0, "B1/B2 launched in sara")
+    kern["multiband"] = pipeline_multiband_kernels(dt, nband)
+    emit({"phase": "pipeline", "stage": "kernels_at_sara_multiband_launch", **kern["multiband"]})
+    require(kern["multiband"]["w_support"] > 1, "sara's multiband plan is a wplanes plan")
+
+    cli_step("restore", lambda: cli_main(["restore", dt, *on]), dev, steps)
+    fits = {}
+    for prod in ("model", "model_mfs", "residual", "residual_mfs", "image", "image_mfs"):
+        data, _ = load_fits(str(workdir / f"sim_I_{prod}.fits"))
+        require(np.isfinite(data).all(), f"restore: {prod} finite")
+        fits[prod] = list(data.shape)
+    img = load_fits(str(workdir / "sim_I_image_mfs.fits"))[0][0, 0]
+    peak = np.unravel_index(np.argmax(img), img.shape)
+    off = min(abs(int(peak[0]) - p) + abs(int(peak[1]) - q) for p, q, _ in pix)
+    emit({"phase": "pipeline", "stage": "restore_checks", "shapes": fits, "image_mfs_peak_offset_px": off})
+    require(off <= 1, "the MFS image's brightest pixel on a true source")
+
+    cli_step("model2comps", lambda: cli_main(["model2comps", dt, "--mds", mds, *on]), dev, steps)
+    cell_dt = float(tree.attrs["cell_rad"])
+    cli_step("degrid", lambda: cli_main(["degrid", mds, xds, "--cell-rad", repr(cell_dt), *on]), dev, steps)
+    bins = TD.DEGRID_STATS["bins"]
+    steps["degrid"].update(plan_seconds=TD.DEGRID_STATS["plan_seconds"],
+                           bins=[dict(route=b["route"], w_support=b["w_support"], ngroups=b["ngroups"]) for b in bins])
+    gd = TreeStore(xds).group("scan0000")
+    vis = torch.as_tensor(np.asarray(gd.read("VIS")), device=dev)
+    md = torch.as_tensor(np.asarray(gd.read("MODEL_DATA")), device=dev)
+    dg = dict(model_data_finite=bool(torch.isfinite(torch.view_as_real(md)).all()),
+              rms_vis=float(vis.abs().pow(2).mean().sqrt()),
+              rms_vis_minus_model=float((vis - md).abs().pow(2).mean().sqrt()))
+    # degrid plans each bin as the imager plans that band's image
+    im0 = kern["image_plan"]
+    dg["bin0_plan_is_band0_image_plan"] = (bins[0]["nbins"], bins[0]["w_support"], bins[0]["ngroups"]) == \
+        (im0["nbins"], im0["w_support"], im0["ngroups"])
+    emit({"phase": "pipeline", "stage": "degrid_checks", **dg,
+          **{k: steps["degrid"][k] for k in ("plan_seconds", "bins")}})
+    require(all(b["route"] == "idg" and b["w_support"] > 1 for b in bins), "degrid: every bin on wplanes IDG")
+    require(steps["degrid"]["launches"]["vals_from_patches"] > 0, "B2 launched in degrid")
+    require(dg["model_data_finite"] and dg["rms_vis_minus_model"] < dg["rms_vis"], "MODEL_DATA finite, reduces the rms")
+    del vis, md
+
+    # the imager at its own default cell (the bands' plans mix chirp and
+    # wplanes), then one sara cycle on that tree
+    dt_def = str(workdir / "sim_I_default.dt")
+    cli_step("imager_default_cell", lambda: cli_main(["imager", xds, dt_def, "--nband", str(nband), "--nx", str(nx),
+                                                      "--psf-oversize", "2", *on]), dev, steps)
+    stats = dict(TI.IMAGER_STATS)
+    steps["imager_default_cell"].update(
+        route=stats["route"], plan_seconds=stats["plan_seconds"], grid_seconds=stats["grid_seconds"],
+        cell_rad=float(TreeStore(dt_def).attrs["cell_rad"]),
+        w_support=[[q["image"]["w_support"], q["psf"]["w_support"]] for q in stats["plans"]])
+    emit({"phase": "pipeline", "stage": "imager_default_cell_checks",
+          **{k: steps["imager_default_cell"][k] for k in ("route", "cell_rad", "plan_seconds", "w_support")}})
+    require(stats["route"] == "idg" and steps["imager_default_cell"]["launches"]["patches_from_vals"] > 0,
+            "imager at the default cell on IDG (B1)")
+    for b in range(nband):
+        d = np.asarray(TreeStore(dt_def).group(f"band{b:04d}_time0000").read("DIRTY"))
+        require(np.isfinite(d).all(), f"default cell: band {b} DIRTY finite")
+    for k, r in imager_plan_kernels(dev, dt_def, stats["plans"]).items():
+        kern[f"default_cell_{k}_plan"] = r
+        emit({"phase": "pipeline", "stage": f"kernels_at_default_cell_imager_{k}_plan", **r})
+    for k in TI.RESIDUAL_DISPATCH_STATS:
+        TI.RESIDUAL_DISPATCH_STATS[k] = 0
+    cli_step("sara_default_cell", lambda: cli_main(["sara", dt_def, "--niter", "1", *on]), dev, steps)
+    cyc = list(tdeconv.CYCLE_STATS)
+    disp = dict(TI.RESIDUAL_DISPATCH_STATS)
+    steps["sara_default_cell"].update(rms=[c["rms"] for c in cyc], residual_dispatch=disp)
+    emit({"phase": "pipeline", "stage": "sara_default_cell_checks", "rms": steps["sara_default_cell"]["rms"],
+          "residual_dispatch": disp})
+    require(len(cyc) == 1 and np.isfinite([cyc[0]["rms"], cyc[0]["rmax"]]).all(), "default cell: sara cycle finite")
+    require(disp["multiband_parts"] == 1 and disp["fallback_bands"] == 0, "default cell: sara on the multiband route")
+    la = steps["sara_default_cell"]["launches"]
+    require(la["patches_from_vals"] > 0 and la["vals_from_patches"] > 0, "B1/B2 launched in sara at the default cell")
+    kern["default_cell_multiband"] = pipeline_multiband_kernels(dt_def, nband)
+    emit({"phase": "pipeline", "stage": "kernels_at_default_cell_sara_multiband_launch",
+          **kern["default_cell_multiband"]})
+    total = {name: sum(st["launches"][name] for st in steps.values()) for name in read_counts()}
+    emit({"phase": "pipeline", "stage": "summary", "seconds": sum(st["seconds"] for st in steps.values()),
+          "launches": total, "max_memory_allocated": max(st["max_memory_allocated"] for st in steps.values())})
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir)
+    return total, kern, steps
+
+
 def zero_counts() -> None:
     """Every kernel's launch count to 0."""
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
@@ -1600,6 +1930,7 @@ def main(argv=None) -> int:
     b4, dg_launches, _ = phase_degrid(dev, ctx)
     phase_widefield_accuracy(dev)
     wide, wide_band, wf_launches, wf_dg_launches, _ = phase_widefield(dev, ROOT / "build" / "chip_smoke_widefield")
+    pipe_launches, pipe_kern, _ = phase_pipeline(dev, ROOT / "build" / "chip_smoke_pipeline")
 
     kernels = []
     for name, tag in (("patches_from_vals", "b1"), ("vals_from_patches", "b2")):
@@ -1610,6 +1941,13 @@ def main(argv=None) -> int:
         bound_wide, bound_wide_by, _ = idg_bound(wide["ng"], wide["S"])
         bound_wide_band, _, _ = idg_bound(wide_band["ng"], wide_band["S"])
         ms = main_mb[f"{tag}_ms"]
+        at_pipeline = {}
+        for where, r in pipe_kern.items():
+            b_ms, b_by, _ = idg_bound(r["ng"], r["S"])
+            at_pipeline.update({f"ms_pipeline_{where}": r[f"{tag}_ms"], f"plain_ms_pipeline_{where}": r[f"{tag}_plain_ms"],
+                                f"bound_ms_pipeline_{where}": b_ms, f"bound_by_pipeline_{where}": b_by,
+                                f"rel_vs_f64_pipeline_{where}": r[f"{tag}_rel_vs_f64"],
+                                f"ng_pipeline_{where}": r["ng"], f"S_pipeline_{where}": r["S"]})
         kernels.append(dict(
             name=name, route="cuda", source="pfb_imaging_tpu_torch/csrc/idg_fused.cu", replaces=REPLACES[name],
             launches=launches[name], max_abs_err=main_mb[f"{tag}_max_abs_err"], ms=ms,
@@ -1628,6 +1966,7 @@ def main(argv=None) -> int:
             plain_ms_wplanes_band_plan=wide_band[f"{tag}_plain_ms"], bound_ms_wplanes_band_plan=bound_wide_band,
             rel_vs_f64_wplanes_band_plan=wide_band[f"{tag}_rel_vs_f64"],
             launches_widefield_deconv=wf_launches[name], launches_widefield_degrid=wf_dg_launches[name],
+            launches_pipeline=pipe_launches[name], **at_pipeline,
             **({"ms_compare_tree_tree_compare": timing["compare"][f"{tag}_ms_compare_tree_tree_compare"]}
                if "compare" in timing else {}),
         ))
@@ -1636,6 +1975,7 @@ def main(argv=None) -> int:
         replaces=REPLACES["scatter_grid_wstack"], launches=im_launches["scatter_grid_wstack"],
         max_abs_err=b3["psf"]["max_abs_err"], ms=b3["psf"]["ms"], plain_ms=b3["psf"]["plain_ms"],
         bound_ms=b3["psf"]["bound_ms"], bound_by=b3["psf"]["bound_by"], library_ms=None,
+        launches_pipeline=pipe_launches["scatter_grid_wstack"],
         ms_image_plan=b3["image"]["ms"], plain_ms_image_plan=b3["image"]["plain_ms"],
         bound_ms_image_plan=b3["image"]["bound_ms"], ms_dense_psf_plan=b3["dense_psf"]["ms"],
         ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in scat},
@@ -1645,10 +1985,12 @@ def main(argv=None) -> int:
         name="gather_grid_wstack", route="cuda", source="pfb_imaging_tpu_torch/csrc/gridder_gather.cu",
         replaces=REPLACES["gather_grid_wstack"], launches=dg_launches["gather_grid_wstack"],
         max_abs_err=b4["max_abs_err"], ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound_ms"],
-        bound_by=b4["bound_by"], library_ms=None,
+        bound_by=b4["bound_by"], library_ms=None, launches_pipeline=pipe_launches["gather_grid_wstack"],
         ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in gath},
         plain_ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["plain_ms"] for r in gath},
     ))
+    for k in kernels[:2]:
+        require(k["launches_pipeline"] > 0, f"{k['name']} launched on the pipeline")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -180,9 +180,10 @@ def degrid(
                 plan = plan_wgridder(uvw, freqs[chans], **kw)
             route = "idg" if is_idg else ("pallas" if use_pallas else "stack")
             plans[bin_id] = (plan, route, chans)
+            shape = {"nbins": plan.nbins, "w_support": plan.w_support, "ngroups": plan.ngroups} if is_idg \
+                else {"nw": plan.nw}
             DEGRID_STATS["bins"].append(dict(part=key, bin=bin_id, route=route, nvis=uvw.shape[0] * chans.size,
-                                             **({"nbins": plan.nbins, "w_support": plan.w_support} if is_idg
-                                                else {"nw": plan.nw})))
+                                             **shape))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         DEGRID_STATS["plan_seconds"] += time.perf_counter() - t0

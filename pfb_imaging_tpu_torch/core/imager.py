@@ -266,7 +266,7 @@ def imager(
 
     def plan_info(plan):
         if use_idg:
-            return {"nbins": plan.nbins, "w_support": plan.w_support}
+            return {"nbins": plan.nbins, "w_support": plan.w_support, "ngroups": plan.ngroups}
         return {"nw": plan.nw, "support": plan.support, "nbig": plan.nbig_x}
 
     # time binning: partitions land in ntime contiguous bins over scan time

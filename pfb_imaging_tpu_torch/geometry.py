@@ -171,3 +171,21 @@ def fitcleanbeam(psf: np.ndarray, level: float = 0.5, pixsize: float = 1.0, nsig
             emaj, emin, pa = p[1], p[0], p[2] + np.pi / 2
         gausspars.append([emaj * pixsize, emin * pixsize, pa])
     return np.array(gausspars)
+
+
+def gaussian_kernel(xx: np.ndarray, yy: np.ndarray, gaussparf, normalise: bool = True) -> np.ndarray:
+    """A rotated Gaussian with FWHM parameters (emaj, emin, pa) rendered on
+    a pixel grid (the clean beam of ``restore`` and the Gaussian-ratio
+    kernels of ``utils/restoration``); unit sum when ``normalise``."""
+    emaj, emin, pa = gaussparf
+    cosp, sinp = np.cos(pa), np.sin(pa)
+    xr = -sinp * xx - cosp * yy
+    yr = cosp * xx - sinp * yy
+    fwhm_conv = 2 * np.sqrt(2 * np.log(2))
+    q = (xr / emaj) ** 2 + (yr / emin) ** 2
+    g = np.exp(-0.5 * fwhm_conv**2 * q)
+    if normalise:
+        s = g.sum()
+        if s > 0:
+            g = g / s
+    return g

@@ -526,13 +526,14 @@ def _pad_to_caps(bin_gstart, bin_gcount, bin_gcap, arrays: dict):
 
 def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: float = 0.0, m0: float = 0.0,
              epsilon: float = 1e-5, do_wgridding: bool = True, max_slot_factor: float | None = None,
-             divide_by_n: bool = False, w_mode: str = "auto", force_w_range: tuple | None = None,
+             divide_by_n: bool = True, w_mode: str = "auto", force_w_range: tuple | None = None,
              bin_gcap: tuple | None = None, dtype: torch.dtype | None = None, count_only: bool | str = False,
              device="cuda") -> IDGPlan:
     """Host-side IDG planning onto ``device``: the JAX ``plan_idg`` with its
     defaults (pinned sign conventions, hermitian fold, epsilon-adaptive
-    subgrid and oversampling) and ``divide_by_n=False``, the convention of
-    the vis-space Hessian and of the imager.
+    subgrid and oversampling). ``divide_by_n`` (default True, as in JAX)
+    folds the 1/n of the DFT convention into the image correction; the
+    imager, the residual and degrid plan with ``divide_by_n=False``.
 
     ``w_mode``: "chirp", "wplanes" or "auto" (the JAX slot-unit cost model:
     per-visibility slots plus a lattice-area cost per bin or plane). A
@@ -545,10 +546,7 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
     after the bucket pass and returns (nbins, per-bin group counts, (wlo,
     whi, w_support)), as the JAX count pass does; ``count_only="w"`` stops
     before it, once the w scheme is chosen, and returns (nbins, None, (wlo,
-    whi, w_support)). ``divide_by_n=True`` is not
-    ported (ROADMAP.md, queue A)."""
-    if divide_by_n:
-        raise NotImplementedError("plan_idg(divide_by_n=True) is not ported yet (ROADMAP.md, queue A)")
+    whi, w_support))."""
     if w_mode not in W_MODES:
         raise ValueError(f"w_mode {w_mode!r} not in {W_MODES}")
     rdt = dtype or real_dtype(device)
@@ -731,9 +729,12 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
     cv, Tv_fn, _ = fit_taper(S, half, ny / (2.0 * nbig_y) + 0.01, chirp, tol=0.25 * epsilon, widen=widen)
     W = np.exp(-2j * np.pi * np.outer(np.arange(S), np.arange(S)) / S)
 
-    # ── image arrays in f64: n-1, 1/(Tu Tv) [x dw / khat_w(n-1 - z0)] ──
-    nm1 = np.sqrt(np.maximum(1.0 - ell1[:, None] ** 2 - emm1[None, :] ** 2, 0.0)) - 1.0
+    # ── image arrays in f64: n-1, 1/(Tu Tv) [/ n] [x dw / khat_w(n-1 - z0)] ──
+    nn = np.sqrt(np.maximum(1.0 - ell1[:, None] ** 2 - emm1[None, :] ** 2, 0.0))
+    nm1 = nn - 1.0
     corr = 1.0 / np.outer(Tu_fn((np.arange(nx) - nx // 2) / nbig_x), Tv_fn((np.arange(ny) - ny // 2) / nbig_y))
+    if divide_by_n:
+        corr = np.where(nn > 0, corr / np.where(nn > 0, nn, 1.0), 0.0)
     if w_support > 1:
         corr = corr * (wk["dw"] / _kernel_ft(nm1 - wk["z0"], w_support, wk["beta"], delta=wk["dw"]))
 

@@ -1,15 +1,15 @@
 """uv counts and Briggs imaging weights (port of
 pfb_imaging_tpu/ops/weighting.py): nearest-neighbour counts with the
 Hermitian v < 0 fold, Briggs ``counts_to_weights``,
-``filter_extreme_counts``, the super-uniform ``box_sum_counts`` and the
-Student-t ``l2_reweight`` of the imager's model transfer.
+``filter_extreme_counts``, the super-uniform ``box_sum_counts``, the
+Student-t ``l2_reweight`` of the imager's model transfer, and the host
+``reduce_counts`` that combines counts grids over bands or times.
 
 The public functions take and return numpy arrays, as the imager holds
 them. Counts and weights go to the host kernels of the port's ``native``
 module, as in the JAX package; where the library is unavailable, the plain
 torch versions (``compute_counts_torch``, ``counts_to_weights_torch``, also
-the tests' reference) compute the same thing. ``reduce_counts`` is not
-ported yet (ROADMAP.md, queue A).
+the tests' reference) compute the same thing.
 """
 
 from __future__ import annotations
@@ -157,3 +157,20 @@ def l2_reweight(residual_vis, wgt, mask, dof: float, wgt_prev=1.0) -> np.ndarray
     ovar = (ssq / max(int(msk.sum()), 1)).reshape((-1,) + (1,) * (ressq.ndim - 1))
     w = _t(wgt)
     return torch.where(ovar > 0, w * (dof + 2) / (dof + ressq / ovar), w).numpy()
+
+
+def reduce_counts(counts: dict, grouping: str) -> dict:
+    """Combine per-(band, time) counts grids by a grouping strategy:
+    "per-band-time" (identity), "mfs"/"per-time" (sum over bands within
+    each time), "per-band" (sum over times within each band)."""
+    valid = ("per-band-time", "mfs", "per-band", "per-time")
+    if grouping == "per-band-time":
+        return dict(counts)
+    if grouping in ("mfs", "per-time", "per-band"):
+        fix_band = grouping == "per-band"
+        sums = {}
+        for (b, t), grid in counts.items():
+            key = b if fix_band else t
+            sums[key] = grid.copy() if key not in sums else sums[key] + grid
+        return {(b, t): sums[b if fix_band else t] for (b, t) in counts}
+    raise ValueError(f"Unknown weight grouping {grouping!r}; expected one of {valid}")

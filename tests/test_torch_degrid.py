@@ -90,7 +90,7 @@ def test_dirty2vis_idg_matches_jax(wscale, eps):
     uvw[:, 2] *= wscale
     kw = dict(nx=NX, ny=NX, cellx=CELL, celly=CELL, epsilon=eps, do_wgridding=True)
     pj = JI.plan_idg(uvw, FREQ, eval_backend="einsum", dtype=np.float64, divide_by_n=False, **kw)
-    pt = TI.plan_idg(uvw, FREQ, device=CPU, **kw)
+    pt = TI.plan_idg(uvw, FREQ, device=CPU, divide_by_n=False, **kw)
     img = rng.standard_normal((NX, NX))
     mask = (rng.random((300, FREQ.size)) > 0.2).astype(np.float64)
     vj = np.asarray(JI.dirty2vis_idg(pj, jnp.asarray(img), mask=jnp.asarray(mask)))
@@ -233,8 +233,29 @@ def test_degrid_auto_on_wide_field_matches_jax(which, eps, route, request):
         assert _rel(a, b) < 1e-9
 
 
-def test_degrid_checks_its_arguments(sparse):
-    d, ms, truth, mds = sparse
+@pytest.fixture(scope="module")
+def port_sparse(tmp_path_factory):
+    """The ``sparse`` container and model made by the port alone: its
+    ``simulate_vis_store`` and its ``fit_image_cube`` (for the tests that
+    need no JAX product)."""
+    from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store as port_simulate
+    from pfb_imaging_tpu_torch.utils import modelspec as TM
+    from pfb_imaging_tpu_torch.utils.store import TreeStore as PortStore
+
+    d = tmp_path_factory.mktemp("degrid_port")
+    ms = str(d / "d.ms.tree")
+    _, truth = port_simulate(ms, nant=9, ntime=2, nchan=3, nx=32, device=CPU)
+    freqs = np.asarray(PortStore(ms).attrs["freq"])
+    nx = truth["nx"]
+    cube = np.zeros((1, freqs.size, nx, nx))
+    cube[:, :, nx // 2, nx // 2] = 1.0
+    coeffs, ix, iy, mattrs = TM.fit_image_cube(np.zeros(1), freqs, cube, device=CPU)
+    TM.save_mds(PortStore(str(d / "m.mds"), mode="w"), coeffs, ix, iy, mattrs)
+    return d, ms, truth, str(d / "m.mds")
+
+
+def test_degrid_checks_its_arguments(port_sparse):
+    d, ms, truth, mds = port_sparse
     with pytest.raises(ValueError, match="gridder"):
         TD.degrid(mds, ms, truth["cell_rad"], gridder="wsclean", device=CPU)
     with pytest.raises(ValueError, match="IDG accuracy envelope"):

@@ -17,6 +17,7 @@ import torch
 
 from pfb_imaging_tpu.ops import gridder_idg as J
 from pfb_imaging_tpu.ops.dft import vis2dirty_dft
+from pfb_imaging_tpu_torch.ops import dft as T_dft
 from pfb_imaging_tpu_torch.ops import gridder_idg as T
 
 torch.set_num_threads(1)
@@ -52,7 +53,7 @@ def _plans(layout, eps):
     if key not in _PLANS:
         uvw = _data(layout)[0]
         pj = J.plan_idg(uvw, FREQ, eval_backend="einsum", dtype=np.float64, divide_by_n=False, **_kw(eps))
-        pt = T.plan_idg(uvw, FREQ, device=CPU, **_kw(eps))
+        pt = T.plan_idg(uvw, FREQ, device=CPU, divide_by_n=False, **_kw(eps))
         _PLANS[key] = (pj, pt)
     return _PLANS[key]
 
@@ -198,7 +199,7 @@ def _wide_plans(mode, eps):
     if key not in _WIDE:
         uvw = _wide_data()[0]
         pj = J.plan_idg(uvw, WFREQ, eval_backend="einsum", dtype=np.float64, divide_by_n=False, **_wkw(eps, mode))
-        pt = T.plan_idg(uvw, WFREQ, device=CPU, **_wkw(eps, mode))
+        pt = T.plan_idg(uvw, WFREQ, device=CPU, divide_by_n=False, **_wkw(eps, mode))
         _WIDE[key] = (pj, pt)
     return _WIDE[key]
 
@@ -253,7 +254,7 @@ def test_forced_w_range_and_capacities_match_jax(mode):
     _, gcount, _ = J.plan_idg(uvw, WFREQ, count_only=True, divide_by_n=False, **kw)
     kw["bin_gcap"] = tuple(c + 2 for c in gcount)
     pj = J.plan_idg(uvw, WFREQ, eval_backend="einsum", dtype=np.float64, divide_by_n=False, **kw)
-    pt = T.plan_idg(uvw, WFREQ, device=CPU, **kw)
+    pt = T.plan_idg(uvw, WFREQ, device=CPU, divide_by_n=False, **kw)
     _assert_same_layout(pj, pt)
     assert pt.bin_gcount == kw["bin_gcap"]
     dj = J.vis2dirty_idg(pj, jnp.asarray(vis), wgt=jnp.asarray(wgt))
@@ -353,7 +354,7 @@ def test_f32_wplanes_plan_takes_the_flattened_taper():
     DFT. The f64 plan keeps JAX's taper (the parity tests above)."""
     pj, pt = _wide_plans("wplanes", 1e-7)
     uvw, vis, wgt, _ = _wide_data()
-    p32 = T.plan_idg(uvw, WFREQ, device=CPU, dtype=torch.float32, **_wkw(1e-7, "wplanes"))
+    p32 = T.plan_idg(uvw, WFREQ, device=CPU, dtype=torch.float32, divide_by_n=False, **_wkw(1e-7, "wplanes"))
     assert p32.w_support == pt.w_support and p32.bin_gcount == pt.bin_gcount
     amp32, amp64 = T.delivered_accuracy(p32)["edge_amp"], T.delivered_accuracy(pt)["edge_amp"]
     assert amp64 > 1e5 and amp32 < 1e3
@@ -388,7 +389,7 @@ def test_multiband_plans_match_jax_capacity_plans(layout):
     else:
         uvw, kw = _data(layout)[0], dict(_kw(1e-7), w_mode="auto")
         freqs = [FREQ, FREQ * 1.15]
-    mplan, nch = plan_idg_multiband_freqs(uvw, freqs, device=CPU, **kw)
+    mplan, nch = plan_idg_multiband_freqs(uvw, freqs, device=CPU, divide_by_n=False, **kw)
     assert nch == 2 and (mplan.w_support > 1) == (layout == "wide")
     nbins, _, (wlo, whi, ws) = J.plan_idg(uvw, np.unique(np.concatenate(freqs)), count_only=True,
                                           divide_by_n=False, **kw)
@@ -405,3 +406,47 @@ def test_multiband_plans_match_jax_capacity_plans(layout):
             torch.testing.assert_close(getattr(pt, name), getattr(pp, name), rtol=0, atol=0, msg=name)
         if pt.w_support > 1:
             torch.testing.assert_close(pt.rep_idx, pp.rep_idx, rtol=0, atol=0)
+
+
+# ── divide_by_n: the 1/n of the DFT convention in the image correction ──
+
+
+@pytest.mark.parametrize("layout, eps", [("wbins", 1e-5), ("wide", 1e-5)])
+def test_divide_by_n_plans_match_jax_and_the_dft(layout, eps):
+    """``plan_idg(divide_by_n=True)`` on a chirp layout and on a wplanes one:
+    the image correction and both directions match JAX's plan (1e-9), and
+    the adjoint image is within ``delivered_accuracy`` of the port's own
+    ``vis2dirty_dft(divide_by_n=True)``."""
+    if layout == "wide":
+        uvw, vis, wgt, img = _wide_data()
+        freq, nx, cell, kw = WFREQ, WNX, WCELL, _wkw(eps, "auto")
+    else:
+        uvw, vis, wgt, img = _data(layout)
+        freq, nx, cell, kw = FREQ, NX, CELL, _kw(eps)
+    pj = J.plan_idg(uvw, freq, eval_backend="einsum", dtype=np.float64, divide_by_n=True, **kw)
+    pt = T.plan_idg(uvw, freq, device=CPU, divide_by_n=True, **kw)
+    assert (pt.w_support > 1) == (layout == "wide")
+    assert _rel(torch.complex(pt.corr_re, pt.corr_im), np.asarray(pj.corr_re) + 1j * np.asarray(pj.corr_im)) < 1e-12
+    dt = T.vis2dirty_idg(pt, torch.as_tensor(vis), wgt=torch.as_tensor(wgt))
+    assert _rel(dt, J.vis2dirty_idg(pj, jnp.asarray(vis), wgt=jnp.asarray(wgt))) < 1e-9
+    assert _rel(T.dirty2vis_idg(pt, torch.as_tensor(img)), J.dirty2vis_idg(pj, jnp.asarray(img))) < 1e-9
+    dd = T_dft.vis2dirty_dft(uvw, freq, vis, wgt=wgt, nx=nx, ny=nx, cellx=cell, celly=cell, divide_by_n=True,
+                             device=CPU)
+    assert _rel(dt, dd) < T.delivered_accuracy(pt)["edge"]
+
+
+def test_divide_by_n_defaults_as_in_jax():
+    """The default is now JAX's (True): a plan with defaults is the
+    divide_by_n=True plan, and differs from the old default (False) by the
+    1/n of the field's edge, far beyond the f64 parity tolerance."""
+    import inspect
+
+    for fn in (T.plan_idg, J.plan_idg):
+        assert inspect.signature(fn).parameters["divide_by_n"].default is True
+    uvw, vis, wgt, _ = _wide_data()
+    kw = _wkw(1e-7, "auto")
+    d_def, d_on, d_off = (T.vis2dirty_idg(T.plan_idg(uvw, WFREQ, device=CPU, **kw, **extra), torch.as_tensor(vis),
+                                          wgt=torch.as_tensor(wgt))
+                          for extra in ({}, dict(divide_by_n=True), dict(divide_by_n=False)))
+    assert torch.equal(d_def, d_on)
+    assert _rel(d_off, d_on) > 1e-6

@@ -150,9 +150,24 @@ def test_auto_wide_field_grids_on_wplanes_as_jax(wide_xds):
     _compare(sj, st, 1e-9)
 
 
-def test_unported_options_raise(xds):
+@pytest.fixture(scope="module")
+def port_xds(tmp_path_factory):
+    """The ``xds`` store made by the port alone (its simulate -> init), for
+    the tests that need no JAX product."""
+    from pfb_imaging_tpu_torch.core.init import init as port_init
+    from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store as port_simulate
+
+    d = tmp_path_factory.mktemp("imager_port")
+    ms = str(d / "sim.ms.tree")
+    port_simulate(ms, nant=6, ntime=2, nchan=4, nx=24, beam_diameter=13.5, noise=0.1, device="cpu")
+    port_init(ms, str(d / "sim.xds"), product="I", device="cpu")
+    return d
+
+
+def test_unported_options_raise(port_xds):
     """The device mesh is not ported yet (model transfer is: see
     tests/test_torch_model2comps.py)."""
+    xds = port_xds
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TI.imager(str(xds / "sim.xds"), str(xds / "x.dt"), device="cpu", use_mesh=True)
     with pytest.raises(ValueError):

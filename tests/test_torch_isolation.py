@@ -48,6 +48,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 assert "pfb_imaging_tpu_torch.parallel.sharded" in names
+for m in ("cli", "recipes", "core.simulate", "core.init", "core.restore", "ops.dft"):
+    assert "pfb_imaging_tpu_torch." + m in names, m
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pfb_imaging_tpu"))
 print(len(names), bad)
 assert not bad, bad
@@ -61,21 +63,40 @@ def _entry_points():
     from pfb_imaging_tpu_torch.core.deconv import deconv
     from pfb_imaging_tpu_torch.core.degrid import degrid
     from pfb_imaging_tpu_torch.core.imager import imager, residual_from_parts, residual_from_parts_multiband
+    from pfb_imaging_tpu_torch.core.init import init
     from pfb_imaging_tpu_torch.core.model2comps import model2comps
+    from pfb_imaging_tpu_torch.core.restore import restore
+    from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store
     from pfb_imaging_tpu_torch.deconv.presets import make_sara
+    from pfb_imaging_tpu_torch.ops.dft import dirty2vis_dft, vis2dirty_dft
     from pfb_imaging_tpu_torch.ops.gridder import plan_wgridder, wgridder_plan_from_jax
     from pfb_imaging_tpu_torch.ops.gridder_idg import plan_from_jax, plan_idg
     from pfb_imaging_tpu_torch.ops.hessian import HessianCube
     from pfb_imaging_tpu_torch.parallel.sharded import plan_idg_multiband_freqs
+    from pfb_imaging_tpu_torch.recipes import run_recipe
+    from pfb_imaging_tpu_torch.utils.restoration import convolve2gaussres, restore_image
+    from pfb_imaging_tpu_torch.utils.stokes import weight_data
 
     return [deconv, imager, residual_from_parts, make_sara, plan_wgridder, wgridder_plan_from_jax, plan_idg,
             plan_from_jax, HessianCube.build, degrid, model2comps, residual_from_parts_multiband,
-            plan_idg_multiband_freqs]
+            plan_idg_multiband_freqs, simulate_vis_store, init, restore, run_recipe, weight_data, dirty2vis_dft,
+            vis2dirty_dft, convolve2gaussres, restore_image]
 
 
 @pytest.mark.parametrize("fn", _entry_points(), ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_cli_defaults_to_cuda():
+    """``cli.main`` takes its device from ``--device``, whose default is the
+    card on every command."""
+    from pfb_imaging_tpu_torch.cli import make_parser
+
+    parser = make_parser()
+    sub = next(a for a in parser._actions if a.dest == "command")
+    for name, p in sub.choices.items():
+        assert p.get_default("device") == "cuda", name
 
 
 def test_no_silent_cpu_fallback(tmp_path):
@@ -84,7 +105,11 @@ def test_no_silent_cpu_fallback(tmp_path):
     from pfb_imaging_tpu_torch import resolve_device
     from pfb_imaging_tpu_torch.core.degrid import degrid
     from pfb_imaging_tpu_torch.core.imager import imager
+    from pfb_imaging_tpu_torch.cli import main as cli_main
+    from pfb_imaging_tpu_torch.core.init import init
     from pfb_imaging_tpu_torch.core.model2comps import model2comps
+    from pfb_imaging_tpu_torch.core.restore import restore
+    from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store
 
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
@@ -98,3 +123,11 @@ def test_no_silent_cpu_fallback(tmp_path):
         degrid(str(tmp_path / "missing.mds"), str(tmp_path / "missing.ms"), 1e-5)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         model2comps(str(tmp_path / "missing.dt"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulate_vis_store(str(tmp_path / "x.ms"), nant=3, ntime=1, nchan=1, nx=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init(str(tmp_path / "missing.ms"), str(tmp_path / "x.xds"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        restore(str(tmp_path / "missing.dt"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["restore", str(tmp_path / "missing.dt")])
