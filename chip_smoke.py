@@ -105,13 +105,30 @@ exits non-zero:
                the launch shapes these steps take (band 0's image and 4096^2
                PSF plan at both cells, which degrid's bins share, and each
                sara's multiband launch), each against its f64 plain version
-               (rel Linf <= 2e-6).
+               (rel Linf <= 2e-6);
+ 11. commands — the JAX CLI's other commands through ``cli.main`` at the
+               pipeline's width (its imaged tree, copied before ``sara``):
+               ``kclean --niter 2`` (Clark: B1/B2, the MFS rmax falling, the
+               model's MFS peak on a source), ``kclean --niter 1 --minor
+               hogbom`` on another copy, ``fluxtractor`` on the Clark tree
+               with ``--cg-maxit`` sized from one timed ``hessian_vis`` so the
+               step takes about a minute (the mop finite; B1/B2 in its
+               residual), ``deconv --preset ista --niter 1`` on a third copy
+               (B1/B2, the rms falling), then ``hci --nx 1024 --freq-chunks 4``
+               on a 64-scan store of single integrations of the same array and
+               sky from the simulator (IDG, one B1 launch a snapshot, the
+               time-mean's peak on a source) and a step transient injected by
+               a direct ``hci`` call, checked at its pixel; each step's
+               seconds, launches and peak memory; B1/B2 against their f64
+               plain versions (2e-6) at kclean's band-0 residual plan and at
+               one snapshot's plan.
 Then the kernel summary line (every kernel with its launches on its main
 path, error, ms, plain ms and bound at the shape those launches take; B1/B2
 also at band 0's plan and at the widefield multiband launch and band plan,
-with the widefield phase's launches, and at the pipeline's launch shapes
-under ``*_pipeline_*`` keys; every kernel's ``launches_pipeline``, which
-must be positive for B1/B2), the ``nvidia-smi`` line and, last,
+with the widefield phase's launches, at the pipeline's launch shapes under
+``*_pipeline_*`` keys and at the commands' under ``*_commands_*`` keys;
+every kernel's ``launches_pipeline`` and ``launches_commands``, which must be
+positive for B1/B2), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
@@ -1547,9 +1564,9 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
                                                         degrid=rec_dg)
 
 
-def cli_step(name: str, fn, dev, steps: dict):
-    """Run one pipeline step with the launch counts zeroed right before it;
-    record its seconds, launches and peak device memory, and print them."""
+def cli_step(name: str, fn, dev, steps: dict, phase: str = "pipeline"):
+    """Run one step of ``phase`` with the launch counts zeroed right before
+    it; record its seconds, launches and peak device memory, and print them."""
     import torch
 
     torch.cuda.synchronize()
@@ -1560,12 +1577,13 @@ def cli_step(name: str, fn, dev, steps: dict):
     torch.cuda.synchronize()
     steps[name] = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
                        max_memory_allocated=torch.cuda.max_memory_allocated(dev))
-    emit({"phase": "pipeline", "stage": name, **steps[name]})
+    emit({"phase": phase, "stage": name, **steps[name]})
     return out
 
 
 def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 500, nchan: int = 16,
-                   nband: int = 4, niter: int = 2, seed: int = 44, nsrc: int = 24, ncheck: int = 4096):
+                   nband: int = 4, niter: int = 2, seed: int = 44, nsrc: int = 24, ncheck: int = 4096,
+                   keep_imaged: Path | None = None):
     """A user's whole run through the port's own front end at 2048^2: the
     simulator (the JAX simulator's 64-antenna array, 500 integrations in one
     partition of 1,008,000 rows, 16 channels over 856-1712 MHz, 24 seeded
@@ -1588,8 +1606,11 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
     back. B1/B2 are held to their f64 plain versions at the launch shapes
     of these steps: band 0's image and PSF plans at both cells (degrid's
     bin 0 has band 0's image plan; the record says whether they agree) and
-    each sara's multiband launch. Returns (launches summed over the steps,
-    {where: kernel record}, the steps' records)."""
+    each sara's multiband launch. With ``keep_imaged``, the tree as the
+    imager wrote it is copied there before ``sara`` runs on it. Returns
+    (launches summed over the steps, {where: kernel record}, the steps'
+    records, the sky: {"pix": [(p, q, flux)], "sources": the simulator's
+    source tuples, "cell_rad"})."""
     import torch
 
     from pfb_imaging_tpu_torch.cli import main as cli_main
@@ -1677,6 +1698,9 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
     emit({"phase": "pipeline", "stage": "imager_checks", "cell_rad": float(tree.attrs["cell_rad"]), "bands": bands,
           **{k: steps["imager"][k] for k in ("route", "plan_seconds", "grid_seconds", "w_support")}})
     require(bands[0]["dirty_peak_offset_px"] <= 1, "band 0's brightest DIRTY pixel on a true source")
+    if keep_imaged is not None:
+        shutil.rmtree(keep_imaged, ignore_errors=True)
+        shutil.copytree(dt, keep_imaged)
     kern = {f"{k}_plan": r for k, r in imager_plan_kernels(dev, dt, stats["plans"]).items()}
     for k, r in kern.items():
         emit({"phase": "pipeline", "stage": f"kernels_at_imager_{k}", **r})
@@ -1771,6 +1795,254 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
     total = {name: sum(st["launches"][name] for st in steps.values()) for name in read_counts()}
     emit({"phase": "pipeline", "stage": "summary", "seconds": sum(st["seconds"] for st in steps.values()),
           "launches": total, "max_memory_allocated": max(st["max_memory_allocated"] for st in steps.values())})
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir)
+    return total, kern, steps, dict(pix=pix, sources=sources, cell_rad=cell)
+
+
+def mfs_image(dt_path, name: str) -> np.ndarray:
+    """The MFS image of ``name`` over a tree's band nodes: their sum over the
+    total WSUM."""
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    tree = TreeStore(dt_path)
+    nodes = [tree.group(k) for k in tree.groups() if k.startswith("band")]
+    wsum = sum(float(np.asarray(n.read("WSUM"))[0]) for n in nodes)
+    return sum(np.asarray(n.read(name)) for n in nodes) / wsum
+
+
+def peak_offset_px(img: np.ndarray, pix, shift: int = 0) -> int:
+    """Manhattan distance from the brightest pixel of ``img`` to the nearest
+    source of ``pix`` ((p, q, flux) on a grid ``shift`` pixels larger on
+    each side)."""
+    p, q = np.unravel_index(np.argmax(img), img.shape)
+    return min(abs(int(p) + shift - a) + abs(int(q) + shift - b) for a, b, _ in pix)
+
+
+def band_plan_kernels(dt_path: str, f64_groups: int = 65536) -> dict:
+    """B1/B2 at the launch shape of band 0's per-band residual that a command
+    just ran on ``dt_path`` (``residual_from_parts``'s cached IDG plan), on
+    the group values its B1 launch takes for the tree's band-0 MODEL (B2's
+    forward values, weighted), each against its f64 plain version on
+    ``f64_groups`` middle groups, required within 2e-6."""
+    from pfb_imaging_tpu_torch import real_dtype, to_device
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _weighted_round_trip, dirty2vis_idg_grouped
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    node = TreeStore(dt_path).group("band0000_time0000")
+    part = str(node.group("part0000").path)
+    hits = [v for k, v in TI._PLAN_CACHE.items() if k[0] == part]
+    require(len(hits) == 1 and hits[0][4], f"band 0's residual plan of {Path(dt_path).name} cached, an IDG plan")
+    plan, wgt = hits[0][0], hits[0][1]
+    x = to_device(np.asarray(node.read("MODEL")), plan.device, real_dtype(plan.device))
+    vals = _weighted_round_trip(plan, dirty2vis_idg_grouped(plan, x), wgt)
+    rec, _ = idg_kernels_at_plan(plan, vals, f64_groups=f64_groups)
+    rec.update(nbins=plan.nbins, w_support=plan.w_support)
+    require(rec["b1_rel_vs_f64"] <= 2e-6 and rec["b2_rel_vs_f64"] <= 2e-6,
+            f"B1/B2 vs f64 plain at band 0's residual plan of {Path(dt_path).name}")
+    return rec
+
+
+def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, nchan: int = 16,
+                   hci_ntime: int = 64, hci_nx: int = 1024, hci_chunks: int = 4, step_nx: int = 256,
+                   flux_seconds: float = 60.0, seed: int = 44):
+    """The commands the JAX CLI has beyond the pipeline, through ``cli.main``
+    on the card at the pipeline's width (2048^2, 4 bands, its array and sky,
+    epsilon 1e-7), each step with the counts zeroed right before it, its
+    seconds, launches and peak memory: ``kclean --niter 2`` (Clark) on a
+    copy of the pipeline's freshly imaged tree (``imaged``), ``kclean
+    --niter 1 --minor hogbom`` on another copy, ``fluxtractor`` on the
+    Clark tree with ``--cg-maxit`` chosen from one measured ``hessian_vis``
+    at band 0 so the step takes about ``flux_seconds``, ``deconv --preset
+    ista --niter 1`` on a third copy; then ``hci`` on a store of
+    ``hci_ntime`` single-integration scans of the same array and sky from
+    the port's simulator, ``--nx hci_nx --freq-chunks hci_chunks``, and two
+    direct ``hci`` calls at ``step_nx`` with and without a step transient.
+    Checks: B1/B2 launched by kclean, fluxtractor and ista; kclean's MFS rmax
+    falling and the Clark model's MFS peak on a true source; ista's rms
+    falling; the mop finite; hci on IDG with one B1 launch a snapshot, its
+    cube finite with the time-mean's peak on a true source; the step's
+    frames at its pixel (as the JAX tests) and, against the run without it,
+    0 before the step and its amplitude after (1e-4 of it). B1/B2 are held to
+    their f64 plain versions (2e-6) at kclean's band-0 residual plan and at
+    one hci snapshot plan. Returns (launches summed over the steps,
+    {where: kernel record}, the steps' records)."""
+    import torch
+
+    from pfb_imaging_tpu_torch import real_dtype, to_device
+    from pfb_imaging_tpu_torch.cli import main as cli_main
+    from pfb_imaging_tpu_torch.core import deconv as tdeconv
+    from pfb_imaging_tpu_torch.core import hci as THCI
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.core import kclean as TK
+    from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store
+    from pfb_imaging_tpu_torch.ops.gridder import plan_wgridder
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_prepare, plan_idg
+    from pfb_imaging_tpu_torch.ops.hessian import hessian_vis
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    if workdir.exists():
+        shutil.rmtree(workdir)
+    workdir.mkdir(parents=True)
+    rdt = real_dtype(dev)
+    pix, on, steps, kern = sky["pix"], ["--device", str(dev)], {}, {}
+    TI._PLAN_CACHE.clear()
+    TI._PLAN_CACHE_BYTES = 0
+
+    def copy(name):
+        shutil.copytree(imaged, workdir / name)
+        return str(workdir / name)
+
+    dirty0 = mfs_image(imaged, "DIRTY")
+    rms0, rmax0 = float(np.std(dirty0)), float(np.abs(dirty0).max())
+    nx = dirty0.shape[0]
+    nband = sum(k.startswith("band") for k in TreeStore(imaged).groups())
+    emit({"phase": "commands", "stage": "imaged_tree", "nx": nx, "nband": nband, "rms": rms0, "rmax": rmax0})
+
+    def launched(name, b2=True):
+        la = steps[name]["launches"]
+        require(la["patches_from_vals"] > 0 and (la["vals_from_patches"] > 0 or not b2), f"B1/B2 launched in {name}")
+
+    k_clark = copy("kclean_clark.dt")
+    cli_step("kclean", lambda: cli_main(["kclean", k_clark, "--niter", "2", *on]), dev, steps, "commands")
+    majors = list(TK.KCLEAN_STATS)
+    model_off = peak_offset_px(mfs_image(k_clark, "MODEL"), pix)
+    steps["kclean"].update(majors=majors, model_mfs_peak_offset_px=model_off)
+    emit({"phase": "commands", "stage": "kclean_checks", "rmax0": rmax0, "majors": majors,
+          "model_mfs_peak_offset_px": model_off})
+    launched("kclean")
+    rmaxs = [rmax0] + [m["rmax"] for m in majors]
+    require(all(b < a for a, b in zip(rmaxs, rmaxs[1:])), "kclean: the MFS rmax falls every major iteration")
+    require(model_off <= 1, "kclean: the MFS model's peak on a true source")
+    kern["kclean_band_plan"] = band_plan_kernels(k_clark)
+    emit({"phase": "commands", "stage": "kernels_at_kclean_band_plan", **kern["kclean_band_plan"]})
+
+    k_hog = copy("kclean_hogbom.dt")
+    cli_step("kclean_hogbom", lambda: cli_main(["kclean", k_hog, "--niter", "1", "--minor", "hogbom", *on]), dev,
+             steps, "commands")
+    majors = list(TK.KCLEAN_STATS)
+    steps["kclean_hogbom"].update(majors=majors)
+    emit({"phase": "commands", "stage": "kclean_hogbom_checks", "majors": majors})
+    launched("kclean_hogbom")
+    require(len(majors) == 1 and majors[0]["rmax"] < rmax0, "kclean --minor hogbom: the MFS rmax falls")
+    shutil.rmtree(k_hog)
+
+    # one exact vis-space Hessian apply at band 0 (classic gridder, as the
+    # mop plans it) sizes fluxtractor's CG so the step takes ~flux_seconds
+    pg = TreeStore(k_clark).group("band0000_time0000").group("part0000")
+    cell = float(TreeStore(k_clark).attrs["cell_rad"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = plan_wgridder(np.asarray(pg.read("UVW")), np.asarray(pg.read("FREQ")), nx=nx, ny=nx, cellx=cell,
+                         celly=cell, epsilon=1e-7, divide_by_n=False, dtype=rdt, device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    w, m = to_device(pg.read("WEIGHT"), dev, rdt), to_device(pg.read("MASK"), dev, rdt)
+    x = to_device(np.asarray(TreeStore(k_clark).group("band0000_time0000").read("MODEL")), dev, rdt)
+    apply_ms = cuda_ms(lambda: hessian_vis(plan, x, wgt=w, mask=m), 2)
+    nplanes = plan.nw
+    del plan, w, m, x
+    torch.cuda.empty_cache()
+    cg_maxit = max(2, min(50, int((flux_seconds - nband * plan_s) / (nband * apply_ms / 1e3)) - 1))
+    cli_step("fluxtractor", lambda: cli_main(["fluxtractor", k_clark, "--cg-maxit", str(cg_maxit), *on]), dev, steps,
+             "commands")
+    tree = TreeStore(k_clark)
+    finite = all(np.isfinite(np.asarray(tree.group(k).read(n))).all() for k in tree.groups() if k.startswith("band")
+                 for n in ("MODEL_MOPPED", "RESIDUAL_MOPPED", "UPDATE"))
+    steps["fluxtractor"].update(cg_maxit=cg_maxit, hessian_vis_ms=apply_ms, hessian_vis_plan_seconds=plan_s,
+                                w_planes=nplanes)
+    emit({"phase": "commands", "stage": "fluxtractor_checks", "cg_maxit": cg_maxit, "hessian_vis_ms": apply_ms,
+          "hessian_vis_plan_seconds": plan_s, "w_planes": nplanes, "finite": finite})
+    require(finite, "fluxtractor: MODEL_MOPPED, RESIDUAL_MOPPED and UPDATE finite")
+    launched("fluxtractor")
+    shutil.rmtree(k_clark)
+
+    ista = copy("ista.dt")
+    for k in TI.RESIDUAL_DISPATCH_STATS:
+        TI.RESIDUAL_DISPATCH_STATS[k] = 0
+    cli_step("deconv_ista", lambda: cli_main(["deconv", ista, "--preset", "ista", "--niter", "1", *on]), dev, steps,
+             "commands")
+    cyc = list(tdeconv.CYCLE_STATS)
+    steps["deconv_ista"].update(rms0=rms0, cycles=cyc)
+    emit({"phase": "commands", "stage": "deconv_ista_checks", "rms0": rms0, "cycles": cyc})
+    launched("deconv_ista")
+    require(len(cyc) == 1 and cyc[0]["rms"] < rms0, "deconv --preset ista: the rms falls")
+    shutil.rmtree(ista)
+    TI._PLAN_CACHE.clear()
+    TI._PLAN_CACHE_BYTES = 0
+    torch.cuda.empty_cache()
+
+    ms, xds, cube = (str(workdir / n) for n in ("snap.ms.tree", "snap_I.xds", "snap.cube"))
+    cli_step("hci_simulate", lambda: simulate_vis_store(
+        ms, nant=nant, ntime=hci_ntime, times_per_scan=1, nchan=nchan, nx=nx, sources=sky["sources"], freq0=856e6,
+        freq1=1712e6, noise=1.0, ncorr=2, feed_type="linear", seed=seed, device=dev), dev, steps, "commands")
+    cli_step("hci_init", lambda: cli_main(["init", ms, xds, *on]), dev, steps, "commands")
+    cli_step("hci", lambda: cli_main(["hci", xds, cube, "--nx", str(hci_nx), "--freq-chunks", str(hci_chunks), *on]),
+             dev, steps, "commands")
+    stats = dict(THCI.HCI_STATS)
+    frames = TreeStore(cube).read("CUBE")
+    mean_img = frames.mean(axis=(0, 1))
+    finite = bool(np.isfinite(mean_img).all())
+    off = peak_offset_px(mean_img, pix, shift=(nx - hci_nx) // 2)
+    steps["hci"].update(**stats, cube_shape=list(frames.shape), mean_peak_offset_px=off)
+    emit({"phase": "commands", "stage": "hci_checks", **stats, "cube_shape": list(frames.shape), "finite": finite,
+          "mean_peak_offset_px": off})
+    require(stats["route"] == "idg" and steps["hci"]["launches"]["patches_from_vals"] == stats["tasks"],
+            "hci: IDG, one B1 launch a snapshot")
+    require(tuple(frames.shape) == (hci_ntime, hci_chunks, hci_nx, hci_nx) and finite, "hci: CUBE finite")
+    require(off <= 1, "hci: the time-mean's brightest pixel on a true source")
+    del frames
+
+    # a step transient at the pixel farthest from every source, injected by
+    # a direct call, and the same call without it
+    times = np.array([float(TreeStore(xds).group(k).attrs["time"]) for k in TreeStore(xds).groups()])
+    t_step = float(np.mean(times))
+    shift = (nx - step_nx) // 2
+    grid = range(step_nx // 8, step_nx, step_nx // 8)
+    cand = [(a, b) for a in grid for b in grid]
+    p, q = max(cand, key=lambda c: min(abs(c[0] + shift - a) + abs(c[1] + shift - b) for a, b, _ in pix))
+    inject = dict(kind="step", t0=t_step, amplitude=5.0, xfrac=p / step_nx, yfrac=q / step_nx)
+    t0 = time.perf_counter()
+    with_step = THCI.hci(xds, str(workdir / "step.cube"), nx=step_nx, epsilon=1e-7, inject_transient=inject,
+                         device=dev)
+    step_s = time.perf_counter() - t0
+    without = THCI.hci(xds, str(workdir / "plain.cube"), nx=step_nx, epsilon=1e-7, device=dev)
+    at = np.asarray(with_step.read("CUBE"))[:, 0, p, q]
+    diff = at - np.asarray(without.read("CUBE"))[:, 0, p, q]
+    after = times >= t_step
+    rec = dict(pixel=[p, q], t0=t_step, seconds=step_s, before_max_abs=float(np.abs(at[~after]).max()),
+               after_rel_to_amplitude=float(np.abs(at[after] / 5.0 - 1.0).max()),
+               diff_before_max_abs=float(np.abs(diff[~after]).max()),
+               diff_after_rel=float(np.abs(diff[after] / 5.0 - 1.0).max()))
+    emit({"phase": "commands", "stage": "hci_step_transient", **rec})
+    require(rec["before_max_abs"] < 0.5 and rec["after_rel_to_amplitude"] < 0.15, "hci: the step's frames at its pixel")
+    # before t0 the two runs grid the same visibilities; they differ only by
+    # the order of the card's sums
+    require(rec["diff_before_max_abs"] < 1e-4 * 5.0 and rec["diff_after_rel"] < 1e-4,
+            "hci: the injected step is 0 before t0 and its amplitude after")
+
+    # B1/B2 at one snapshot's plan, as hci plans it (scan 0, chunk 0)
+    g = TreeStore(xds).group(TreeStore(xds).groups()[0])
+    chans = np.array_split(np.arange(nchan), hci_chunks)[0]
+    plan = plan_idg(np.asarray(g.read("UVW")), np.asarray(g.read("FREQ"))[chans], nx=hci_nx, ny=hci_nx,
+                    cellx=sky["cell_rad"], celly=sky["cell_rad"], epsilon=1e-7, do_wgridding=True, divide_by_n=False,
+                    dtype=rdt, device=dev)
+    vis = np.asarray(g.read("VIS"))[:, chans]
+    wm = np.asarray(g.read("WEIGHT"))[:, chans] * np.asarray(g.read("MASK"))[:, chans]
+    vals = _idg_prepare(plan, to_device(vis.real, dev, rdt), to_device(vis.imag, dev, rdt), to_device(wm, dev, rdt))
+    rec, _ = idg_kernels_at_plan(plan, vals, reps=50)
+    rec.update(nbins=plan.nbins, w_support=plan.w_support, nvis=int(vis.size))
+    kern["hci_snapshot"] = rec
+    emit({"phase": "commands", "stage": "kernels_at_hci_snapshot_plan", **rec})
+    require(rec["b1_rel_vs_f64"] <= 2e-6 and rec["b2_rel_vs_f64"] <= 2e-6, "B1/B2 vs f64 plain at an hci snapshot plan")
+    del plan, vals
+
+    total = {name: sum(st["launches"][name] for st in steps.values()) for name in read_counts()}
+    emit({"phase": "commands", "stage": "summary", "seconds": sum(st["seconds"] for st in steps.values()),
+          "launches": total, "max_memory_allocated": max(st["max_memory_allocated"] for st in steps.values())})
+    TI._PLAN_CACHE.clear()
+    TI._PLAN_CACHE_BYTES = 0
     torch.cuda.empty_cache()
     shutil.rmtree(workdir)
     return total, kern, steps
@@ -1930,7 +2202,10 @@ def main(argv=None) -> int:
     b4, dg_launches, _ = phase_degrid(dev, ctx)
     phase_widefield_accuracy(dev)
     wide, wide_band, wf_launches, wf_dg_launches, _ = phase_widefield(dev, ROOT / "build" / "chip_smoke_widefield")
-    pipe_launches, pipe_kern, _ = phase_pipeline(dev, ROOT / "build" / "chip_smoke_pipeline")
+    imaged = ROOT / "build" / "chip_smoke_commands_imaged.dt"
+    pipe_launches, pipe_kern, _, sky = phase_pipeline(dev, ROOT / "build" / "chip_smoke_pipeline", keep_imaged=imaged)
+    cmd_launches, cmd_kern, _ = phase_commands(dev, ROOT / "build" / "chip_smoke_commands", imaged, sky)
+    shutil.rmtree(imaged)
 
     kernels = []
     for name, tag in (("patches_from_vals", "b1"), ("vals_from_patches", "b2")):
@@ -1941,6 +2216,15 @@ def main(argv=None) -> int:
         bound_wide, bound_wide_by, _ = idg_bound(wide["ng"], wide["S"])
         bound_wide_band, _, _ = idg_bound(wide_band["ng"], wide_band["S"])
         ms = main_mb[f"{tag}_ms"]
+        at_commands = {}
+        for where, r in cmd_kern.items():
+            b_ms, b_by, _ = idg_bound(r["ng"], r["S"])
+            at_commands.update({f"ms_commands_{where}": r[f"{tag}_ms"],
+                                f"plain_ms_commands_{where}": r[f"{tag}_plain_ms"],
+                                f"bound_ms_commands_{where}": b_ms, f"bound_by_commands_{where}": b_by,
+                                f"rel_vs_f64_commands_{where}": r[f"{tag}_rel_vs_f64"],
+                                f"max_abs_err_commands_{where}": r[f"{tag}_max_abs_err"],
+                                f"ng_commands_{where}": r["ng"], f"S_commands_{where}": r["S"]})
         at_pipeline = {}
         for where, r in pipe_kern.items():
             b_ms, b_by, _ = idg_bound(r["ng"], r["S"])
@@ -1966,7 +2250,8 @@ def main(argv=None) -> int:
             plain_ms_wplanes_band_plan=wide_band[f"{tag}_plain_ms"], bound_ms_wplanes_band_plan=bound_wide_band,
             rel_vs_f64_wplanes_band_plan=wide_band[f"{tag}_rel_vs_f64"],
             launches_widefield_deconv=wf_launches[name], launches_widefield_degrid=wf_dg_launches[name],
-            launches_pipeline=pipe_launches[name], **at_pipeline,
+            launches_pipeline=pipe_launches[name], **at_pipeline, launches_commands=cmd_launches[name],
+            **at_commands,
             **({"ms_compare_tree_tree_compare": timing["compare"][f"{tag}_ms_compare_tree_tree_compare"]}
                if "compare" in timing else {}),
         ))
@@ -1975,7 +2260,7 @@ def main(argv=None) -> int:
         replaces=REPLACES["scatter_grid_wstack"], launches=im_launches["scatter_grid_wstack"],
         max_abs_err=b3["psf"]["max_abs_err"], ms=b3["psf"]["ms"], plain_ms=b3["psf"]["plain_ms"],
         bound_ms=b3["psf"]["bound_ms"], bound_by=b3["psf"]["bound_by"], library_ms=None,
-        launches_pipeline=pipe_launches["scatter_grid_wstack"],
+        launches_pipeline=pipe_launches["scatter_grid_wstack"], launches_commands=cmd_launches["scatter_grid_wstack"],
         ms_image_plan=b3["image"]["ms"], plain_ms_image_plan=b3["image"]["plain_ms"],
         bound_ms_image_plan=b3["image"]["bound_ms"], ms_dense_psf_plan=b3["dense_psf"]["ms"],
         ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in scat},
@@ -1986,11 +2271,13 @@ def main(argv=None) -> int:
         replaces=REPLACES["gather_grid_wstack"], launches=dg_launches["gather_grid_wstack"],
         max_abs_err=b4["max_abs_err"], ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound_ms"],
         bound_by=b4["bound_by"], library_ms=None, launches_pipeline=pipe_launches["gather_grid_wstack"],
+        launches_commands=cmd_launches["gather_grid_wstack"],
         ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in gath},
         plain_ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["plain_ms"] for r in gath},
     ))
     for k in kernels[:2]:
         require(k["launches_pipeline"] > 0, f"{k['name']} launched on the pipeline")
+        require(k["launches_commands"] > 0, f"{k['name']} launched by the commands")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """``pfb-torch`` command line (port of pfb_imaging_tpu/cli.py): the JAX
 package's parser, command for command and flag for flag, dispatching to the
-port's ``simulate``, ``init``, ``imager``/``grid``, ``deconv``/``sara``,
-``restore``, ``model2comps`` and ``degrid``. One option is added to every
+port's ``simulate``, ``init``, ``imager``/``grid``, ``deconv``/``sara``
+(presets sara and ista), ``kclean``, ``restore``, ``degrid``,
+``fluxtractor``, ``model2comps`` and ``hci``. One option is added to every
 command: ``--device`` (default ``cuda``), where the command runs; the CPU
 only when asked for.
 
@@ -10,9 +11,9 @@ only when asked for.
 
 The imager's ``double_precision`` is False under ``--single-precision`` and
 otherwise None, the device's working type (f64 on the CPU, f32 on the card,
-whose IDG kernels are f32-only). Commands and options the port lacks
-(``kclean``, ``fluxtractor``, ``hci``, ``--preset ista``, ``--use-mesh``)
-parse and raise ``NotImplementedError`` naming their ROADMAP.md item.
+whose IDG kernels are f32-only); ``kclean`` and ``fluxtractor`` likewise
+run in the device's type. ``--use-mesh``, which the port lacks, parses and
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 Science modules are imported when a command runs, so ``--help`` needs none.
 """
 
@@ -195,8 +196,6 @@ def main(argv=None):
                double_precision=False if args.single_precision else None, gridder=args.gridder, device=dev)
     elif cmd in ("deconv", "sara"):
         preset = getattr(args, "preset", "sara")
-        if preset != "sara":
-            _not_ported(f"deconv --preset {preset}", "remaining commands and operators")
         if args.use_mesh:
             _not_ported("deconv --use-mesh", "parallel/")
         from .core.deconv import deconv
@@ -205,8 +204,11 @@ def main(argv=None):
                gamma=args.gamma, eta=args.eta, bases=args.bases, nlevels=args.nlevels, positivity=args.positivity,
                cg_maxit=args.cg_maxit, pd_maxit=args.pd_maxit, l1_reweight_from=args.l1_reweight_from,
                epsilon=args.epsilon, do_wgridding=not args.no_wgridding, device=dev)
-    elif cmd in ("kclean", "fluxtractor", "hci"):
-        _not_ported(cmd, "remaining commands and operators")
+    elif cmd == "kclean":
+        from .core.kclean import kclean
+
+        kclean(args.dt, niter=args.niter, minor=args.minor, gamma=args.gamma, peak_factor=args.peak_factor,
+               epsilon=args.epsilon, do_wgridding=not args.no_wgridding, device=dev)
     elif cmd == "restore":
         from .core.restore import restore
 
@@ -216,10 +218,19 @@ def main(argv=None):
 
         degrid(args.mds, args.ms, cell_rad=args.cell_rad, column=args.column, to_corr=args.to_corr,
                region_file=args.region_file, gridder=args.gridder, device=dev)
+    elif cmd == "fluxtractor":
+        from .core.fluxtractor import fluxtractor
+
+        fluxtractor(args.dt, eta=args.eta, cg_maxit=args.cg_maxit, device=dev)
     elif cmd == "model2comps":
         from .core.model2comps import model2comps
 
         model2comps(args.dt, mds_path=args.mds, nbasisf=args.nbasisf, device=dev)
+    elif cmd == "hci":
+        from .core.hci import hci
+
+        hci(args.xds, args.output, nx=args.nx, freq_chunks=args.freq_chunks, epsilon=args.epsilon,
+            gridder=args.gridder, device=dev)
     else:  # pragma: no cover
         raise SystemExit(f"unknown command {cmd}")
     return 0

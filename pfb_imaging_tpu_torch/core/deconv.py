@@ -139,10 +139,11 @@ def deconv(
     del abspsfhat
     dt.set_attrs(hess_norm=solver.hess_norm)
 
-    # warm-start the PD dual from the checkpoint when every band has one
+    # warm-start the PD dual from the checkpoint when the backward solver
+    # has one (forward-backward has none) and every band has one
     bwd = solver.backward_alg
     dual0 = [np.asarray(dt.group(key).read("DUAL")) for key in band_nodes if dt.group(key).has("DUAL")]
-    if len(dual0) == nband:
+    if getattr(bwd, "_v", None) is not None and len(dual0) == nband:
         bwd._v = to_device(np.stack(dual0), dev, rdt)
         log.info("warm-started PD dual from checkpoint")
 

@@ -1,7 +1,10 @@
 """PFBSolver: (hess, forward, backward, regulariser) composed into the PFB
 minor cycle (port of pfb_imaging_tpu/deconv/pfb.py). Kept: the gradient
 ``grad(x) = -H(xtilde - x)/gamma`` with ``xtilde = model + gamma*update``,
-the x1.05 hess-norm inflation and ``ReweightOnConverge``."""
+the x1.05 hess-norm inflation, ``ReweightOnConverge`` (installed only for a
+regulariser that reweights, as ``L21`` does and ``L1`` does not) and the
+``reweight_active`` polarity: True means "stop at convergence rather than
+trigger reweighting"."""
 
 from __future__ import annotations
 
@@ -76,9 +79,11 @@ class PFBSolver:
         self.hess_norm = float(hessnorm)
         log.info("Using hess_norm = %.3e", self.hess_norm)
         backward_alg.setup(prox, self.hess_norm)
-        self._reweight_cb = ReweightOnConverge(prox, maxreweight=maxreweight, verbosity=verbosity)
-        if backward_alg.on_converge is None:
-            backward_alg.on_converge = self._reweight_cb
+        self._reweight_cb = None
+        if hasattr(prox, "update_weights") and hasattr(prox, "reweight_active"):
+            self._reweight_cb = ReweightOnConverge(prox, maxreweight=maxreweight, verbosity=verbosity)
+            if getattr(backward_alg, "on_converge", None) is None:
+                backward_alg.on_converge = self._reweight_cb
 
     def first(self, residual) -> None:
         self._residual = residual
@@ -93,14 +98,23 @@ class PFBSolver:
         return self._update
 
     def backward(self, lam: float):
-        self._reweight_cb.reset()
+        if self._reweight_cb is not None:
+            self._reweight_cb.reset()
         self._model = self.backward_alg.solve(self._model, lam)
         self._iter += 1
         return self._model
 
     def last(self) -> None:
+        if not hasattr(self.reg, "init_reweighting"):
+            return
         if self._l1_reweight_from < 0 or self._iter < self._l1_reweight_from:
             return
         log.info("Computing L1 weights")
         self.reg.init_reweighting(self._update)
         self.reg.update_weights(self._model)
+
+    @property
+    def reweight_active(self) -> bool:
+        if not hasattr(self.reg, "init_reweighting") or self._l1_reweight_from < 0:
+            return True
+        return self.reg.reweight_active

@@ -1,6 +1,11 @@
-"""Minor-cycle preset factories (port of pfb_imaging_tpu/deconv/presets.py;
-``make_sara`` only). Kept: nu = len(bases) (design D3) and total-wsum
-normalisation with per-band eta (design D4, inside HessianCube.build)."""
+"""Minor-cycle preset factories (port of pfb_imaging_tpu/deconv/presets.py).
+Kept: nu = len(bases) (design D3) and total-wsum normalisation with
+per-band eta (design D4, inside HessianCube.build).
+
+Each factory takes numpy inputs: abspsfhat_per_band (nband, npart, nx_psf,
+ny_psf//2+1) |PSFHAT|; wsums (nband,) raw per-band weight sums; geometry a
+dict with nx, ny, nx_psf, ny_psf; model, update (nband, nx, ny) warm starts.
+"""
 
 from __future__ import annotations
 
@@ -8,9 +13,12 @@ import numpy as np
 
 from .. import real_dtype, to_device
 from ..ops.hessian import HessianCube
+from ..ops.identity_psi import IdentityPsi
 from ..ops.psi import Psi
+from ..opt.forward_backward import ForwardBackward
 from ..opt.pcg import PCG
 from ..opt.primal_dual import PrimalDual
+from ..prox.l1 import L1
 from ..prox.l21 import L21
 from ..prox.positivity import positivity_prox
 from .pfb import PFBSolver
@@ -31,6 +39,10 @@ DEFAULT_OPTS = dict(
     pd_tol=1e-5,
     pd_maxit=1000,
     pd_verbose=0,
+    fb_tol=1e-5,
+    fb_maxit=1000,
+    fb_verbose=0,
+    acceleration=True,
     l1_reweight_from=5,
     pm_tol=1e-3,
     pm_maxit=100,
@@ -38,28 +50,35 @@ DEFAULT_OPTS = dict(
 )
 
 
-def make_sara(abspsfhat_per_band, wsums, geometry, model, update, opts=None, beam_per_band=None, *, device="cuda"):
-    """SARA: l21 over the wavelet dictionary, primal-dual backward.
-
-    abspsfhat_per_band: (nband, npart, nx_psf, ny_psf//2+1) numpy |PSFHAT|;
-    wsums: (nband,) raw per-band weight sums; geometry: dict with nx, ny,
-    nx_psf, ny_psf; model, update: (nband, nx, ny) numpy warm starts.
-    """
+def _opts_with_defaults(opts):
     merged = dict(DEFAULT_OPTS)
     merged.update(opts or {})
-    opts = merged
-    if opts["opt_backend"] != "primal-dual":
-        raise NotImplementedError(f"opt_backend {opts['opt_backend']!r}: only primal-dual is ported")
-    dtype = real_dtype(device)
-    nband = model.shape[0]
-    bases = tuple(opts["bases"].split(",")) if isinstance(opts["bases"], str) else tuple(opts["bases"])
-    psi = Psi(nband, geometry["nx"], geometry["ny"], bases=bases, nlevel=opts["nlevels"], device=device)
-    reg = L21(psi, nu=len(bases), rmsfactor=opts["rmsfactor"], alpha=opts["alpha"])
-    hess = HessianCube.build(abspsfhat_per_band, np.asarray(wsums, dtype=float), opts["eta"], geometry["nx_psf"],
+    return merged
+
+
+def _build_hess(abspsfhat_per_band, wsums, geometry, opts, beam_per_band, device):
+    return HessianCube.build(abspsfhat_per_band, np.asarray(wsums, dtype=float), opts["eta"], geometry["nx_psf"],
                              geometry["ny_psf"], beam=beam_per_band, device=device)
+
+
+def _forward_backward(opts, acceleration: bool):
+    return ForwardBackward(tol=opts["fb_tol"], maxit=opts["fb_maxit"], verbosity=opts["fb_verbose"],
+                           gamma=opts["gamma"], acceleration=acceleration,
+                           primal_prox=positivity_prox(opts["positivity"]))
+
+
+def _build_backward(opts):
+    if opts["opt_backend"] == "primal-dual":
+        return PrimalDual(tol=opts["pd_tol"], maxit=opts["pd_maxit"], verbosity=opts["pd_verbose"],
+                          gamma=opts["gamma"], primal_prox=positivity_prox(opts["positivity"]))
+    if opts["opt_backend"] == "forward-backward":
+        return _forward_backward(opts, opts["acceleration"])
+    raise ValueError(f"Unknown opt_backend '{opts['opt_backend']}'")
+
+
+def _solver(hess, bwd, reg, model, update, opts, device):
+    dtype = real_dtype(device)
     fwd = PCG(tol=opts["cg_tol"], maxit=opts["cg_maxit"], minit=opts["cg_minit"])
-    bwd = PrimalDual(tol=opts["pd_tol"], maxit=opts["pd_maxit"], verbosity=opts["pd_verbose"], gamma=opts["gamma"],
-                     primal_prox=positivity_prox(opts["positivity"]))
     return PFBSolver(
         hess, fwd, bwd, reg, model=to_device(model, device, dtype), update=to_device(update, device, dtype),
         gamma=opts["gamma"], hessnorm=opts["hess_norm"], l1_reweight_from=opts["l1_reweight_from"],
@@ -67,4 +86,25 @@ def make_sara(abspsfhat_per_band, wsums, geometry, model, update, opts=None, bea
     )
 
 
-PRESETS = {"sara": make_sara}
+def make_sara(abspsfhat_per_band, wsums, geometry, model, update, opts=None, beam_per_band=None, *, device="cuda"):
+    """SARA: l21 over the wavelet dictionary, primal-dual or forward-backward
+    backward (``opt_backend``)."""
+    opts = _opts_with_defaults(opts)
+    bwd = _build_backward(opts)
+    nband = model.shape[0]
+    bases = tuple(opts["bases"].split(",")) if isinstance(opts["bases"], str) else tuple(opts["bases"])
+    psi = Psi(nband, geometry["nx"], geometry["ny"], bases=bases, nlevel=opts["nlevels"], device=device)
+    reg = L21(psi, nu=len(bases), rmsfactor=opts["rmsfactor"], alpha=opts["alpha"])
+    hess = _build_hess(abspsfhat_per_band, wsums, geometry, opts, beam_per_band, device)
+    return _solver(hess, bwd, reg, model, update, opts, device)
+
+
+def make_ista(abspsfhat_per_band, wsums, geometry, model, update, opts=None, beam_per_band=None, *, device="cuda"):
+    """ISTA: image-domain l1, forward-backward without acceleration."""
+    opts = _opts_with_defaults(opts)
+    reg = L1(IdentityPsi(model.shape[0], geometry["nx"], geometry["ny"], device=device))
+    hess = _build_hess(abspsfhat_per_band, wsums, geometry, opts, beam_per_band, device)
+    return _solver(hess, _forward_backward(opts, False), reg, model, update, opts, device)
+
+
+PRESETS = {"sara": make_sara, "ista": make_ista}

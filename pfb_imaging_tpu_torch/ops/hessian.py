@@ -1,4 +1,11 @@
-"""Sum-over-partitions PSF Hessian (port of pfb_imaging_tpu/ops/hessian.py).
+"""Hessian approximations of the measurement operator (port of
+pfb_imaging_tpu/ops/hessian.py):
+  * ``hessian_vis``: the exact vis-space Hessian ``B^T R^H W R B x (+ eta x)``
+    by a classic ES degrid/grid round trip (``ops/gridder.py``);
+  * ``hessian_psf``: the FFT PSF-convolution approximation;
+  * ``hess_direct``: the tapered direct Hessian or its pointwise inverse;
+  * ``hessian_tree_dot`` / ``HessianCube``: the sum-over-partitions PSF
+    Hessian of the deconv minor cycle.
 
 Only the unsharded cube is ported; the row-sharded distributed-FFT matvec
 waits for the ``parallel/`` port. Design D4 is kept: normalisation by the
@@ -12,7 +19,44 @@ import dataclasses
 import torch
 
 from .. import real_dtype, to_device
+from .gridder import WGridderPlan, dirty2vis, vis2dirty
 from .psf import psf_convolve
+
+
+def hessian_vis(plan: WGridderPlan, x, wgt=None, mask=None, beam=None, eta: float = 0.0, wsum=None):
+    """Exact vis-space Hessian on one (nx, ny) image on the plan's device.
+    The plan must be built with ``divide_by_n=False``."""
+    xin = x if beam is None else x * beam
+    conv = vis2dirty(plan, dirty2vis(plan, xin, mask=mask), wgt=wgt, mask=mask)
+    if wsum is not None:
+        conv = conv / wsum
+    if beam is not None:
+        conv = conv * beam
+    if eta:
+        conv = conv + eta * x
+    return conv
+
+
+def hessian_psf(x, abspsfhat, nx_psf: int, ny_psf: int, beam=None, eta: float = 0.0):
+    """Tikhonov-regularised FFT PSF Hessian: beam * (|PSFHAT| conv (beam*x)) + eta*x."""
+    xin = x if beam is None else x * beam
+    out = psf_convolve(xin, abspsfhat, nx_psf, ny_psf)
+    if beam is not None:
+        out = out * beam
+    if eta:
+        out = out + eta * x
+    return out
+
+
+def hess_direct(x, abspsfhat, taperxy, nx_psf: int, ny_psf: int, eta: float = 1.0, mode: str = "forward"):
+    """Tapered direct Hessian (``mode="forward"``) or its inverse
+    (``"backward"``); ``eta`` is relative to wsum (the PSF peak).
+    x: (..., nx, ny)."""
+    nx, ny = x.shape[-2], x.shape[-1]
+    xhat = torch.fft.rfft2(x * taperxy, s=(nx_psf, ny_psf), dim=(-2, -1))
+    xhat = xhat * (abspsfhat + eta) if mode == "forward" else xhat / (abspsfhat + eta)
+    big = torch.fft.irfft2(xhat, s=(nx_psf, ny_psf), dim=(-2, -1))
+    return big[..., :nx, :ny] * taperxy
 
 
 def hessian_tree_dot(x, abspsfhat_parts, beam_parts, wsum, nx_psf: int, ny_psf: int, eta: float = 0.0):

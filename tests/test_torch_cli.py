@@ -2,7 +2,8 @@
 on the CPU (``--device cpu``).
 
 Parsing: ``--help`` of every command, the JAX parser's commands and flags,
-and the ``NotImplementedError`` of each command or option the port lacks.
+and the ``NotImplementedError`` of ``--use-mesh``, the one option the port
+lacks.
 The slice: simulate -> init -> imager -> sara --niter 1 -> restore through
 both CLIs at ``recipes/sara.yml``'s size. The stores agree as
 tests/test_torch_simulate_init.py requires; DIRTY/PSF to 1e-9 relative
@@ -10,12 +11,16 @@ tests/test_torch_simulate_init.py requires; DIRTY/PSF to 1e-9 relative
 rounding through CG and primal-dual, as tests/test_torch_deconv.py); the
 FITS images to 1e-6 (stored as f32). Both deconvolutions take the JAX
 run's spectral norm from the tree's ``hess_norm`` attribute (the packages
-start their power methods from different random vectors). Last, the port
-runs ``recipes/sara.yml`` through its own ``run_recipe``.
+start their power methods from different random vectors). The port runs
+``recipes/sara.yml`` through its own ``run_recipe``. Last, ``kclean``
+(Clark and Hogbom), ``fluxtractor``, ``hci`` and ``deconv --preset ista``
+run through both CLIs on copies of one port-made store or tree: their
+products to 1e-8 (1e-9 for hci's cube).
 """
 
 import contextlib
 import io
+import shutil
 
 import numpy as np
 import pytest
@@ -61,10 +66,6 @@ def test_parser_has_the_jax_commands_and_flags():
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["kclean", "x.dt"], "remaining commands"),
-    (["fluxtractor", "x.dt"], "remaining commands"),
-    (["hci", "x.xds", "out"], "remaining commands"),
-    (["deconv", "x.dt", "--preset", "ista"], "remaining commands"),
     (["deconv", "x.dt", "--use-mesh"], "parallel/"),
     (["sara", "x.dt", "--use-mesh"], "parallel/"),
 ])
@@ -126,3 +127,69 @@ def test_port_runs_the_sara_recipe(tmp_path):
         img, _ = load_fits(str(tmp_path / f"sim_I_{prod}.fits"))
         assert img.shape[-2:] == (64, 64) and np.isfinite(img).all() and np.abs(img).max() > 0
     assert not (tmp_path / "sim_I_residual.fits").exists()  # the recipe asks for "MI" only
+
+
+@pytest.fixture(scope="module")
+def port_store(tmp_path_factory):
+    """simulate -> init -> imager through the port's CLI (epsilon 1e-7: IDG)."""
+    d = tmp_path_factory.mktemp("cmds")
+    ms, xds, dt = str(d / "p.ms"), str(d / "p.xds"), str(d / "p.dt")
+    for argv in (["simulate", ms, *SIM], ["init", ms, xds], ["imager", xds, dt, "--nband", "2", "--nx", "64"]):
+        cli.main(argv + ["--device", "cpu"])
+    return xds, dt
+
+
+def _both(src, tmp_path, argv, copy_attrs=()):
+    """Run ``argv`` (with the store or tree as its first argument) through
+    the JAX CLI on one copy, then through the port's on another; ``copy_attrs``
+    are root attributes the JAX run wrote that the port's run takes over."""
+    pj, pt = tmp_path / "j", tmp_path / "t"
+    shutil.copytree(src, pj)
+    shutil.copytree(src, pt)
+    jax_cli.main([argv[0], str(pj), *argv[1:]])
+    if copy_attrs:
+        TreeStore(str(pt), mode="w").set_attrs(**{k: TreeStore(str(pj)).attrs[k] for k in copy_attrs})
+    cli.main([argv[0], str(pt), *argv[1:], "--device", "cpu"])
+    return TreeStore(str(pj)), TreeStore(str(pt))
+
+
+@pytest.mark.parametrize("minor", ["clark", "hogbom"])
+def test_kclean_cli_matches_jax(port_store, tmp_path, minor):
+    tj, tt = _both(port_store[1], tmp_path, ["kclean", "--niter", "2", "--minor", minor])
+    for key in tj.groups():
+        nj, nt = tj.group(key), tt.group(key)
+        assert nt.attrs["niters"] == nj.attrs["niters"] >= 1
+        assert np.abs(nt.read("MODEL")).max() > 0
+        for name in ("MODEL", "RESIDUAL"):
+            assert _rel(nt.read(name), nj.read(name)) < 1e-8, (key, name)
+
+
+def test_fluxtractor_cli_matches_jax(port_store, tmp_path):
+    tj, tt = _both(port_store[1], tmp_path, ["fluxtractor", "--cg-maxit", "5"])
+    for key in tj.groups():
+        nj, nt = tj.group(key), tt.group(key)
+        for name in ("MODEL_MOPPED", "RESIDUAL_MOPPED", "UPDATE"):
+            assert np.isfinite(nt.read(name)).all()
+            assert _rel(nt.read(name), nj.read(name)) < 1e-8, (key, name)
+
+
+def test_hci_cli_matches_jax(port_store, tmp_path):
+    xds = port_store[0]
+    oj, ot = str(tmp_path / "j.cube"), str(tmp_path / "t.cube")
+    jax_cli.main(["hci", xds, oj, "--nx", "64", "--freq-chunks", "2"])
+    cli.main(["hci", xds, ot, "--nx", "64", "--freq-chunks", "2", "--device", "cpu"])
+    cube = np.asarray(TreeStore(ot).read("CUBE"))
+    assert cube.shape == (2, 2, 64, 64) and np.isfinite(cube).all() and np.abs(cube).max() > 0
+    for name in ("CUBE", "WSUMS", "TIMES"):
+        assert _rel(TreeStore(ot).read(name), TreeStore(oj).read(name)) < 1e-9, name
+
+
+def test_deconv_ista_cli_matches_jax(port_store, tmp_path):
+    tj, tt = _both(port_store[1], tmp_path, ["deconv", "--preset", "ista", "--niter", "1", "--cg-maxit", "20"],
+                   copy_attrs=("hess_norm",))
+    for key in tj.groups():
+        nj, nt = tj.group(key), tt.group(key)
+        assert nt.attrs["niters"] == nj.attrs["niters"] == 1 and not nt.has("DUAL")
+        assert np.abs(nt.read("MODEL")).max() > 0
+        for name in ("MODEL", "RESIDUAL", "UPDATE"):
+            assert _rel(nt.read(name), nj.read(name)) < 1e-8, (key, name)

@@ -48,7 +48,9 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 assert "pfb_imaging_tpu_torch.parallel.sharded" in names
-for m in ("cli", "recipes", "core.simulate", "core.init", "core.restore", "ops.dft"):
+for m in ("cli", "recipes", "core.simulate", "core.init", "core.restore", "ops.dft", "core.kclean",
+          "core.fluxtractor", "core.hci", "deconv.clark", "deconv.hogbom", "opt.forward_backward",
+          "models.transients"):
     assert "pfb_imaging_tpu_torch." + m in names, m
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pfb_imaging_tpu"))
 print(len(names), bad)
@@ -62,12 +64,15 @@ assert not bad, bad
 def _entry_points():
     from pfb_imaging_tpu_torch.core.deconv import deconv
     from pfb_imaging_tpu_torch.core.degrid import degrid
+    from pfb_imaging_tpu_torch.core.fluxtractor import fluxtractor
+    from pfb_imaging_tpu_torch.core.hci import hci
     from pfb_imaging_tpu_torch.core.imager import imager, residual_from_parts, residual_from_parts_multiband
     from pfb_imaging_tpu_torch.core.init import init
+    from pfb_imaging_tpu_torch.core.kclean import kclean
     from pfb_imaging_tpu_torch.core.model2comps import model2comps
     from pfb_imaging_tpu_torch.core.restore import restore
     from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store
-    from pfb_imaging_tpu_torch.deconv.presets import make_sara
+    from pfb_imaging_tpu_torch.deconv.presets import make_ista, make_sara
     from pfb_imaging_tpu_torch.ops.dft import dirty2vis_dft, vis2dirty_dft
     from pfb_imaging_tpu_torch.ops.gridder import plan_wgridder, wgridder_plan_from_jax
     from pfb_imaging_tpu_torch.ops.gridder_idg import plan_from_jax, plan_idg
@@ -80,7 +85,7 @@ def _entry_points():
     return [deconv, imager, residual_from_parts, make_sara, plan_wgridder, wgridder_plan_from_jax, plan_idg,
             plan_from_jax, HessianCube.build, degrid, model2comps, residual_from_parts_multiband,
             plan_idg_multiband_freqs, simulate_vis_store, init, restore, run_recipe, weight_data, dirty2vis_dft,
-            vis2dirty_dft, convolve2gaussres, restore_image]
+            vis2dirty_dft, convolve2gaussres, restore_image, kclean, fluxtractor, hci, make_ista]
 
 
 @pytest.mark.parametrize("fn", _entry_points(), ids=lambda f: f.__qualname__)
@@ -104,8 +109,11 @@ def test_no_silent_cpu_fallback(tmp_path):
     CPU; with one, ``resolve_device`` hands the card back."""
     from pfb_imaging_tpu_torch import resolve_device
     from pfb_imaging_tpu_torch.core.degrid import degrid
+    from pfb_imaging_tpu_torch.core.fluxtractor import fluxtractor
+    from pfb_imaging_tpu_torch.core.hci import hci
     from pfb_imaging_tpu_torch.core.imager import imager
     from pfb_imaging_tpu_torch.cli import main as cli_main
+    from pfb_imaging_tpu_torch.core.kclean import kclean
     from pfb_imaging_tpu_torch.core.init import init
     from pfb_imaging_tpu_torch.core.model2comps import model2comps
     from pfb_imaging_tpu_torch.core.restore import restore
@@ -131,3 +139,8 @@ def test_no_silent_cpu_fallback(tmp_path):
         restore(str(tmp_path / "missing.dt"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(["restore", str(tmp_path / "missing.dt")])
+    for cmd in (kclean, fluxtractor):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cmd(str(tmp_path / "missing.dt"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hci(str(tmp_path / "missing.xds"), str(tmp_path / "out.cube"))
