@@ -121,14 +121,34 @@ exits non-zero:
                a direct ``hci`` call, checked at its pixel; each step's
                seconds, launches and peak memory; B1/B2 against their f64
                plain versions (2e-6) at kclean's band-0 residual plan and at
-               one snapshot's plan.
+               one snapshot's plan;
+ 12. operators — the operators only the JAX tests reach, on the pipeline's
+               imaged tree: ``HessPSF`` (ms of ``dot`` and
+               ``idot(mode="direct")``; ``idot(mode="psf")``'s batched CG with
+               its iterations per band and ||dot(idot(y)) - y|| / ||y|| <=
+               1e-3), ``pcg`` with and without the preconditioner hook (each
+               stopping before maxit), ``nnls`` (a positive model, its MFS
+               peak on the brightest source; FISTA iterations and
+               backtracking events), ``Gauss`` and ``Mask`` on 2048^2 cubes,
+               ``plan_idg(subgrid=24)`` on band 0's visibilities (counts
+               zeroed right before ``vis2dirty_idg`` / ``dirty2vis_idg`` on
+               it: B1 and B2 launched; the dirty image within 1e-3 of the
+               imager's; B1/B2 within 2e-6 of f64 plain at this plan), an
+               S = 24 plan with ``flip_v=False`` and ``hermitian=False`` at
+               256^2 against the direct DFT with that sign (within
+               ``delivered_accuracy``, adjoint 1e-5), ``bringup_checks``
+               around five SARA primal-dual iterations (nothing raised) and
+               the host syncs per iteration under
+               ``set_sync_debug_mode("warn")``, ``memory_line()`` and the
+               PSF Hessian's flops by ``cost_analysis``.
 Then the kernel summary line (every kernel with its launches on its main
 path, error, ms, plain ms and bound at the shape those launches take; B1/B2
 also at band 0's plan and at the widefield multiband launch and band plan,
 with the widefield phase's launches, at the pipeline's launch shapes under
-``*_pipeline_*`` keys and at the commands' under ``*_commands_*`` keys;
-every kernel's ``launches_pipeline`` and ``launches_commands``, which must be
-positive for B1/B2), the ``nvidia-smi`` line and, last,
+``*_pipeline_*`` keys, at the commands' under ``*_commands_*`` keys and at
+the S = 24 plan under ``*_s24_plan``; every kernel's ``launches_pipeline``
+and ``launches_commands``, which must be positive for B1/B2, as must their
+``launches_operators``), the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
@@ -500,14 +520,15 @@ def bench_coords(rng, nrow: int, nchan: int):
     return uvw, np.linspace(1.0e9, 1.1e9, nchan)
 
 
-def dft_dirty(uvw, freq, vis, nx: int, cell: float, dev, chunk: int = 1024):
+def dft_dirty(uvw, freq, vis, nx: int, cell: float, dev, chunk: int = 1024, sv: float = -1.0):
     """Direct f64 adjoint DFT on the card: dirty = sum Re(V e^{+2 pi i phase}),
-    phase = (u l - v m - w (n-1)) nu / c (the pinned convention, no 1/n)."""
+    phase = (u l + sv v m - w (n-1)) nu / c (no 1/n; ``sv`` = -1 is the
+    pinned ``flip_v=True``)."""
     import torch
 
     c = (torch.arange(nx, device=dev, dtype=torch.float64) - nx // 2) * cell
     ll, mm = torch.meshgrid(c, c, indexing="ij")
-    lmn = torch.stack([ll.ravel(), -mm.ravel(), -(torch.sqrt(1.0 - ll**2 - mm**2) - 1.0).ravel()])
+    lmn = torch.stack([ll.ravel(), sv * mm.ravel(), -(torch.sqrt(1.0 - ll**2 - mm**2) - 1.0).ravel()])
     u = torch.as_tensor(uvw, device=dev, dtype=torch.float64)
     v = torch.as_tensor(vis, device=dev)
     acc = torch.zeros(nx * nx, dtype=torch.float64, device=dev)
@@ -1340,7 +1361,7 @@ def phase_degrid(dev, ctx: dict, eps_pallas: float = 1e-5, eps_auto: float = 1e-
     return b4, launches, dict(pallas=rec, checks=checks, auto=rec_auto)
 
 
-def dft_vis(uvw, freq, img, cell: float, dev, chunk: int = 1024):
+def dft_vis(uvw, freq, img, cell: float, dev, chunk: int = 1024, sv: float = -1.0):
     """Direct f64 forward DFT on the card, the adjoint of ``dft_dirty``:
     V = sum_pixels img e^{-2 pi i phase}."""
     import torch
@@ -1348,7 +1369,7 @@ def dft_vis(uvw, freq, img, cell: float, dev, chunk: int = 1024):
     nx = img.shape[0]
     c = (torch.arange(nx, device=dev, dtype=torch.float64) - nx // 2) * cell
     ll, mm = torch.meshgrid(c, c, indexing="ij")
-    lmn = torch.stack([ll.ravel(), -mm.ravel(), -(torch.sqrt(1.0 - ll**2 - mm**2) - 1.0).ravel()])
+    lmn = torch.stack([ll.ravel(), sv * mm.ravel(), -(torch.sqrt(1.0 - ll**2 - mm**2) - 1.0).ravel()])
     u = torch.as_tensor(uvw, device=dev, dtype=torch.float64)
     x = torch.as_tensor(img, device=dev, dtype=torch.float64).reshape(-1)
     out = torch.empty((u.shape[0], len(freq)), dtype=torch.complex128, device=dev)
@@ -2048,6 +2069,280 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
     return total, kern, steps
 
 
+def accuracy_s24_flips(dev, nrow: int = 50_000, nchan: int = 2, nx: int = 256, eps: float = 1e-7):
+    """An explicit S = 24 plan with ``flip_v=False`` and ``hermitian=False``
+    at 256^2 (the accuracy phase's coordinates) against the direct f64 DFT
+    with the same sign of v, both ways: ``vis2dirty_idg`` within
+    ``delivered_accuracy`` (interior and edge), ``dirty2vis_idg`` of a random
+    image within the edge budget of max|V|, and the adjoint identity of the
+    pair (<= 1e-5, sums in f64)."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops.gridder_idg import delivered_accuracy, dirty2vis_idg, plan_idg, vis2dirty_idg
+
+    rng = np.random.default_rng(5)
+    uvw, freq = bench_coords(rng, nrow, nchan)
+    cell = 8e-6 * 1024 / nx
+    vis = rng.standard_normal((nrow, nchan)) + 1j * rng.standard_normal((nrow, nchan))
+    img = rng.standard_normal((nx, nx))
+    plan = plan_idg(uvw, freq, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=eps, subgrid=24, flip_v=False,
+                    hermitian=False, divide_by_n=False, device=dev)
+    require(plan.S == 24 and not plan.hermitian, "an explicit S = 24 plan without the hermitian fold")
+    vr, vi = (torch.as_tensor(a, device=dev).float() for a in (vis.real, vis.imag))
+    img_t = torch.as_tensor(img, device=dev).float()
+    d = vis2dirty_idg(plan, vr, vis_im=vi).double()
+    v = dirty2vis_idg(plan, img_t).to(torch.complex128)
+    ref = dft_dirty(uvw, freq, vis, nx, cell, dev, sv=1.0)
+    vref = dft_vis(uvw, freq, img, cell, dev, sv=1.0)
+    err = (d - ref).abs() / ref.abs().max()
+    q = nx // 4
+    budget = delivered_accuracy(plan)
+    lhs = float((d * img_t.double()).sum())
+    rhs = float((torch.complex(vr, vi).to(torch.complex128).conj() * v).real.sum())
+    rec = dict(nx=nx, nvis=nrow * nchan, epsilon=eps, subgrid=plan.S, half=plan.half, nbins=plan.nbins,
+               ngroups=plan.ngroups, flip_v=False, hermitian=False, rel_linf=float(err.max()),
+               rel_linf_inner=float(err[q:-q, q:-q].max()),
+               degrid_rel_linf=float((v - vref).abs().max() / vref.abs().max()), adjoint_rel=abs(lhs - rhs) / abs(lhs),
+               budget_inner=budget["interior"], budget_edge=budget["edge"], edge_amp=budget["edge_amp"])
+    emit({"phase": "operators", "stage": "accuracy_s24_flips", **rec})
+    require(all(np.isfinite([rec["rel_linf"], rec["degrid_rel_linf"]])), "S = 24 accuracy finite")
+    require(rec["rel_linf_inner"] < budget["interior"], "S = 24 interior accuracy within delivered_accuracy")
+    require(rec["rel_linf"] < budget["edge"], "S = 24 edge accuracy within delivered_accuracy")
+    require(rec["degrid_rel_linf"] < budget["edge"], "S = 24 degrid accuracy within the edge budget")
+    require(rec["adjoint_rel"] <= 1e-5, "S = 24 adjoint identity")
+    return rec
+
+
+def phase_operators(dev, imaged: Path, sky: dict, eta: float = 1e-2, cg_tol: float = 1e-4, cg_maxit: int = 1000,
+                    cg_rel_limit: float = 1e-3, taper_width: int = 1, pd_iters: int = 5, f64_groups: int = 65536,
+                    acc_nrow: int = 50_000, acc_nx: int = 256, seed: int = 46):
+    """The operators that only the JAX tests reach, on the pipeline's imaged
+    tree (2048^2, 4 bands, 4096^2 PSF) as its imager wrote it:
+      * ``HessPSF`` at the tree's |PSFHAT| / WSUM per band (eta ``eta``), all
+        bands at once: ms of ``dot`` and ``idot(mode="direct")``, then
+        ``idot(mode="psf")`` on DIRTY / WSUM (the bands' batched CG, their
+        iterations each) with ||dot(idot(y)) - y|| / ||y|| <= ``cg_rel_limit``;
+      * ``pcg`` on the same right-hand side with and without the hook
+        (``precond`` = the direct inverse under a ``taper_width`` taper; a
+        wide taper spreads the preconditioned spectrum: at width 32 on a
+        128^2 tree PCG did not stop in 300 iterations): each must stop
+        before ``cg_maxit``, and its iterations are recorded;
+      * ``nnls`` on DIRTY / total WSUM with the complex PSFHAT (tol 1e-4,
+        maxit 50, the power method from a seeded generator): its seconds,
+        FISTA iterations and backtracking events; the model >= 0, nonzero,
+        its MFS peak within a pixel of the brightest source's;
+      * ``Gauss`` dot and sqrtdot on a (4, 2048, 2048) cube (finite; <x, Kx>
+        > 0 and <Ka, b> = <a, Kb> to 1e-4) and a ``Mask`` round trip (exact)
+        with its adjoint (1e-5);
+      * ``plan_idg(subgrid=24)`` on band 0's visibilities at epsilon 1e-7,
+        the counts zeroed right before ``vis2dirty_idg`` and
+        ``dirty2vis_idg`` on it and read right after (B1 and B2 launched);
+        the dirty image within 1e-3 of the imager's band-0 DIRTY (its own
+        plan); B1/B2 at this plan against their f64 plain versions on the
+        middle ``f64_groups`` groups (2e-6); then
+        :func:`accuracy_s24_flips`;
+      * ``bringup_checks`` around ``pd_iters`` primal-dual iterations of the
+        tree's SARA solve (model 0, residual DIRTY / total WSUM), which must
+        raise nothing, then the host syncs per iteration of the same loop
+        under ``torch.cuda.set_sync_debug_mode("warn")``;
+      * ``memory_line()`` and ``cost_analysis(hessian_psf, ...)``'s flops.
+    Returns (the S = 24 path's launches, B1/B2's record at the S = 24 plan,
+    the phase's record)."""
+    import warnings
+    from functools import partial
+
+    import torch
+
+    from pfb_imaging_tpu_torch import real_dtype, to_device
+    from pfb_imaging_tpu_torch.deconv.nnls import nnls
+    from pfb_imaging_tpu_torch.deconv.pfb import _pfb_grad
+    from pfb_imaging_tpu_torch.deconv.presets import make_sara
+    from pfb_imaging_tpu_torch.ops.gauss import Gauss
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_prepare, dirty2vis_idg, plan_idg, vis2dirty_idg
+    from pfb_imaging_tpu_torch.ops.hessian import hessian_psf
+    from pfb_imaging_tpu_torch.ops.mask import Mask
+    from pfb_imaging_tpu_torch.ops.precond import HessPSF
+    from pfb_imaging_tpu_torch.opt.pcg import pcg
+    from pfb_imaging_tpu_torch.opt.primal_dual import primal_dual_loop
+    from pfb_imaging_tpu_torch.utils.debug import bringup_checks
+    from pfb_imaging_tpu_torch.utils.profiling import cost_analysis, memory_line
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    rdt = real_dtype(dev)
+    tree = TreeStore(imaged)
+    a = tree.attrs
+    nx, nxp, nyp, cell = int(a["nx"]), int(a["nx_psf"]), int(a["ny_psf"]), float(a["cell_rad"])
+    nodes = [tree.group(k) for k in sorted(tree.groups()) if k.startswith("band")]
+    nband = len(nodes)
+    wsums = np.array([float(np.asarray(n.read("WSUM"))[0]) for n in nodes])
+    wsum = float(wsums.sum())
+    dirty = np.stack([np.asarray(n.read("DIRTY")) for n in nodes])
+    psfhat = np.stack([np.asarray(n.read("PSFHAT")) for n in nodes])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rec: dict = dict(nband=nband, nx=nx, nx_psf=nxp)
+
+    # ── HessPSF and the PCG hook ──
+    hp = HessPSF(np.abs(psfhat) / wsums[:, None, None], nxp, nyp, eta=eta, cg_tol=cg_tol, cg_maxit=cg_maxit,
+                 taper_width=taper_width, device=dev)
+    y = to_device(dirty / wsums[:, None, None], dev, rdt)
+    hrec = dict(eta=eta, cg_tol=cg_tol, taper_width=taper_width, dot_ms=cuda_ms(lambda: hp.dot(y), 10),
+                idot_direct_ms=cuda_ms(lambda: hp.idot(y, mode="direct"), 10))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xi = hp.idot(y, mode="psf")
+    torch.cuda.synchronize()
+    hrec.update(idot_psf_seconds=time.perf_counter() - t0, cg_iters_per_band=list(hp.niter_last),
+                idot_psf_rel_residual=float((hp.dot(xi) - y).norm() / y.norm()))
+    for name, pre in (("pcg_plain", None), ("pcg_precond_direct", partial(hp.idot, mode="direct"))):
+        info = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs = pcg(hp.dot, y, precond=pre, tol=cg_tol, maxit=cg_maxit, minit=1, info=info)
+        torch.cuda.synchronize()
+        hrec[name] = dict(iters=info["niter"], seconds=time.perf_counter() - t0,
+                          rel_residual=float((hp.dot(xs) - y).norm() / y.norm()))
+    emit({"phase": "operators", "stage": "hesspsf", **hrec})
+    require(all(k < cg_maxit for k in hrec["cg_iters_per_band"]), "HessPSF.idot(psf): every band stops before maxit")
+    require(hrec["idot_psf_rel_residual"] <= cg_rel_limit, "HessPSF: ||dot(idot(y)) - y|| / ||y|| within its limit")
+    for name in ("pcg_plain", "pcg_precond_direct"):
+        require(hrec[name]["iters"] < cg_maxit, f"{name} stops before maxit")
+    rec["hesspsf"] = hrec
+    ca = cost_analysis(hessian_psf, y, hp.abspsfhat, nxp, nyp)
+    del hp, xi, xs
+    torch.cuda.empty_cache()
+
+    # ── nnls ──
+    info = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = nnls(to_device(dirty / wsum, dev, rdt), psfhat / wsum, nxp, nyp, tol=1e-4, maxit=50, info=info,
+                 device=dev)
+    torch.cuda.synchronize()
+    nnls_s = time.perf_counter() - t0
+    m = model.cpu().numpy()
+    f0 = min(float(np.asarray(n.group(sorted(n.groups())[0]).read("FREQ")).min()) for n in nodes)
+    fb = np.array([float(np.asarray(n.group(sorted(n.groups())[0]).read("FREQ")).mean()) for n in nodes])
+    mfs_flux = [fl * ((fb / f0) ** al).sum() for (_, _, fl, al) in sky["sources"]]
+    brightest = sky["pix"][int(np.argmax(mfs_flux))]
+    nrec = dict(seconds=nnls_s, fista_iters=info["niter"], backtracks=info["nbacktrack"],
+                beta=info["beta"], model_min=float(m.min()), model_max=float(m.max()), brightest_source=brightest,
+                mfs_peak_offset_px=peak_offset_px(m.sum(axis=0), [brightest]))
+    emit({"phase": "operators", "stage": "nnls", **nrec})
+    require(nrec["model_min"] >= 0.0 and nrec["model_max"] > 0.0, "nnls: a positive model")
+    require(nrec["mfs_peak_offset_px"] <= 1, "nnls: the MFS model's peak on the brightest source")
+    rec["nnls"] = nrec
+    del model, m
+
+    # ── Gauss and Mask ──
+    g = Gauss(fb / 1e9, np.arange(nx, dtype=float), np.arange(nx, dtype=float), lf=1.0, lx=2.0, ly=2.0, device=dev)
+    xw = torch.randn((nband, nx, nx), generator=gen, device=dev, dtype=rdt)
+    xb = torch.randn((nband, nx, nx), generator=gen, device=dev, dtype=rdt)
+    kw, ks = g.dot(xw), g.sqrtdot(xw)
+    ab, ba = float((g.dot(xw) * xb).double().sum()), float((xw * g.dot(xb)).double().sum())
+    mask = np.random.default_rng(seed).random((nx, nx)) > 0.5
+    mk = Mask(mask, device=dev)
+    x0 = y[0]
+    beta = mk.dot(x0)
+    back = mk.hdot(beta)
+    yb = torch.randn(mk.nnz, generator=gen, device=dev, dtype=rdt)
+    lhs, rhs = float((mk.dot(x0) * yb).double().sum()), float((x0 * mk.hdot(yb)).double().sum())
+    grec = dict(gauss_dot_ms=cuda_ms(lambda: g.dot(xw), 5), gauss_sqrtdot_ms=cuda_ms(lambda: g.sqrtdot(xw), 5),
+                gauss_finite=bool(torch.isfinite(kw).all() and torch.isfinite(ks).all()),
+                gauss_quadratic=float((xw * kw).double().sum()), gauss_symmetry_rel=abs(ab - ba) / abs(ab),
+                mask_nnz=mk.nnz, mask_dot_ms=cuda_ms(lambda: mk.dot(x0), 10),
+                mask_hdot_ms=cuda_ms(lambda: mk.hdot(beta), 10),
+                mask_round_trip_exact=bool(torch.equal(back, x0 * torch.as_tensor(mask, device=dev))),
+                mask_adjoint_rel=abs(lhs - rhs) / abs(lhs))
+    emit({"phase": "operators", "stage": "gauss_mask", **grec})
+    require(grec["gauss_finite"] and grec["gauss_quadratic"] > 0 and grec["gauss_symmetry_rel"] <= 1e-4,
+            "Gauss: finite, positive and symmetric")
+    require(grec["mask_round_trip_exact"] and grec["mask_adjoint_rel"] <= 1e-5, "Mask: round trip and adjoint")
+    rec["gauss_mask"] = grec
+    del g, xw, xb, kw, ks, back, beta
+    torch.cuda.empty_cache()
+
+    # ── an explicit S = 24 plan on band 0's visibilities ──
+    pg = nodes[0].group(sorted(nodes[0].groups())[0])
+    vis = np.asarray(pg.read("VIS"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p24 = plan_idg(np.asarray(pg.read("UVW")), np.asarray(pg.read("FREQ")), nx=nx, ny=nx, cellx=cell, celly=cell,
+                   epsilon=1e-7, subgrid=24, divide_by_n=False, device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    require(p24.S == 24 and p24.half == 12, "plan_idg(subgrid=24) plans S = 24, half 12")
+    vr, vi = to_device(vis.real, dev, rdt), to_device(vis.imag, dev, rdt)
+    wm = to_device(np.asarray(pg.read("WEIGHT")) * np.asarray(pg.read("MASK")), dev, rdt)
+    torch.cuda.synchronize()
+    zero_counts()
+    d24 = vis2dirty_idg(p24, vr, wgt=wm, vis_im=vi)
+    m24 = dirty2vis_idg(p24, y[0])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    srec = dict(plan_seconds=plan_s, ngroups=p24.ngroups, nbins=p24.nbins, w_support=p24.w_support, nbig=p24.nbig_x,
+                nvis=int(vis.size), launches=launches,
+                dirty_vs_imager_rel=rel_linf_np(d24.double().cpu().numpy(), dirty[0]),
+                degrid_finite=bool(torch.isfinite(m24).all()), degrid_shape=list(m24.shape))
+    emit({"phase": "operators", "stage": "plan_s24", **srec})
+    require(launches["patches_from_vals"] > 0 and launches["vals_from_patches"] > 0,
+            "B1 and B2 launched by vis2dirty_idg / dirty2vis_idg at S = 24")
+    require(srec["degrid_finite"] and tuple(m24.shape) == vis.shape, "S = 24 degrid finite, of the data's shape")
+    require(srec["dirty_vs_imager_rel"] <= 1e-3, "S = 24 dirty image within 1e-3 of the imager's DIRTY")
+    del d24, m24
+    vals = _idg_prepare(p24, vr, vi, wm)
+    krec, _ = idg_kernels_at_plan(p24, vals, f64_groups=f64_groups)
+    krec.update(nbins=p24.nbins, w_support=p24.w_support)
+    emit({"phase": "operators", "stage": "kernels_at_s24_plan", **krec})
+    require(krec["b1_rel_vs_f64"] <= 2e-6 and krec["b2_rel_vs_f64"] <= 2e-6, "B1/B2 vs f64 plain at the S = 24 plan")
+    rec["plan_s24"] = srec
+    del p24, vals, vr, vi, wm
+    torch.cuda.empty_cache()
+    rec["accuracy_s24_flips"] = accuracy_s24_flips(dev, nrow=acc_nrow, nx=acc_nx)
+
+    # ── the NaN trap and the host syncs of the SARA primal-dual loop ──
+    parts = np.stack([np.stack([np.abs(np.asarray(n.group(q).read("PSFHAT"))) for q in sorted(n.groups())])
+                      for n in nodes])
+    geometry = dict(nx=nx, ny=nx, nx_psf=nxp, ny_psf=nyp)
+    zeros = np.zeros((nband, nx, nx))
+    solver = make_sara(parts, wsums, geometry, zeros, zeros, {}, device=dev)
+    del parts
+    hess, reg, bwd = solver.hess, solver.reg, solver.backward_alg
+    psi = reg.psi
+    x = torch.zeros((nband, nx, nx), dtype=rdt, device=dev)
+    r = to_device(dirty / wsum, dev, rdt)
+    v = psi.dot(x)
+    lam = float(r.sum(0).std())
+    grad = partial(_pfb_grad, hess.dot, x + r, 1.0)
+
+    def pd():
+        return primal_dual_loop(x, v, lam, reg.l1weight, bwd.sigma, bwd.tau, grad, psi_dot=psi.dot,
+                                psi_hdot=psi.hdot, primal_prox=bwd.primal_prox, dual_update=reg.dual_update_fn,
+                                tol=0.0, maxit=pd_iters)
+
+    with bringup_checks():
+        xo, *_ = pd()
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pd()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+    prec = dict(pd_iters=pd_iters, bringup_checks_raised=False, model_finite=bool(torch.isfinite(xo).all()),
+                host_syncs=syncs, host_syncs_per_pd_iter=syncs / pd_iters, memory_line=memory_line(),
+                hessian_psf_flops=ca["flops"], hessian_psf_flops_by_op=ca["by_op"])
+    emit({"phase": "operators", "stage": "bringup_and_syncs", **prec})
+    require(prec["model_finite"], "primal-dual under bringup_checks: a finite model")
+    rec["bringup"] = prec
+    del solver, hess, reg, bwd, psi, x, r, v, xo
+    torch.cuda.empty_cache()
+    return launches, krec, rec
+
+
 def zero_counts() -> None:
     """Every kernel's launch count to 0."""
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
@@ -2205,6 +2500,7 @@ def main(argv=None) -> int:
     imaged = ROOT / "build" / "chip_smoke_commands_imaged.dt"
     pipe_launches, pipe_kern, _, sky = phase_pipeline(dev, ROOT / "build" / "chip_smoke_pipeline", keep_imaged=imaged)
     cmd_launches, cmd_kern, _ = phase_commands(dev, ROOT / "build" / "chip_smoke_commands", imaged, sky)
+    op_launches, op_kern, _ = phase_operators(dev, imaged, sky)
     shutil.rmtree(imaged)
 
     kernels = []
@@ -2232,6 +2528,7 @@ def main(argv=None) -> int:
                                 f"bound_ms_pipeline_{where}": b_ms, f"bound_by_pipeline_{where}": b_by,
                                 f"rel_vs_f64_pipeline_{where}": r[f"{tag}_rel_vs_f64"],
                                 f"ng_pipeline_{where}": r["ng"], f"S_pipeline_{where}": r["S"]})
+        bound_s24, bound_s24_by, _ = idg_bound(op_kern["ng"], op_kern["S"])
         kernels.append(dict(
             name=name, route="cuda", source="pfb_imaging_tpu_torch/csrc/idg_fused.cu", replaces=REPLACES[name],
             launches=launches[name], max_abs_err=main_mb[f"{tag}_max_abs_err"], ms=ms,
@@ -2251,7 +2548,9 @@ def main(argv=None) -> int:
             rel_vs_f64_wplanes_band_plan=wide_band[f"{tag}_rel_vs_f64"],
             launches_widefield_deconv=wf_launches[name], launches_widefield_degrid=wf_dg_launches[name],
             launches_pipeline=pipe_launches[name], **at_pipeline, launches_commands=cmd_launches[name],
-            **at_commands,
+            **at_commands, launches_operators=op_launches[name], ms_s24_plan=op_kern[f"{tag}_ms"],
+            plain_ms_s24_plan=op_kern[f"{tag}_plain_ms"], bound_ms_s24_plan=bound_s24, bound_by_s24_plan=bound_s24_by,
+            rel_vs_f64_s24_plan=op_kern[f"{tag}_rel_vs_f64"], ng_s24_plan=op_kern["ng"], S_s24_plan=op_kern["S"],
             **({"ms_compare_tree_tree_compare": timing["compare"][f"{tag}_ms_compare_tree_tree_compare"]}
                if "compare" in timing else {}),
         ))
@@ -2278,6 +2577,7 @@ def main(argv=None) -> int:
     for k in kernels[:2]:
         require(k["launches_pipeline"] > 0, f"{k['name']} launched on the pipeline")
         require(k["launches_commands"] > 0, f"{k['name']} launched by the commands")
+        require(k["launches_operators"] > 0, f"{k['name']} launched at the S = 24 plan")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,13 +48,20 @@ def complex_dtype(real: torch.dtype) -> torch.dtype:
     return torch.complex64 if real == torch.float32 else torch.complex128
 
 
-_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64, torch.int64: np.int64}
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64, torch.int64: np.int64,
+             torch.complex64: np.complex64, torch.complex128: np.complex128}
 
 
 def to_device(a, device, dtype: torch.dtype) -> torch.Tensor:
     """Array-like -> tensor on ``device`` in ``dtype``, cast on the host
     first so a single copy of the final size crosses to the device."""
     return torch.from_numpy(np.array(a, dtype=_NP_DTYPE[dtype])).to(device)
+
+
+def as_device(a, device, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`to_device` for an array-like, ``Tensor.to`` for a tensor (no
+    copy when it is already there in ``dtype``)."""
+    return a.to(device=device, dtype=dtype) if torch.is_tensor(a) else to_device(a, device, dtype)
 
 
 def to_device_async(a, device, dtype: torch.dtype) -> torch.Tensor:

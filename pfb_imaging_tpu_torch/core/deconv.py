@@ -29,6 +29,7 @@ from .. import real_dtype, resolve_device, to_device, to_host
 from ..deconv.presets import PRESETS
 from ..utils.logging import get_logger
 from ..utils.modelspec import eval_coeffs_to_cube, fit_image_cube, save_mds
+from ..utils.profiling import memory_line
 from ..utils.store import TreeStore, require_complete
 from .imager import RESIDUAL_DISPATCH_STATS, residual_from_parts, residual_from_parts_multiband
 
@@ -201,8 +202,8 @@ def deconv(
                      lam=lam, rms=rms, rmax=rmax, cg_iters=int(getattr(solver.forward_alg, "niter_last", -1)),
                      pd_iters=int(getattr(bwd, "niter_last", -1)), residual_dispatch=dict(RESIDUAL_DISPATCH_STATS))
         CYCLE_STATS.append(stats)
-        log.info("iter %d: lam=%.3e rms=%.3e rmax=%.3e cg=%d pd=%d (%.2f s)", k + 1, lam, rms, rmax,
-                 stats["cg_iters"], stats["pd_iters"], stats["seconds"])
+        log.info("iter %d: lam=%.3e rms=%.3e rmax=%.3e cg=%d pd=%d (%.2f s) [%s]", k + 1, lam, rms, rmax,
+                 stats["cg_iters"], stats["pd_iters"], stats["seconds"], memory_line())
 
         if rms < best_rms:
             best_rms = rms

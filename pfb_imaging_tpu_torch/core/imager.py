@@ -48,6 +48,7 @@ from ..ops.weighting import box_sum_counts, compute_counts, counts_to_weights, f
 from ..utils.fits import save_fits, set_wcs
 from ..utils.logging import get_logger
 from ..utils.modelspec import eval_coeffs_to_slice, load_mds
+from ..utils.profiling import memory_line
 from ..utils.store import TreeStore, band_key, part_key
 
 log = get_logger("IMAGER")
@@ -349,7 +350,7 @@ def imager(
             psf_acc[b, tb] += psf_p
             wsum_acc[b, tb] += wsum_p
             IMAGER_STATS["write_seconds"] += time.perf_counter() - t0
-            log.info("gridded band %d %s: wsum=%.3e", b, key, wsum_p)
+            log.info("gridded band %d %s: wsum=%.3e [%s]", b, key, wsum_p, memory_line())
     finally:
         pool.shutdown(wait=False, cancel_futures=True)
 

@@ -109,6 +109,17 @@ def lm_grid(nx: int, ny: int, cellx: float, celly: float, l0: float = 0.0, m0: f
 # ── clean-beam fitting ───────────────────────────────────────────────
 
 
+def taperf(shape: tuple[int, int], taper_width: int) -> np.ndarray:
+    """Cosine edge taper (a copy of the JAX ``geometry.taperf``)."""
+    tapers1d = []
+    for npix in shape:
+        taper = np.ones(npix)
+        taper[:taper_width] = 0.5 * (1 + np.cos(np.linspace(1.1 * np.pi, 2 * np.pi, taper_width)))
+        taper[-taper_width:] = 0.5 * (1 + np.cos(np.linspace(0, 0.9 * np.pi, taper_width)))
+        tapers1d.append(taper)
+    return np.outer(*tapers1d)
+
+
 def _psf_errorsq(params, data, xy):
     """Sum-of-squares misfit of a rotated-Gaussian mainlobe model with FWHMs
     (emaj, emin) and position angle pa (FITS rotation, t = pi/2 + pa)."""

@@ -525,19 +525,37 @@ def _pad_to_caps(bin_gstart, bin_gcount, bin_gcap, arrays: dict):
 
 
 def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: float = 0.0, m0: float = 0.0,
-             epsilon: float = 1e-5, do_wgridding: bool = True, max_slot_factor: float | None = None,
-             divide_by_n: bool = True, w_mode: str = "auto", force_w_range: tuple | None = None,
-             bin_gcap: tuple | None = None, dtype: torch.dtype | None = None, count_only: bool | str = False,
+             flip_u: bool = False, flip_v: bool = True, flip_w: bool = False, epsilon: float = 1e-5,
+             do_wgridding: bool = True, divide_by_n: bool = True, sigma: float | None = None,
+             dtype: torch.dtype | None = None, subgrid: int | None = None, half: int | None = None,
+             group_size: int = 128, max_bins: int = _MAX_BINS, force_w_range: tuple | None = None,
+             bin_gcap: tuple | None = None, count_only: bool | str = False, eval_backend: str = "auto",
+             hermitian: bool = True, max_slot_factor: float | None = None, w_mode: str = "auto",
              device="cuda") -> IDGPlan:
-    """Host-side IDG planning onto ``device``: the JAX ``plan_idg`` with its
-    defaults (pinned sign conventions, hermitian fold, epsilon-adaptive
-    subgrid and oversampling). ``divide_by_n`` (default True, as in JAX)
-    folds the 1/n of the DFT convention into the image correction; the
+    """Host-side IDG planning onto ``device``: the JAX ``plan_idg``, its
+    arguments and defaults. ``flip_u/v/w`` set the sign conventions
+    (``geometry.conventions_signs``). ``divide_by_n`` (default True, as in
+    JAX) folds the 1/n of the DFT convention into the image correction; the
     imager, the residual and degrid plan with ``divide_by_n=False``.
+    ``hermitian`` folds the v < 0 rows onto v >= 0 (their values conjugate
+    at run time); False plans every row as it is.
+
+    ``subgrid`` (S) and ``half`` (the bucket width, default S // 2; S must
+    be a multiple of it) default to the epsilon-adaptive tiers: S = 16 /
+    half = 8 down to epsilon 4e-6, S = 32 / half = 16 below. ``sigma``
+    (the lattice oversampling) defaults to the JAX tiers: 1.5 at S >= 32,
+    1.75 at S = 24, at S = 16 1.5 down to epsilon 2e-5 and 1.75 below.
+    The card's kernels serve S in {16, 24, 32} and groups of 128 slots:
+    another ``subgrid`` or ``group_size`` raises ``ValueError``, and so does
+    an ``eval_backend`` other than "auto" or "fused" (the JAX "einsum" and
+    "onfly" backends are the TPU's; here every plan takes the kernels on the
+    card and their plain versions on the CPU).
 
     ``w_mode``: "chirp", "wplanes" or "auto" (the JAX slot-unit cost model:
     per-visibility slots plus a lattice-area cost per bin or plane). A
-    wplanes plan moves to the S = 32 / half = 16 / sigma 1.5 tier.
+    wplanes plan with the adaptive subgrid moves to the S = 32 / half = 16 /
+    sigma 1.5 tier; an explicit ``subgrid`` or ``half`` keeps its own. A
+    chirp layout that needs more than ``max_bins`` w-bins raises.
     ``force_w_range=(wmin, wmax, nbins)`` and ``bin_gcap`` (per-bin group
     capacities, padded with empty groups) give several layouts one bin grid
     and one group layout, as the multiband planner needs. ``max_slot_factor``
@@ -549,21 +567,38 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
     whi, w_support))."""
     if w_mode not in W_MODES:
         raise ValueError(f"w_mode {w_mode!r} not in {W_MODES}")
+    G = idg_fused.G
+    if eval_backend not in ("auto", "fused") or int(group_size) != G:
+        raise ValueError(f"the IDG kernels take eval_backend 'auto' or 'fused' and group_size {G}; got "
+                         f"{eval_backend!r}, {group_size}")
     rdt = dtype or real_dtype(device)
     uvw = np.asarray(uvw, np.float64)
     freq = np.asarray(freq, np.float64)
     nrow, nchan = uvw.shape[0], freq.shape[0]
-    su, sv, sw = conventions_signs()
-    # hermitian fold: v < 0 rows mirror onto v >= 0; their values conjugate
-    v_row = sv * uvw[:, 1]
-    fold_row = (v_row < 0) | ((v_row == 0) & (su * uvw[:, 0] < 0))
-    uvw = np.where(fold_row[:, None], -uvw, uvw)
+    su, sv, sw = conventions_signs(flip_u, flip_v, flip_w)
+    if hermitian:
+        # v < 0 rows mirror onto v >= 0; their values conjugate
+        v_row = sv * uvw[:, 1]
+        fold_row = (v_row < 0) | ((v_row == 0) & (su * uvw[:, 0] < 0))
+        uvw = np.where(fold_row[:, None], -uvw, uvw)
+    else:
+        fold_row = np.zeros(nrow, bool)
     if epsilon < IDG_MIN_EPS:
         raise ValueError(f"IDG accuracy envelope stops at epsilon={IDG_MIN_EPS}")
-    # epsilon-adaptive subgrid: S=16/half=8 down to 4e-6, S=32/half=16 below
-    S, half = (16, 8) if epsilon >= 4e-6 else (32, 16)
-    G = idg_fused.G
-    sigma = 1.5 if S == 32 or epsilon >= 2e-5 else 1.75
+    subgrid_auto = subgrid is None and half is None
+    if subgrid is None:
+        # epsilon-adaptive subgrid: S=16/half=8 down to 4e-6, S=32/half=16 below
+        subgrid = 16 if epsilon >= 4e-6 else 32
+        if half is None:
+            half = 8 if subgrid == 16 else 16
+    S = int(subgrid)
+    half = int(half) if half is not None else S // 2
+    if S not in idg_fused.SUPPORTED_S:
+        raise ValueError(f"the IDG kernels take subgrid in {idg_fused.SUPPORTED_S}; got {S}")
+    if S % half:
+        raise ValueError("subgrid must be a multiple of half")
+    if sigma is None:
+        sigma = 1.5 if S >= 32 else 1.75 if S == 24 else 1.5 if epsilon >= 2e-5 else 1.75
     nbig_x, nbig_y = _lattice(nx, ny, S, half, sigma)
     invlam = freq / LIGHTSPEED
     nvis = nrow * nchan
@@ -637,7 +672,7 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
         else:
             mode = w_mode
         if mode == "wplanes":
-            if S != 32:  # the coarse-lattice tier: fewer, fuller (plane, bucket) groups
+            if subgrid_auto and S != 32:  # the coarse-lattice tier: fewer, fuller (plane, bucket) groups
                 S, half, sigma = 32, 16, 1.5
                 nbig_x, nbig_y = _lattice(nx, ny, S, half, sigma)
             w_support = ws_cand
@@ -648,8 +683,8 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
             wc = wk["w0"] + np.arange(nbins) * dw
         else:
             nbins = int(force_w_range[2]) if force_w_range is not None else nbins_chirp
-            if nbins > _MAX_BINS:
-                raise ValueError(f"IDG needs {nbins} w-bins (> {_MAX_BINS}); field too wide")
+            if nbins > max_bins:
+                raise ValueError(f"IDG needs {nbins} w-bins (> {max_bins}); field too wide")
             edges = np.linspace(wmin, wmax, nbins + 1)
             wc = 0.5 * (edges[:-1] + edges[1:])
     else:
@@ -752,7 +787,7 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
         nx=nx, ny=ny, nbig_x=nbig_x, nbig_y=nbig_y, S=S, half=half, G=G, ngroups=ng, nbu=nbu, nbv=nbv,
         k0_off=k0_off, nrow=nrow, nchan=nchan, nbins=nbins,
         bin_gstart=tuple(int(x) for x in bin_gstart), bin_gcount=tuple(int(x) for x in bin_gcount),
-        bin_wc=tuple(float(x) for x in wc), do_wgridding=do_w, hermitian=True, epsilon=float(epsilon),
+        bin_wc=tuple(float(x) for x in wc), do_wgridding=do_w, hermitian=bool(hermitian), epsilon=float(epsilon),
         scal=scal_t, wcu=as_t(np.stack([(W * cu).real, (W * cu).imag])),
         wcv=as_t(np.stack([(W * cv).real, (W * cv).imag])), sg=sg_t, cg_idx=cg_idx_t,
         bid=as_t(bid_g, torch.int64), phase_re=phre_t, phase_im=phim_t,

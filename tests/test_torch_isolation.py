@@ -50,7 +50,8 @@ import chip_smoke
 assert "pfb_imaging_tpu_torch.parallel.sharded" in names
 for m in ("cli", "recipes", "core.simulate", "core.init", "core.restore", "ops.dft", "core.kclean",
           "core.fluxtractor", "core.hci", "deconv.clark", "deconv.hogbom", "opt.forward_backward",
-          "models.transients"):
+          "models.transients", "ops.precond", "ops.gauss", "ops.mask", "opt.fista", "deconv.nnls", "models.spi",
+          "utils.astrometry", "utils.naming", "utils.profiling", "utils.debug"):
     assert "pfb_imaging_tpu_torch." + m in names, m
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pfb_imaging_tpu"))
 print(len(names), bad)
@@ -72,7 +73,11 @@ def _entry_points():
     from pfb_imaging_tpu_torch.core.model2comps import model2comps
     from pfb_imaging_tpu_torch.core.restore import restore
     from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store
+    from pfb_imaging_tpu_torch.deconv.nnls import nnls
     from pfb_imaging_tpu_torch.deconv.presets import make_ista, make_sara
+    from pfb_imaging_tpu_torch.ops.gauss import Gauss
+    from pfb_imaging_tpu_torch.ops.mask import Mask
+    from pfb_imaging_tpu_torch.ops.precond import HessPSF
     from pfb_imaging_tpu_torch.ops.dft import dirty2vis_dft, vis2dirty_dft
     from pfb_imaging_tpu_torch.ops.gridder import plan_wgridder, wgridder_plan_from_jax
     from pfb_imaging_tpu_torch.ops.gridder_idg import plan_from_jax, plan_idg
@@ -85,7 +90,8 @@ def _entry_points():
     return [deconv, imager, residual_from_parts, make_sara, plan_wgridder, wgridder_plan_from_jax, plan_idg,
             plan_from_jax, HessianCube.build, degrid, model2comps, residual_from_parts_multiband,
             plan_idg_multiband_freqs, simulate_vis_store, init, restore, run_recipe, weight_data, dirty2vis_dft,
-            vis2dirty_dft, convolve2gaussres, restore_image, kclean, fluxtractor, hci, make_ista]
+            vis2dirty_dft, convolve2gaussres, restore_image, kclean, fluxtractor, hci, make_ista, HessPSF, Gauss, Mask,
+            nnls]
 
 
 @pytest.mark.parametrize("fn", _entry_points(), ids=lambda f: f.__qualname__)
