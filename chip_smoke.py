@@ -112,7 +112,7 @@ exits non-zero:
                model's MFS peak on a source), ``kclean --niter 1 --minor
                hogbom`` on another copy, ``fluxtractor`` on the Clark tree
                with ``--cg-maxit`` sized from one timed ``hessian_vis`` so the
-               step takes about a minute (the mop finite; B1/B2 in its
+               step takes about 20 s (the mop finite; B1/B2 in its
                residual), ``deconv --preset ista --niter 1`` on a third copy
                (B1/B2, the rms falling), then ``hci --nx 1024 --freq-chunks 4``
                on a 64-scan store of single integrations of the same array and
@@ -141,6 +141,27 @@ exits non-zero:
                the host syncs per iteration under
                ``set_sync_debug_mode("warn")``, ``memory_line()`` and the
                PSF Hessian's flops by ``cost_analysis``.
+ 13. parallel — ``parallel/`` on the one card, each part's ranks started
+               as child processes (``torch.multiprocessing.spawn``; a rank
+               that fails or outlives its timeout fails the smoke): (a) one
+               rank on NCCL, ``sara --niter 1 --pd-maxit 100 --use-mesh`` on
+               a copy of the pipeline's imaged tree against the same run
+               without ``--use-mesh`` (the same CG and PD counts, models
+               within 1e-6); (b) two ranks sharing the card over gloo
+               (passed explicitly): which collectives gloo takes on CUDA
+               tensors, ``imager`` on a 2-rank row mesh over the pipeline's
+               store (DIRTY, PSF and WSUM within 1e-5 of the one-process
+               tree; B1/B2 within 2e-6 of f64 plain at each rank's band-0
+               image and PSF shard plans), then ``sara --niter 1 --pd-maxit
+               100 --use-mesh`` on a 2-band mesh on a copy of (a)'s tree
+               (both ranks the same rms and model checksum, the model within
+               1e-4 of (a)'s; launches and
+               the collectives' count and bytes per CG and PD iteration and
+               per cycle); (c) two gloo ranks, one band, nx 4096: the
+               row-sharded PSF Hessian on an 8192^2 grid against the
+               unsharded one on rank 0 (1e-5), ms an apply each, 20 PCG
+               iterations. Two ranks share one card: the times are the
+               collectives' cost, not scaling.
 Then the kernel summary line (every kernel with its launches on its main
 path, error, ms, plain ms and bound at the shape those launches take; B1/B2
 also at band 0's plan and at the widefield multiband launch and band plan,
@@ -148,7 +169,9 @@ with the widefield phase's launches, at the pipeline's launch shapes under
 ``*_pipeline_*`` keys, at the commands' under ``*_commands_*`` keys and at
 the S = 24 plan under ``*_s24_plan``; every kernel's ``launches_pipeline``
 and ``launches_commands``, which must be positive for B1/B2, as must their
-``launches_operators``), the ``nvidia-smi`` line and, last,
+``launches_operators`` and ``launches_parallel`` by part and rank, with
+B1/B2 at rank 0's shard plans under ``*_parallel_*`` keys), the
+``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
 """
@@ -1604,7 +1627,7 @@ def cli_step(name: str, fn, dev, steps: dict, phase: str = "pipeline"):
 
 def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 500, nchan: int = 16,
                    nband: int = 4, niter: int = 2, seed: int = 44, nsrc: int = 24, ncheck: int = 4096,
-                   keep_imaged: Path | None = None):
+                   keep_imaged: Path | None = None, keep_store: Path | None = None):
     """A user's whole run through the port's own front end at 2048^2: the
     simulator (the JAX simulator's 64-antenna array, 500 integrations in one
     partition of 1,008,000 rows, 16 channels over 856-1712 MHz, 24 seeded
@@ -1628,7 +1651,9 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
     of these steps: band 0's image and PSF plans at both cells (degrid's
     bin 0 has band 0's image plan; the record says whether they agree) and
     each sara's multiband launch. With ``keep_imaged``, the tree as the
-    imager wrote it is copied there before ``sara`` runs on it. Returns
+    imager wrote it is copied there before ``sara`` runs on it; with
+    ``keep_store``, the store ``init`` wrote (with degrid's MODEL_DATA) is
+    moved there at the end. Returns
     (launches summed over the steps, {where: kernel record}, the steps'
     records, the sky: {"pix": [(p, q, flux)], "sources": the simulator's
     source tuples, "cell_rad"})."""
@@ -1817,6 +1842,9 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
     emit({"phase": "pipeline", "stage": "summary", "seconds": sum(st["seconds"] for st in steps.values()),
           "launches": total, "max_memory_allocated": max(st["max_memory_allocated"] for st in steps.values())})
     torch.cuda.empty_cache()
+    if keep_store is not None:
+        shutil.rmtree(keep_store, ignore_errors=True)
+        shutil.move(xds, keep_store)
     shutil.rmtree(workdir)
     return total, kern, steps, dict(pix=pix, sources=sources, cell_rad=cell)
 
@@ -1867,7 +1895,7 @@ def band_plan_kernels(dt_path: str, f64_groups: int = 65536) -> dict:
 
 def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, nchan: int = 16,
                    hci_ntime: int = 64, hci_nx: int = 1024, hci_chunks: int = 4, step_nx: int = 256,
-                   flux_seconds: float = 60.0, seed: int = 44):
+                   flux_seconds: float = 20.0, seed: int = 44):
     """The commands the JAX CLI has beyond the pipeline, through ``cli.main``
     on the card at the pipeline's width (2048^2, 4 bands, its array and sky,
     epsilon 1e-7), each step with the counts zeroed right before it, its
@@ -2343,6 +2371,377 @@ def phase_operators(dev, imaged: Path, sky: dict, eta: float = 1e-2, cg_tol: flo
     return launches, krec, rec
 
 
+# ── parallel: ranks as child processes ──────────────────────────────
+
+# the primal-dual budget of every sara run of the parallel phase (keeps its
+# five runs, two of them gathering the dual's bands through gloo, ~0.18 s a
+# PD iteration on the one card, inside the phase's 150 s)
+PAR_PD_MAXIT = 20
+# the parts each child process runs, in order (the gloo ranks of b run c)
+PAR_PARTS = {"a": ("a",), "bc": ("b", "c")}
+# per child run: seconds before the parent kills its ranks and fails
+PAR_TIMEOUT_S = {"a": 300.0, "bc": 600.0}
+
+
+def _par_child(rank: int, run: str, world: int, workdir: str, kw: dict) -> None:
+    """One rank of the parallel phase: joins a world of ``world`` ranks on
+    the one card ``kw["dev_s"]`` (NCCL for part a, gloo passed explicitly
+    for b and c), runs the parts ``PAR_PARTS[run]`` with their arguments
+    ``kw[part]``, prints each part's JSON line and saves it for the
+    parent."""
+    import os
+
+    import torch
+
+    os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    os.environ["LOCAL_RANK"] = str(rank)
+    from pfb_imaging_tpu_torch.kernels import build
+    from pfb_imaging_tpu_torch.parallel.multihost import init_distributed
+
+    dev_s = kw["dev_s"]
+    if dev_s.startswith("cuda"):
+        build.load()
+    backend = "nccl" if run == "a" and dev_s.startswith("cuda") else "gloo"
+    init_distributed(f"file://{workdir}/rendezvous_{run}", world, rank, backend=backend, device=dev_s,
+                     timeout=PAR_TIMEOUT_S[run])
+    for part in PAR_PARTS[run]:
+        fn = {"a": _par_world1_nccl, "b": _par_two_ranks, "c": _par_row_hessian}[part]
+        rec = fn(rank, world, Path(workdir), dev_s=dev_s, **kw[part])
+        rec = {"phase": "parallel", "part": part, "rank": rank, "world": world,
+               "backend": torch.distributed.get_backend(), **rec}
+        emit(rec)
+        (Path(workdir) / f"{part}_{rank}.json").write_text(json.dumps(rec))
+    torch.distributed.destroy_process_group()
+
+
+def _par_run(run: str, world: int, workdir: Path, dev_s: str, **kw) -> dict:
+    """Start ``world`` ranks of ``run`` as child processes and wait for
+    them: a rank that fails fails the smoke, and ranks still running after
+    ``PAR_TIMEOUT_S[run]`` are killed and fail it. Returns each part's
+    records, by part."""
+    import torch.multiprocessing as tmp
+
+    kw["dev_s"] = dev_s
+    ctx = tmp.spawn(_par_child, args=(run, world, str(workdir), kw), nprocs=world, join=False)
+    deadline = time.monotonic() + PAR_TIMEOUT_S[run]
+    while not ctx.join(timeout=5.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+            raise RuntimeError(f"parallel run {run}: ranks still running after {PAR_TIMEOUT_S[run]} s")
+    codes = [proc.exitcode for proc in ctx.processes]
+    require(all(c == 0 for c in codes), f"parallel run {run}: every rank exits 0 ({codes})")
+    return {part: [json.loads((workdir / f"{part}_{r}.json").read_text()) for r in range(world)]
+            for part in PAR_PARTS[run]}
+
+
+def _tree_cube(dt, name: str = "MODEL") -> np.ndarray:
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    tree = TreeStore(str(dt))
+    return np.stack([np.asarray(tree.group(k).read(name)) for k in sorted(tree.groups()) if k.startswith("band")])
+
+
+def _sara(dt, dev_s: str, flags: list) -> dict:
+    """``pfb-torch sara --niter 1`` on ``dt`` with launch counts zeroed right
+    before it: seconds, launches, and its cycle's record."""
+    import torch
+
+    from pfb_imaging_tpu_torch.cli import main as cli_main
+    from pfb_imaging_tpu_torch.core import deconv as D
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    cli_main(["sara", str(dt), "--niter", "1", "--pd-maxit", str(PAR_PD_MAXIT), *flags, "--device", dev_s])
+    torch.cuda.synchronize()
+    cyc = D.CYCLE_STATS[-1]
+    return dict(seconds=time.perf_counter() - t0, launches=read_counts(), rms=cyc["rms"], rmax=cyc["rmax"],
+                model_abs_sum=cyc["model_abs_sum"], cg_iters=cyc["cg_iters"], pd_iters=cyc["pd_iters"],
+                minor_seconds=cyc["minor_seconds"],
+                residual_seconds=cyc["residual_seconds"], mesh=cyc["mesh"], collectives=cyc["collectives"],
+                collectives_cg=cyc["collectives_cg"], collectives_pd=cyc["collectives_pd"])
+
+
+def _par_world1_nccl(rank: int, world: int, workdir: Path, dev_s: str, imaged: str) -> dict:
+    """(a) One rank on NCCL: ``sara --niter 1 --use-mesh`` on a copy of the
+    pipeline's imaged tree and the same run without ``--use-mesh`` on the
+    tree itself (nothing reads it after this phase); the same CG and PD
+    iteration counts and models within 1e-6. Then the witness of (b)'s
+    chained run: ``sara --niter 1 --use-mesh`` on one rank over the tree
+    (b)'s 2-rank imager made (which (b) copied before its own run)."""
+    shutil.copytree(imaged, workdir / "a_mesh.dt")
+    runs = {}
+    for tag, dt, flags in (("mesh", workdir / "a_mesh.dt", ["--use-mesh"]), ("plain", Path(imaged), []),
+                           ("witness", workdir / "b.dt", ["--use-mesh"])):
+        runs[tag] = _sara(dt, dev_s, flags)
+        for name in ("MODEL", "UPDATE"):
+            np.save(workdir / f"a_{tag}_{name.lower()}.npy", _tree_cube(dt, name))
+    mesh_model = np.load(workdir / "a_mesh_model.npy")
+    rel = rel_linf_np(mesh_model, np.load(workdir / "a_plain_model.npy"))
+    require(runs["mesh"]["mesh"] == {"band": 1, "row": 1, "in_mesh": True}, "(a): a one-rank mesh")
+    require((runs["mesh"]["cg_iters"], runs["mesh"]["pd_iters"]) == (runs["plain"]["cg_iters"],
+                                                                     runs["plain"]["pd_iters"]),
+            "(a): --use-mesh stops CG and PD where the run without it does")
+    require(rel <= 1e-6, "(a): --use-mesh model within 1e-6 of the run without it")
+    return dict(model_rel_mesh_vs_plain=rel, runs=runs)
+
+
+def _par_two_ranks(rank: int, world: int, workdir: Path, dev_s: str, store: str, imaged: str, cell_arcsec: float,
+                   nx: int, nband: int) -> dict:
+    """(b) Two ranks on the one card over gloo: which collectives gloo runs
+    on CUDA tensors; ``imager`` on a 2-rank row mesh (its products against
+    the single-process imager's, B1/B2 against f64 plain at each rank's
+    band-0 shard plans, one rank at a time); ``sara --niter 1 --use-mesh``
+    on a 2-band mesh twice: on a copy of the tree (a) runs on (the models
+    then differ by the mesh alone) and, chained, on a copy of the 2-rank
+    imager's own tree (held by the parent to (a)'s one-rank witness on that
+    tree). Each rank saves its models for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from pfb_imaging_tpu_torch import real_dtype, to_device
+    from pfb_imaging_tpu_torch.cli import main as cli_main
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.core.imager import _psf_vis
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_prepare
+    from pfb_imaging_tpu_torch.parallel.sharded import plan_idg_sharded
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    dev = torch.device(dev_s)
+    probe = {}
+    for name, op in (("all_reduce", lambda t: dist.all_reduce(t)),
+                     ("all_gather", lambda t: dist.all_gather([torch.empty_like(t) for _ in range(world)], t)),
+                     ("all_to_all", lambda t: dist.all_to_all_single(torch.empty_like(t), t))):
+        try:
+            op(torch.ones(4 * world, device=dev))
+            torch.cuda.synchronize()
+            probe[name] = "accepted"
+        except Exception as e:  # the record is the finding: which collectives gloo refuses on CUDA tensors
+            probe[name] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+    dist.barrier()
+
+    dt = workdir / "b.dt"
+    TI._PLAN_CACHE.clear()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    cli_main(["imager", store, str(dt), "--nband", str(nband), "--nx", str(nx), "--psf-oversize", "2",
+              "--cell-size", repr(float(cell_arcsec)), "--device", dev_s])
+    torch.cuda.synchronize()
+    st = dict(TI.IMAGER_STATS)
+    img = dict(seconds=time.perf_counter() - t0, launches=read_counts(), route=st["route"],
+               mesh_row_size=st["mesh_row_size"], bands=st["bands"], plan_seconds=st["plan_seconds"],
+               grid_seconds=st["grid_seconds"], wait_seconds=st["wait_seconds"])
+    require(img["route"] == "idg" and img["mesh_row_size"] == 2 and img["launches"]["patches_from_vals"] > 0,
+            "(b): the imager on a 2-rank row mesh, B1 launched")
+    ref, got = TreeStore(imaged), TreeStore(str(dt))
+    img["products_rel_vs_one_process"] = {
+        prod: max(rel_linf_np(np.asarray(got.group(g).read(prod)), np.asarray(ref.group(g).read(prod)))
+                  for g in ref.groups() if g.startswith("band"))
+        for prod in ("DIRTY", "PSF", "WSUM")}
+    require(max(img["products_rel_vs_one_process"].values()) <= 1e-5,
+            "(b): DIRTY, PSF and WSUM within 1e-5 of the single-process imager")
+
+    # B1/B2 at each rank's shard plans of band 0 (image and PSF), the launch
+    # shapes its imager ran, against their f64 plain versions: both ranks
+    # plan at once, then take turns, so each has the card to itself while
+    # its kernels are timed
+    a = got.attrs
+    pg = got.group("band0000_time0000").group("part0000")
+    uvw, f = np.asarray(pg.read("UVW")), np.asarray(pg.read("FREQ"))
+    l0, m0 = pg.attrs.get("l0", 0.0), pg.attrs.get("m0", 0.0)
+    pad = (-uvw.shape[0]) % world
+    uvw_p = np.concatenate([uvw, np.zeros((pad, 3))])
+    rdt = real_dtype(dev)
+    kw = dict(cellx=a["cell_rad"], celly=a["cell_rad"], l0=l0, m0=m0, epsilon=1e-7, do_wgridding=True,
+              divide_by_n=False, dtype=rdt, device=dev)
+    wm = np.asarray(pg.read("WEIGHT")) * np.asarray(pg.read("MASK"))
+    preps = {}
+    for kind, n, vis in (("image", a["nx"], np.asarray(pg.read("VIS"))), ("psf", a["nx_psf"], _psf_vis(uvw, f, l0, m0))):
+        plan, rows = plan_idg_sharded(uvw_p, f, world, rank, nx=n, ny=n, **kw)
+
+        def share(arr):
+            arr = np.concatenate([arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
+            return to_device(arr[rank * rows:(rank + 1) * rows], dev, rdt)
+
+        preps[kind] = (n, rows, plan, _idg_prepare(plan, share(vis.real), share(vis.imag), share(wm)))
+    torch.cuda.synchronize()
+    kern = {}
+    for turn in range(world):
+        if turn == rank:
+            for kind, (n, rows, plan, vals) in preps.items():
+                rec, _ = idg_kernels_at_plan(plan, vals, f64_groups=65536)
+                rec.update(nx=n, rows=rows, nbins=plan.nbins, w_support=plan.w_support, card_alone=True)
+                require(rec["b1_rel_vs_f64"] <= 2e-6 and rec["b2_rel_vs_f64"] <= 2e-6,
+                        f"(b): B1/B2 vs f64 plain at rank {rank}'s band-0 {kind} shard plan")
+                kern[kind] = rec
+        dist.barrier()
+    del preps
+    torch.cuda.empty_cache()
+    TI._PLAN_CACHE.clear()
+
+    # sara on a 2-band mesh: on (a)'s input, then chained on the 2-rank
+    # imager's tree; copies first, since each run writes its tree
+    trees = {"on_a_input": (imaged, workdir / "b_sara.dt"), "chained": (dt, workdir / "b_chain.dt")}
+    for i, (src, dst) in enumerate(trees.values()):
+        if i % world == rank:  # one copy a rank, at once
+            shutil.copytree(src, dst)
+    dist.barrier()
+    saras = {}
+    for tag, (_, dst) in trees.items():
+        sara = _sara(dst, dev_s, ["--use-mesh"])
+        model = _tree_cube(dst)
+        np.save(workdir / f"b_{tag}_model_{rank}.npy", model)
+        np.save(workdir / f"b_{tag}_update_{rank}.npy", _tree_cube(dst, "UPDATE"))
+        sara.update(tree_model_abs_sum=float(np.abs(model).sum()),
+                    collectives_per_pd_iter={k: {f: v[f] / max(1, sara["pd_iters"]) for f in v}
+                                             for k, v in sara["collectives_pd"].items()},
+                    collectives_per_cg_iter={k: {f: v[f] / max(1, sara["cg_iters"]) for f in v}
+                                             for k, v in sara["collectives_cg"].items()})
+        require(sara["mesh"] == {"band": 2, "row": 1, "in_mesh": True}, f"(b): sara {tag} on a 2-band mesh")
+        require(sara["launches"]["patches_from_vals"] > 0 and sara["launches"]["vals_from_patches"] > 0,
+                f"(b): B1/B2 launched in sara {tag}'s residual")
+        saras[tag] = sara
+    TI._PLAN_CACHE.clear()  # the residuals' plans, before part (c) runs on these ranks
+    torch.cuda.empty_cache()
+    return dict(gloo_takes_cuda=probe, imager=img, kernels=kern, sara=saras)
+
+
+def _par_row_hessian(rank: int, world: int, workdir: Path, dev_s: str, nx: int, nx_psf: int, cg_iters: int) -> dict:
+    """(c) The row-sharded PSF Hessian at the 8k axis: one band, nx
+    ``nx``, a ``nx_psf`` PSF grid split over the ranks' row group, against
+    the unsharded HessianCube on rank 0 (within 1e-5), ms per apply, and
+    ``cg_iters`` PCG iterations on it."""
+    import torch
+    import torch.distributed as dist
+
+    from pfb_imaging_tpu_torch.ops.hessian import HessianCube
+    from pfb_imaging_tpu_torch.opt.pcg import pcg
+    from pfb_imaging_tpu_torch.parallel.mesh import COLLECTIVE_STATS, make_mesh
+
+    t_start = time.perf_counter()
+    dev = torch.device(dev_s)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ax = torch.arange(nx_psf, device=dev, dtype=torch.float32) - nx_psf // 2
+    psf = torch.exp(-(ax[:, None] ** 2 + ax[None, :] ** 2) / 18.0)
+    psf += 1e-3 * torch.randn((nx_psf, nx_psf), generator=gen, device=dev)
+    ph = torch.fft.rfft2(torch.fft.ifftshift(psf)).abs()
+    ph = (ph / ph.max())[None, None].cpu().numpy()
+    del psf
+    x = torch.randn((1, nx, nx), generator=gen, device=dev)
+    mesh = make_mesh(band=1, row=world)
+    hess = HessianCube.build(ph, np.ones(1), 1e-3, nx_psf, nx_psf, mesh=mesh, device=dev)
+    require(hess.mesh is mesh and mesh.row_size == world, "(c): the row-sharded HessianCube")
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    y = hess.dot(x)
+    c0 = {k: dict(v) for k, v in COLLECTIVE_STATS.items()}
+    rec = dict(nx=nx, nx_psf=nx_psf, row_size=mesh.row_size, ms_per_apply=wall_ms(lambda: hess.dot(x), 5))
+    rec["collectives_per_apply"] = {k: {f: (v[f] - c0.get(k, {}).get(f, 0)) / 6 for f in ("count", "bytes")}
+                                    for k, v in COLLECTIVE_STATS.items()}
+    dist.barrier()
+    if rank == 0:  # the unsharded operator, alone on the card
+        h0 = HessianCube.build(ph, np.ones(1), 1e-3, nx_psf, nx_psf, device=dev)
+        rec.update(rel_vs_unsharded=rel_linf(y, h0.dot(x)), ms_per_apply_unsharded=cuda_ms(lambda: h0.dot(x), 5))
+        require(rec["rel_vs_unsharded"] <= 1e-5, "(c): the row-sharded Hessian within 1e-5 of the unsharded one")
+        del h0
+        torch.cuda.empty_cache()
+    dist.barrier()
+    info = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pcg(hess.dot, y, tol=0.0, maxit=cg_iters, minit=cg_iters, info=info, mesh=mesh)
+    torch.cuda.synchronize()
+    rec.update(pcg_iters=info["niter"], pcg_seconds=time.perf_counter() - t0,
+               pcg_solution_rel=rel_linf(out, x), pcg_finite=bool(torch.isfinite(out).all()))
+    require(rec["pcg_iters"] == cg_iters and rec["pcg_finite"], f"(c): {cg_iters} PCG iterations, finite")
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec
+
+
+def phase_parallel(dev, workdir: Path, imaged: Path, store: Path, cell_arcsec: float, nx: int = 2048,
+                   nband: int = 4, nx_c: int = 4096, nx_psf_c: int = 8192, cg_iters_c: int = 20):
+    """``parallel/`` on the one card, the ranks started as child processes:
+    two ranks sharing the card over gloo run (b), ``imager`` on a 2-rank
+    row mesh over the pipeline's store, then ``sara --niter 1 --use-mesh``
+    on a 2-band mesh over a copy of the pipeline's imaged tree and over a
+    copy of the 2-rank imager's tree, and then (c), the row-sharded PSF
+    Hessian at nx 4096, nx_psf 8192; one rank on NCCL runs (a), ``sara
+    --niter 1 --use-mesh`` against the run without it on the imaged tree,
+    and the one-rank witness on the 2-rank imager's tree (so after (b)).
+    Held here: both ranks of each (b) run the same rms, model checksum and
+    model; (b)'s model on the imaged tree within 1e-4 of (a)'s, and the
+    chained model within 1e-4 of the witness (each pair on one input, so
+    they differ by the mesh alone; the ordered band reductions make them
+    the same bits).
+    Two ranks share one card here: the times show the collectives' cost,
+    not scaling. Returns (B1/B2 launches by part and rank, the kernel
+    records at rank 0's shard plans, the parts' records)."""
+    import torch
+
+    if workdir.exists():
+        shutil.rmtree(workdir)
+    workdir.mkdir(parents=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dev_s = f"{dev.type}:{dev.index}" if dev.index is not None else dev.type
+    bc = _par_run("bc", 2, workdir, dev_s, b=dict(store=str(store), imaged=str(imaged), cell_arcsec=cell_arcsec,
+                                                  nx=nx, nband=nband),
+                  c=dict(nx=nx_c, nx_psf=nx_psf_c, cg_iters=cg_iters_c))
+    b, c = bc["b"], bc["c"]
+    t_bc = time.perf_counter()
+    for tag in ("on_a_input", "chained"):
+        require(b[0]["sara"][tag]["rms"] == b[1]["sara"][tag]["rms"] and
+                b[0]["sara"][tag]["model_abs_sum"] == b[1]["sara"][tag]["model_abs_sum"] and
+                np.array_equal(np.load(workdir / f"b_{tag}_model_0.npy"), np.load(workdir / f"b_{tag}_model_1.npy")),
+                f"(b): both ranks report the same rms, model checksum and model ({tag})")
+    a = _par_run("a", 1, workdir, dev_s, a=dict(imaged=str(imaged)))["a"]
+    t_a = time.perf_counter()
+
+    def cube(tag, name):
+        return np.load(workdir / f"{tag}_{name}{'_0' if tag.startswith('b_') else ''}.npy")
+
+    # model and update (the PCG solution the PD solve starts from) of each
+    # pair: the first two on one input each (the mesh alone differs); the
+    # last two across the inputs (the 2-rank imager's f32 sums against one
+    # process's), on one rank and on two
+    pairs = dict(b_on_a_input_vs_a=("b_on_a_input", "a_mesh"), b_chained_vs_witness=("b_chained", "a_witness"),
+                 witness_vs_a=("a_witness", "a_mesh"), b_chained_vs_a=("b_chained", "a_mesh"))
+    rel = {k: rel_linf_np(cube(x, "model"), cube(y, "model")) for k, (x, y) in pairs.items()}
+    rel.update({f"update_{k}": rel_linf_np(cube(x, "update"), cube(y, "update")) for k, (x, y) in pairs.items()})
+    rel.update({f"same_bits_{k}": bool(np.array_equal(cube(x, "model"), cube(y, "model")))
+                for k, (x, y) in pairs.items() if k in ("b_on_a_input_vs_a", "b_chained_vs_witness")})
+    emit({"phase": "parallel", "stage": "models", **rel,
+          "cg_pd_iters": {"a_mesh": [a[0]["runs"]["mesh"]["cg_iters"], a[0]["runs"]["mesh"]["pd_iters"]],
+                          "a_witness": [a[0]["runs"]["witness"]["cg_iters"], a[0]["runs"]["witness"]["pd_iters"]],
+                          **{f"b_{tag}": [b[0]["sara"][tag]["cg_iters"], b[0]["sara"][tag]["pd_iters"]]
+                             for tag in b[0]["sara"]}}})
+    require(rel["b_on_a_input_vs_a"] <= 1e-4, "(b): the model on (a)'s input within 1e-4 of part (a)'s")
+    require(rel["b_chained_vs_witness"] <= 1e-4,
+            "(b): the chained model within 1e-4 of the one-rank witness on the 2-rank imager's tree")
+    launches = {"a_mesh": a[0]["runs"]["mesh"]["launches"],
+                **{f"b_rank{r['rank']}": {k: r["imager"]["launches"][k] + sum(s["launches"][k]
+                                                                              for s in r["sara"].values())
+                                          for k in r["imager"]["launches"]} for r in b}}
+    summary = dict(seconds=t_a - t0, seconds_bc=t_bc - t0, seconds_a=t_a - t_bc,
+                   seconds_c=max(r["seconds"] for r in c),
+                   launches=launches, gloo_takes_cuda=b[0]["gloo_takes_cuda"], models=rel)
+    emit({"phase": "parallel", "stage": "summary", **summary})
+    shutil.rmtree(workdir)
+    return launches, b[0]["kernels"], dict(a=a, b=b, c=c, summary=summary)
+
+
 def zero_counts() -> None:
     """Every kernel's launch count to 0."""
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
@@ -2498,10 +2897,15 @@ def main(argv=None) -> int:
     phase_widefield_accuracy(dev)
     wide, wide_band, wf_launches, wf_dg_launches, _ = phase_widefield(dev, ROOT / "build" / "chip_smoke_widefield")
     imaged = ROOT / "build" / "chip_smoke_commands_imaged.dt"
-    pipe_launches, pipe_kern, _, sky = phase_pipeline(dev, ROOT / "build" / "chip_smoke_pipeline", keep_imaged=imaged)
+    store = ROOT / "build" / "chip_smoke_parallel_store.xds"
+    pipe_launches, pipe_kern, _, sky = phase_pipeline(dev, ROOT / "build" / "chip_smoke_pipeline", keep_imaged=imaged,
+                                                      keep_store=store)
     cmd_launches, cmd_kern, _ = phase_commands(dev, ROOT / "build" / "chip_smoke_commands", imaged, sky)
     op_launches, op_kern, _ = phase_operators(dev, imaged, sky)
+    par_launches, par_kern, _ = phase_parallel(dev, ROOT / "build" / "chip_smoke_parallel", imaged, store,
+                                               sky["cell_rad"] * 180.0 / np.pi * 3600.0)
     shutil.rmtree(imaged)
+    shutil.rmtree(store)
 
     kernels = []
     for name, tag in (("patches_from_vals", "b1"), ("vals_from_patches", "b2")):
@@ -2529,6 +2933,16 @@ def main(argv=None) -> int:
                                 f"rel_vs_f64_pipeline_{where}": r[f"{tag}_rel_vs_f64"],
                                 f"ng_pipeline_{where}": r["ng"], f"S_pipeline_{where}": r["S"]})
         bound_s24, bound_s24_by, _ = idg_bound(op_kern["ng"], op_kern["S"])
+        at_parallel = {}
+        for where, r in par_kern.items():
+            b_ms, b_by, _ = idg_bound(r["ng"], r["S"])
+            at_parallel.update({f"ms_parallel_rank0_{where}_shard_plan": r[f"{tag}_ms"],
+                                f"plain_ms_parallel_rank0_{where}_shard_plan": r[f"{tag}_plain_ms"],
+                                f"bound_ms_parallel_rank0_{where}_shard_plan": b_ms,
+                                f"bound_by_parallel_rank0_{where}_shard_plan": b_by,
+                                f"rel_vs_f64_parallel_rank0_{where}_shard_plan": r[f"{tag}_rel_vs_f64"],
+                                f"ng_parallel_rank0_{where}_shard_plan": r["ng"],
+                                f"S_parallel_rank0_{where}_shard_plan": r["S"]})
         kernels.append(dict(
             name=name, route="cuda", source="pfb_imaging_tpu_torch/csrc/idg_fused.cu", replaces=REPLACES[name],
             launches=launches[name], max_abs_err=main_mb[f"{tag}_max_abs_err"], ms=ms,
@@ -2551,6 +2965,7 @@ def main(argv=None) -> int:
             **at_commands, launches_operators=op_launches[name], ms_s24_plan=op_kern[f"{tag}_ms"],
             plain_ms_s24_plan=op_kern[f"{tag}_plain_ms"], bound_ms_s24_plan=bound_s24, bound_by_s24_plan=bound_s24_by,
             rel_vs_f64_s24_plan=op_kern[f"{tag}_rel_vs_f64"], ng_s24_plan=op_kern["ng"], S_s24_plan=op_kern["S"],
+            launches_parallel={k: v[name] for k, v in par_launches.items()}, **at_parallel,
             **({"ms_compare_tree_tree_compare": timing["compare"][f"{tag}_ms_compare_tree_tree_compare"]}
                if "compare" in timing else {}),
         ))
@@ -2560,6 +2975,7 @@ def main(argv=None) -> int:
         max_abs_err=b3["psf"]["max_abs_err"], ms=b3["psf"]["ms"], plain_ms=b3["psf"]["plain_ms"],
         bound_ms=b3["psf"]["bound_ms"], bound_by=b3["psf"]["bound_by"], library_ms=None,
         launches_pipeline=pipe_launches["scatter_grid_wstack"], launches_commands=cmd_launches["scatter_grid_wstack"],
+        launches_parallel={k: v["scatter_grid_wstack"] for k, v in par_launches.items()},
         ms_image_plan=b3["image"]["ms"], plain_ms_image_plan=b3["image"]["plain_ms"],
         bound_ms_image_plan=b3["image"]["bound_ms"], ms_dense_psf_plan=b3["dense_psf"]["ms"],
         ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in scat},
@@ -2571,6 +2987,7 @@ def main(argv=None) -> int:
         max_abs_err=b4["max_abs_err"], ms=b4["ms"], plain_ms=b4["plain_ms"], bound_ms=b4["bound_ms"],
         bound_by=b4["bound_by"], library_ms=None, launches_pipeline=pipe_launches["gather_grid_wstack"],
         launches_commands=cmd_launches["gather_grid_wstack"],
+        launches_parallel={k: v["gather_grid_wstack"] for k, v in par_launches.items()},
         ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in gath},
         plain_ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["plain_ms"] for r in gath},
     ))
@@ -2578,6 +2995,7 @@ def main(argv=None) -> int:
         require(k["launches_pipeline"] > 0, f"{k['name']} launched on the pipeline")
         require(k["launches_commands"] > 0, f"{k['name']} launched by the commands")
         require(k["launches_operators"] > 0, f"{k['name']} launched at the S = 24 plan")
+        require(all(n > 0 for n in k["launches_parallel"].values()), f"{k['name']} launched by every rank of (a), (b)")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

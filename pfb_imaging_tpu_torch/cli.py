@@ -12,8 +12,15 @@ only when asked for.
 The imager's ``double_precision`` is False under ``--single-precision`` and
 otherwise None, the device's working type (f64 on the CPU, f32 on the card,
 whose IDG kernels are f32-only); ``kclean`` and ``fluxtractor`` likewise
-run in the device's type. ``--use-mesh``, which the port lacks, parses and
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+run in the device's type. ``deconv``/``sara --use-mesh`` shard the solver
+over the band mesh (``parallel/``).
+
+Started by torchrun (``WORLD_SIZE`` above 1, or the ``PFB_*`` variables of
+``parallel.multihost.init_distributed``), a command first joins the world,
+on NCCL for the card and gloo for the CPU:
+
+    torchrun --standalone --nproc-per-node 2 -m pfb_imaging_tpu_torch.cli sara out.dt --use-mesh --device cpu
+
 Science modules are imported when a command runs, so ``--help`` needs none.
 """
 
@@ -23,8 +30,20 @@ import argparse
 import sys
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue A: {item})")
+def _join_world(device) -> None:
+    """Join the process group a launcher describes (torchrun's WORLD_SIZE or
+    PFB_NUM_PROCESSES above 1) unless the caller has already."""
+    import os
+
+    n = os.environ.get("PFB_NUM_PROCESSES") or os.environ.get("WORLD_SIZE")
+    if not n or int(n) < 2:
+        return
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        from .parallel.multihost import init_distributed
+
+        init_distributed(device=device)
 
 
 def _add_common(p):
@@ -175,6 +194,7 @@ def main(argv=None):
     log_options_dict(log, vars(args))
 
     cmd, dev = args.command, args.device
+    _join_world(dev)
     if cmd == "simulate":
         from .core.simulate import simulate_vis_store
 
@@ -196,14 +216,12 @@ def main(argv=None):
                double_precision=False if args.single_precision else None, gridder=args.gridder, device=dev)
     elif cmd in ("deconv", "sara"):
         preset = getattr(args, "preset", "sara")
-        if args.use_mesh:
-            _not_ported("deconv --use-mesh", "parallel/")
         from .core.deconv import deconv
 
         deconv(args.dt, preset=preset, niter=args.niter, rmsfactor=args.rmsfactor, init_factor=args.init_factor,
                gamma=args.gamma, eta=args.eta, bases=args.bases, nlevels=args.nlevels, positivity=args.positivity,
                cg_maxit=args.cg_maxit, pd_maxit=args.pd_maxit, l1_reweight_from=args.l1_reweight_from,
-               epsilon=args.epsilon, do_wgridding=not args.no_wgridding, device=dev)
+               epsilon=args.epsilon, do_wgridding=not args.no_wgridding, use_mesh=args.use_mesh, device=dev)
     elif cmd == "kclean":
         from .core.kclean import kclean
 

@@ -16,8 +16,18 @@ predicted (``dirty2vis_idg`` on the IDG route, the classic ``dirty2vis``
 otherwise, "pallas" included, as in the JAX package) and subtracted, and
 ``l2_reweight_dof`` then reweights the residual visibilities (Student-t).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the device mesh and multi-host runs.
+Several ranks (``parallel/``): the bands are owned round-robin by node (the
+JAX package's processes). With ``use_mesh`` (None: IDG and more than one
+rank on the node) the node's local ranks form a row mesh: each plans and
+grids only its own share of every partition's rows (zero rows pad them to a
+multiple of the row size) on the layout all shares have in common
+(``parallel.sharded.plan_idg_sharded``), the partial images are summed over
+the node's ranks, and the model transfer degrids each share and gathers the
+visibilities. Without the mesh a node's bands are split over its local
+ranks. One rank writes each band node (the first of its node under the
+mesh); after a barrier rank 0 assembles the MFS products (from the store
+when there are several nodes) and stamps the tree complete, and the other
+ranks wait for it at a second barrier.
 
 ``residual_from_parts`` computes DIRTY - sum_p R_p^H W_p R_p (B_p model) per
 band: the IDG round trip (chirp or wplanes) where the planner accepts the
@@ -45,6 +55,9 @@ from ..ops.gridder_idg import (IDG_MIN_EPS, dirty2vis_idg, hessian_vis_idg, idg_
                                to_group_layout, vis2dirty_idg)
 from ..ops.gridder_pallas import vis2dirty_scatter
 from ..ops.weighting import box_sum_counts, compute_counts, counts_to_weights, filter_extreme_counts, l2_reweight
+from ..parallel import multihost as mh
+from ..parallel.mesh import make_mesh
+from ..parallel.sharded import plan_idg_sharded, sharded_dirty2vis_idg, sharded_vis2dirty_idg
 from ..utils.fits import save_fits, set_wcs
 from ..utils.logging import get_logger
 from ..utils.modelspec import eval_coeffs_to_slice, load_mds
@@ -99,11 +112,6 @@ def _psfhat(psf: np.ndarray, dev) -> np.ndarray:
     return torch.fft.rfft2(torch.fft.ifftshift(t)).cpu().numpy()
 
 
-def _multihost() -> bool:
-    dist = torch.distributed
-    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
-
-
 def imager(
     xds_path,
     output_store,
@@ -139,10 +147,6 @@ def imager(
     CPU (the JAX default), f32 on the card, whose kernels are f32-only."""
     if gridder not in GRIDDERS:
         raise ValueError(f"gridder {gridder!r} not in {GRIDDERS}")
-    if use_mesh:
-        raise NotImplementedError("the device mesh is not ported yet (ROADMAP.md, queue A: parallel/)")
-    if _multihost():
-        raise NotImplementedError("multi-host imaging is not ported yet (ROADMAP.md, queue A: parallel/)")
     dev = resolve_device(device)
     if double_precision is None:
         rdt = real_dtype(dev)
@@ -219,6 +223,19 @@ def imager(
         raise ValueError("the IDG kernels on the card are f32-only; pass double_precision=False")
     IMAGER_STATS["route"] = route
 
+    # ── several ranks: bands by node, the node's ranks as a row mesh ──
+    distributed, me = mh.is_distributed(), mh.rank()
+    lws = mh.local_world_size()
+    if use_mesh is None:
+        use_mesh = use_idg and lws > 1
+    mesh = make_mesh(band=1, row=lws) if use_mesh and use_idg else None
+    my_bands = set(mh.owned_items(range(nband)) if mesh is not None else mh.rank_items(range(nband)))
+    writer = mesh is None or mesh.row_index == 0  # one writer a band node
+    IMAGER_STATS.update(mesh_row_size=1 if mesh is None else mesh.row_size, bands=sorted(my_bands))
+    if distributed:
+        log.info("rank %d (node %d of %d): bands %s, %s", me, mh.process_index(), mh.process_count(),
+                 sorted(my_bands), f"{mesh.row_size}-way row mesh" if mesh is not None else "no mesh")
+
     def _prepare_task(b, ip, key):
         """Read, weight and plan one (band, partition): host work plus the
         plans' transfer, run on the pool while the card grids."""
@@ -237,9 +254,18 @@ def imager(
                                                cell_rad, robustness))[0]
         kw = dict(cellx=cell_rad, celly=cell_rad, l0=l0, m0=m0, epsilon=epsilon, do_wgridding=do_wgridding,
                   divide_by_n=False, dtype=rdt, device=dev)
-        planner = plan_idg if use_idg else plan_wgridder
-        plan_im = planner(uvw, f, nx=nx_im, ny=ny_im, **kw)
-        plan_psf = planner(uvw, f, nx=nx_psf, ny=ny_psf, **kw)
+        if mesh is not None:
+            # this rank's share of the rows, zero rows padding them to a
+            # multiple of the row size, on the layout every share has
+            d = mesh.row_size
+            pad = (-uvw.shape[0]) % d
+            uvw_p = np.concatenate([uvw, np.zeros((pad, 3))]) if pad else uvw
+            plan_im = plan_idg_sharded(uvw_p, f, d, mesh.row_index, nx=nx_im, ny=ny_im, **kw) + (pad,)
+            plan_psf = plan_idg_sharded(uvw_p, f, d, mesh.row_index, nx=nx_psf, ny=ny_psf, **kw) + (pad,)
+        else:
+            planner = plan_idg if use_idg else plan_wgridder
+            plan_im = planner(uvw, f, nx=nx_im, ny=ny_im, **kw)
+            plan_psf = planner(uvw, f, nx=nx_psf, ny=ny_psf, **kw)
         wm = to_device(wgt * mask, dev, rdt)
         beam_p = None
         if g.has("BEAM_SMALL"):
@@ -254,10 +280,20 @@ def imager(
         seconds = time.perf_counter() - t0
         return b, ip, key, uvw, f, vis, wgt, mask, wm, l0, m0, plan_im, plan_psf, beam_p, seconds
 
+    def shard_rows(a, plan):
+        """This rank's share of the rows of (nrow, nchan) ``a``, zero-padded."""
+        _, rows, pad = plan
+        if pad:
+            a = torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+        return a[mesh.row_index * rows:(mesh.row_index + 1) * rows]
+
     def grid_image(plan, visc, wm):
         """One weighted image on the card, returned as f64 numpy."""
         vr, vi = to_device(visc.real, dev, rdt), to_device(visc.imag, dev, rdt)
-        if use_pallas:
+        if mesh is not None:
+            img = sharded_vis2dirty_idg(mesh, plan[0], shard_rows(vr, plan), shard_rows(vi, plan),
+                                        wgt=shard_rows(wm, plan), axes="row")
+        elif use_pallas:
             img = vis2dirty_scatter(plan, vr, wgt=wm, vis_im=vi)
         elif use_idg:
             img = vis2dirty_idg(plan, vr, wgt=wm, vis_im=vi)
@@ -266,6 +302,8 @@ def imager(
         return img.double().cpu().numpy()
 
     def plan_info(plan):
+        if mesh is not None:
+            plan = plan[0]
         if use_idg:
             return {"nbins": plan.nbins, "w_support": plan.w_support, "ngroups": plan.ngroups}
         return {"nw": plan.nw, "support": plan.support, "nbig": plan.nbig_x}
@@ -280,7 +318,7 @@ def imager(
         tbin_of = np.zeros(len(parts), np.int64)
     time_out = [float(part_times[tbin_of == tb].mean()) if np.any(tbin_of == tb) else 0.0 for tb in range(ntime)]
 
-    tasks = [(b, ip, key) for b in range(nband) if bands[b].size for ip, key in enumerate(parts)]
+    tasks = [(b, ip, key) for b in range(nband) if bands[b].size and b in my_bands for ip, key in enumerate(parts)]
     pool = ThreadPoolExecutor(max_workers=max(1, plan_threads))
     window = max(2, min(plan_threads, 4))  # plans hold device tensors; bound them
     pending = deque()
@@ -307,7 +345,14 @@ def imager(
             if model is not None:
                 # residual visibilities, then optional Student-t reweighting
                 img = to_device(eval_coeffs_to_slice(float(part_times[ip]), float(f.mean()), *model), dev, rdt)
-                vis = vis - (dirty2vis_idg if use_idg else dirty2vis)(plan_im, img).cpu().numpy()
+                if mesh is not None:
+                    # each rank degrids its rows; the shares are gathered
+                    _, rows, _ = plan_im
+                    mv = mesh.row_all_gather(sharded_dirty2vis_idg(mesh, plan_im[0], img, axes="row"))
+                    mv = mv.transpose(0, 1).reshape(2, mesh.row_size * rows, -1)[:, : uvw.shape[0]].cpu().numpy()
+                    vis = vis - (mv[0] + 1j * mv[1])
+                else:
+                    vis = vis - (dirty2vis_idg if use_idg else dirty2vis)(plan_im, img).cpu().numpy()
                 if l2_reweight_dof:
                     wgt = l2_reweight(vis, wgt, mask, l2_reweight_dof)
                     wm = to_device(wgt * mask, dev, rdt)
@@ -333,17 +378,19 @@ def imager(
 
             t0 = time.perf_counter()
             tb = int(tbin_of[ip])
-            pg = out.group(band_key(b, tb)).group(part_key(ip))
-            pg.set_attrs(l0=l0, m0=m0, wsum=wsum_p, key=key)
-            pg.write("VIS", vis)
-            pg.write("WEIGHT", wgt)
-            pg.write("MASK", mask)
-            pg.write("UVW", uvw)
-            pg.write("FREQ", f)
-            pg.write("PSF", psf_p)
-            pg.write("PSFHAT", _psfhat(psf_p, dev))
+            if writer:
+                pg = out.group(band_key(b, tb)).group(part_key(ip))
+                pg.set_attrs(l0=l0, m0=m0, wsum=wsum_p, key=key)
+                pg.write("VIS", vis)
+                pg.write("WEIGHT", wgt)
+                pg.write("MASK", mask)
+                pg.write("UVW", uvw)
+                pg.write("FREQ", f)
+                pg.write("PSF", psf_p)
+                pg.write("PSFHAT", _psfhat(psf_p, dev))
+                if beam_p is not None:
+                    pg.write("BEAM", beam_p)
             if beam_p is not None:
-                pg.write("BEAM", beam_p)
                 beam_acc[b, tb] += wsum_p * beam_p
                 any_beam = True
             dirty_acc[b, tb] += dirty_p
@@ -359,6 +406,8 @@ def imager(
     psf_mfs = np.zeros((nx_psf, ny_psf))
     wsum_tot = 0.0
     for b in range(nband):
+        if b not in my_bands or not writer:
+            continue  # another rank writes this band's nodes
         for tb in range(ntime):
             node = out.group(band_key(b, tb))
             dirty_b, psf_b, wsum_b = dirty_acc[b, tb], psf_acc[b, tb], wsum_acc[b, tb]
@@ -377,6 +426,22 @@ def imager(
             wsum_tot += wsum_b
             log.info("band %d time %d: wsum=%.3e, dirty peak=%.3e", b, tb, wsum_b, dirty_b.max() / max(wsum_b, 1e-300))
 
+    if distributed:
+        # every band node is on disk before rank 0 assembles the MFS products
+        mh.barrier("imager-band-writes")
+        if me != 0:
+            mh.barrier("imager-complete")
+            IMAGER_STATS["seconds"] = time.perf_counter() - t_start
+            return out
+        # the band nodes of every rank, in band order, whoever imaged them
+        dirty_mfs[:], psf_mfs[:], wsum_tot = 0.0, 0.0, 0.0
+        for b in range(nband):
+            for tb in range(ntime):
+                node = out.group(band_key(b, tb))
+                dirty_mfs += np.asarray(node.read("DIRTY"))
+                psf_mfs += np.asarray(node.read("PSF"))
+                wsum_tot += float(np.asarray(node.read("WSUM"))[0])
+
     psfpars = fitcleanbeam((psf_mfs / max(wsum_tot, 1e-300))[None])[0]
     out.set_attrs(nband=nband, ntime=ntime, nx=nx_im, ny=ny_im, nx_psf=nx_psf, ny_psf=ny_psf, cell_rad=cell_rad,
                   ra=attrs.get("ra", 0.0), dec=attrs.get("dec", 0.0), freq_out=freq_out, wsum=wsum_tot,
@@ -390,6 +455,8 @@ def imager(
         save_fits(dirty_mfs / max(wsum_tot, 1e-300), f"{base}_dirty_mfs.fits", hdr)
         hdr_psf = set_wcs(cell_deg, cell_deg, nx_psf, ny_psf, radec, np.asarray(freq_out))
         save_fits(psf_mfs / max(wsum_tot, 1e-300), f"{base}_psf_mfs.fits", hdr_psf)
+    if distributed:
+        mh.barrier("imager-complete")
     IMAGER_STATS["finish_seconds"] = time.perf_counter() - t0
     IMAGER_STATS["seconds"] = time.perf_counter() - t_start
     return out

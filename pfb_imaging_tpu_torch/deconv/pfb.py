@@ -51,14 +51,17 @@ def _pfb_grad(hess_dot, xtilde, gamma, x):
 class PFBSolver:
     """Preconditioned forward-backward solver (``DeconvSolver``).
 
-    ``model``/``update`` are (nband, nx, ny) tensors on the solver's device.
-    With ``hessnorm=None`` the power method estimates it from a start vector
-    drawn from ``generator`` (a seeded one on the model's device if None).
+    ``model``/``update`` are (nband, nx, ny) tensors on the solver's device,
+    this rank's band slice of them under a band ``mesh``. With
+    ``hessnorm=None`` the power method estimates it from a start vector
+    drawn from ``generator`` (a seeded one on the model's device if None)
+    over the WHOLE cube's shape, of which each rank takes its band slice, so
+    sharded and unsharded runs start from the same vector.
     """
 
     def __init__(self, hess, forward_alg, backward_alg, prox, *, model, update, gamma: float = 1.0,
                  hessnorm: float | None = None, l1_reweight_from: int = 5, maxreweight: int = 20,
-                 pm_tol: float = 1e-3, pm_maxit: int = 100, verbosity: int = 1, generator=None):
+                 pm_tol: float = 1e-3, pm_maxit: int = 100, verbosity: int = 1, generator=None, mesh=None):
         self.hess = hess
         self.forward_alg = forward_alg
         self.backward_alg = backward_alg
@@ -73,8 +76,12 @@ class PFBSolver:
             log.info("Finding spectral norm of Hessian approximation")
             if generator is None:
                 generator = torch.Generator(device=model.device).manual_seed(42)
-            beta, _ = power_method(hess.dot, tuple(model.shape), tol=pm_tol, maxit=pm_maxit, generator=generator,
-                                   device=model.device, dtype=model.dtype)
+            nband = model.shape[0] * (1 if mesh is None else mesh.band_size)
+            b0 = torch.randn((nband,) + tuple(model.shape[1:]), generator=generator, device=model.device,
+                             dtype=model.dtype)
+            if mesh is not None:
+                b0 = b0[mesh.band_slice(nband)]
+            beta, _ = power_method(hess.dot, tuple(model.shape), b0=b0, tol=pm_tol, maxit=pm_maxit, mesh=mesh)
             hessnorm = float(beta) * 1.05
         self.hess_norm = float(hessnorm)
         log.info("Using hess_norm = %.3e", self.hess_norm)

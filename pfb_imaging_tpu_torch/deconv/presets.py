@@ -5,6 +5,12 @@ per-band eta (design D4, inside HessianCube.build).
 Each factory takes numpy inputs: abspsfhat_per_band (nband, npart, nx_psf,
 ny_psf//2+1) |PSFHAT|; wsums (nband,) raw per-band weight sums; geometry a
 dict with nx, ny, nx_psf, ny_psf; model, update (nband, nx, ny) warm starts.
+With a ``mesh`` (``parallel.mesh``) the solver holds this rank's band slice:
+wsums stay global, the cubes may be given whole or already sliced, and every
+band reduction of the solvers and the regulariser runs over the band group;
+a mesh with a row axis larger than 1 also shards the PSF Hessian's FFT
+(``transposed=True``: |PSFHAT| is already in ``parallel.fft``'s transposed
+layout).
 """
 
 from __future__ import annotations
@@ -56,55 +62,60 @@ def _opts_with_defaults(opts):
     return merged
 
 
-def _build_hess(abspsfhat_per_band, wsums, geometry, opts, beam_per_band, device):
+def _build_hess(abspsfhat_per_band, wsums, geometry, opts, beam_per_band, device, mesh=None, transposed=False):
     return HessianCube.build(abspsfhat_per_band, np.asarray(wsums, dtype=float), opts["eta"], geometry["nx_psf"],
-                             geometry["ny_psf"], beam=beam_per_band, device=device)
+                             geometry["ny_psf"], beam=beam_per_band, mesh=mesh, transposed=transposed, device=device)
 
 
-def _forward_backward(opts, acceleration: bool):
+def _forward_backward(opts, acceleration: bool, mesh=None):
     return ForwardBackward(tol=opts["fb_tol"], maxit=opts["fb_maxit"], verbosity=opts["fb_verbose"],
                            gamma=opts["gamma"], acceleration=acceleration,
-                           primal_prox=positivity_prox(opts["positivity"]))
+                           primal_prox=positivity_prox(opts["positivity"]), mesh=mesh)
 
 
-def _build_backward(opts):
+def _build_backward(opts, mesh=None):
     if opts["opt_backend"] == "primal-dual":
         return PrimalDual(tol=opts["pd_tol"], maxit=opts["pd_maxit"], verbosity=opts["pd_verbose"],
-                          gamma=opts["gamma"], primal_prox=positivity_prox(opts["positivity"]))
+                          gamma=opts["gamma"], primal_prox=positivity_prox(opts["positivity"]), mesh=mesh)
     if opts["opt_backend"] == "forward-backward":
-        return _forward_backward(opts, opts["acceleration"])
+        return _forward_backward(opts, opts["acceleration"], mesh)
     raise ValueError(f"Unknown opt_backend '{opts['opt_backend']}'")
 
 
-def _solver(hess, bwd, reg, model, update, opts, device):
+def _solver(hess, bwd, reg, model, update, opts, device, mesh):
     dtype = real_dtype(device)
-    fwd = PCG(tol=opts["cg_tol"], maxit=opts["cg_maxit"], minit=opts["cg_minit"])
+    fwd = PCG(tol=opts["cg_tol"], maxit=opts["cg_maxit"], minit=opts["cg_minit"], mesh=mesh)
     return PFBSolver(
         hess, fwd, bwd, reg, model=to_device(model, device, dtype), update=to_device(update, device, dtype),
         gamma=opts["gamma"], hessnorm=opts["hess_norm"], l1_reweight_from=opts["l1_reweight_from"],
-        pm_tol=opts["pm_tol"], pm_maxit=opts["pm_maxit"], verbosity=opts["verbosity"],
+        pm_tol=opts["pm_tol"], pm_maxit=opts["pm_maxit"], verbosity=opts["verbosity"], mesh=mesh,
     )
 
 
-def make_sara(abspsfhat_per_band, wsums, geometry, model, update, opts=None, beam_per_band=None, *, device="cuda"):
+def make_sara(abspsfhat_per_band, wsums, geometry, model, update, opts=None, beam_per_band=None, mesh=None,
+              transposed=False, *, device="cuda"):
     """SARA: l21 over the wavelet dictionary, primal-dual or forward-backward
-    backward (``opt_backend``)."""
+    backward (``opt_backend``). Under a band ``mesh``, ``abspsfhat_per_band``,
+    ``model``, ``update`` and ``beam_per_band`` are this rank's band slice;
+    ``wsums`` holds every band."""
     opts = _opts_with_defaults(opts)
-    bwd = _build_backward(opts)
-    nband = model.shape[0]
+    bwd = _build_backward(opts, mesh)
     bases = tuple(opts["bases"].split(",")) if isinstance(opts["bases"], str) else tuple(opts["bases"])
-    psi = Psi(nband, geometry["nx"], geometry["ny"], bases=bases, nlevel=opts["nlevels"], device=device)
-    reg = L21(psi, nu=len(bases), rmsfactor=opts["rmsfactor"], alpha=opts["alpha"])
-    hess = _build_hess(abspsfhat_per_band, wsums, geometry, opts, beam_per_band, device)
-    return _solver(hess, bwd, reg, model, update, opts, device)
+    psi = Psi(model.shape[0], geometry["nx"], geometry["ny"], bases=bases, nlevel=opts["nlevels"], device=device)
+    reg = L21(psi, nu=len(bases), rmsfactor=opts["rmsfactor"], alpha=opts["alpha"], mesh=mesh)
+    hess = _build_hess(abspsfhat_per_band, wsums, geometry, opts, beam_per_band, device, mesh, transposed)
+    return _solver(hess, bwd, reg, model, update, opts, device, mesh)
 
 
-def make_ista(abspsfhat_per_band, wsums, geometry, model, update, opts=None, beam_per_band=None, *, device="cuda"):
-    """ISTA: image-domain l1, forward-backward without acceleration."""
+def make_ista(abspsfhat_per_band, wsums, geometry, model, update, opts=None, beam_per_band=None, mesh=None,
+              transposed=False, *, device="cuda"):
+    """ISTA: image-domain l1, forward-backward without acceleration; under a
+    band ``mesh`` the cubes are this rank's band slice, as in
+    :func:`make_sara`."""
     opts = _opts_with_defaults(opts)
     reg = L1(IdentityPsi(model.shape[0], geometry["nx"], geometry["ny"], device=device))
-    hess = _build_hess(abspsfhat_per_band, wsums, geometry, opts, beam_per_band, device)
-    return _solver(hess, _forward_backward(opts, False), reg, model, update, opts, device)
+    hess = _build_hess(abspsfhat_per_band, wsums, geometry, opts, beam_per_band, device, mesh, transposed)
+    return _solver(hess, _forward_backward(opts, False, mesh), reg, model, update, opts, device, mesh)
 
 
 PRESETS = {"sara": make_sara, "ista": make_ista}

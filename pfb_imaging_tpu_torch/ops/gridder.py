@@ -179,11 +179,12 @@ def _build_plan(*, u_pix, v_pix, w_lam, sort_idx, starts, counts, phase, corr, n
 def plan_wgridder(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: float = 0.0, m0: float = 0.0,
                   flip_u: bool = False, flip_v: bool = True, flip_w: bool = False, epsilon: float = 1e-7,
                   do_wgridding: bool = True, divide_by_n: bool = True, sigma: float = 2.0, w_sigma: float = 2.0,
-                  dtype=None, device="cuda") -> WGridderPlan:
+                  dtype=None, force_w_grid: tuple | None = None, device="cuda") -> WGridderPlan:
     """Host planning onto ``device``: kernel selection, image corrections,
     w-plane layout and bucketing (the JAX ``plan_wgridder``). ``dtype`` is
     the working real dtype (numpy or torch; default f32 on CUDA, f64 on
-    the CPU)."""
+    the CPU). ``force_w_grid`` (w0, dw, nw) replaces the data's w-plane grid,
+    so that row shards share one (``parallel.sharded.plan_wgridder_sharded``)."""
     from ..native import wplane_buckets
 
     rdt = _as_torch_dtype(dtype, device)
@@ -216,16 +217,23 @@ def plan_wgridder(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0
 
     static = dict(nx=nx, ny=ny, nbig_x=nbig_x, nbig_y=nbig_y, cellx=cellx, celly=celly, support=support, beta=beta,
                   divide_by_n=divide_by_n, nrow=nrow, nchan=nchan)
-    if do_wgridding and np.any(np.abs(w_lam) > 0):
+    if do_wgridding and (np.any(np.abs(w_lam) > 0) or force_w_grid is not None):
         w_supp = support
-        dw = 1.0 / (2.0 * w_sigma * max(float(np.abs(nm1).max()), 1e-12))
-        wmin = float(w_lam.min())
-        # base plane i0: the kernel support covers planes i0 .. i0 + W - 1
-        i0 = np.floor((w_lam - wmin) / dw - w_supp / 2.0).astype(np.int64) + 1
-        shift = i0.min()
-        i0 = i0 - shift
-        w0 = wmin + shift * dw
-        nw = int(i0.max()) + w_supp
+        if force_w_grid is not None:
+            w0, dw, nw = force_w_grid
+            nw = int(nw)
+            i0 = np.floor((w_lam - w0) / dw - w_supp / 2.0).astype(np.int64) + 1
+            if i0.size and (i0.min() < 0 or int(i0.max()) + w_supp > nw):
+                raise ValueError("force_w_grid does not cover this shard's w range")
+        else:
+            dw = 1.0 / (2.0 * w_sigma * max(float(np.abs(nm1).max()), 1e-12))
+            wmin = float(w_lam.min())
+            # base plane i0: the kernel support covers planes i0 .. i0 + W - 1
+            i0 = np.floor((w_lam - wmin) / dw - w_supp / 2.0).astype(np.int64) + 1
+            shift = i0.min()
+            i0 = i0 - shift
+            w0 = wmin + shift * dw
+            nw = int(i0.max()) + w_supp
         perm, starts, counts = wplane_buckets(i0, nw, w_supp)
         cw = dw / _kernel_ft(nm1, w_supp, beta, delta=dw)
         return _build_plan(u_pix=u_pix[perm], v_pix=v_pix[perm], w_lam=w_lam[perm], sort_idx=perm, starts=starts,

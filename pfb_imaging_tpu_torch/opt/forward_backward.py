@@ -14,14 +14,16 @@ from __future__ import annotations
 import logging
 import math
 
-from .pcg import _norm_diff
+from .pcg import stop_eps
 
 log = logging.getLogger("pfb_tpu.FB")
 
 
 def forward_backward_loop(x, lam, weight, step, grad, *, psi_dot, psi_hdot, prox_fn, primal_prox=None,
-                          nu: float = 1.0, acceleration: bool = True, tol: float = 1e-5, maxit: int = 1000):
-    """One run to tolerance or ``maxit``. Returns (x, niter, eps)."""
+                          nu: float = 1.0, acceleration: bool = True, tol: float = 1e-5, maxit: int = 1000,
+                          mesh=None):
+    """One run to tolerance or ``maxit``. Returns (x, niter, eps). Under a
+    band mesh the stop test is reduced over the band group."""
 
     def apply_prox(xc):
         alpha = psi_dot(xc)
@@ -32,7 +34,7 @@ def forward_backward_loop(x, lam, weight, step, grad, *, psi_dot, psi_hdot, prox
     y, t, k, eps = x, 1.0, 0, 1.0
     while eps > tol and k < maxit:
         xn = apply_prox(y - step * grad(y))
-        eps = float(_norm_diff(xn, x)) if bool((xn != 0).any()) else 1.0
+        eps = stop_eps(xn, x, mesh)
         if acceleration:
             tn = (1.0 + math.sqrt(1.0 + 4.0 * t**2)) / 2.0
             y = xn + (t - 1.0) / tn * (xn - x)
@@ -51,8 +53,9 @@ class ForwardBackward:
     the budget shrinks by the iterations taken."""
 
     def __init__(self, tol: float = 1e-5, maxit: int = 1000, verbosity: int = 1, gamma: float = 1.0,
-                 acceleration: bool = True, on_converge=None, primal_prox=None):
+                 acceleration: bool = True, on_converge=None, primal_prox=None, mesh=None):
         self.tol = tol
+        self.mesh = mesh
         self.maxit = maxit
         self.verbosity = verbosity
         self.gamma = gamma
@@ -83,7 +86,7 @@ class ForwardBackward:
             x, k, eps = forward_backward_loop(
                 x, lam, getattr(reg, "l1weight", None), self.step, self._grad, psi_dot=reg.psi.dot,
                 psi_hdot=reg.psi.hdot, prox_fn=reg.prox_fn, primal_prox=self.primal_prox, nu=reg.nu,
-                acceleration=self.acceleration, tol=self.tol, maxit=self.maxit,
+                acceleration=self.acceleration, tol=self.tol, maxit=self.maxit, mesh=self.mesh,
             )
             k_total += k
             budget -= k

@@ -11,7 +11,11 @@ Per iteration:
 Step sizes: sigma = hessnorm / (2 gamma) / nu, tau = 0.98 / (hessnorm /
 (2 gamma) + sigma nu^2), with ``nu`` the squared frame bound (design D3).
 Inner l1 reweighting is a host-level outer loop around the inner loop,
-and the dual is warm-started across ``solve`` calls.
+and the dual is warm-started across ``solve`` calls. Under a band mesh the
+iterates are this rank's band slice: the dual update's band sum (the
+regulariser's ``dual_update_fn``) and the stop test are reduced over the
+band group, so every rank stops at the same iteration; the stop test reads
+the host once an iteration.
 """
 
 from __future__ import annotations
@@ -21,12 +25,12 @@ import logging
 import torch
 
 from ..prox.prox_21m import dual_update as _dual_update_21m
-from .pcg import _norm_diff
+from .pcg import stop_eps
 
 
 def primal_dual_loop(x, v, lam, l1weight, sigma, tau, grad, *, psi_dot, psi_hdot, primal_prox=None,
                      dual_update=_dual_update_21m, tol: float = 1e-5, maxit: int = 1000, minit: int = 1,
-                     it_cap: int | None = None):
+                     it_cap: int | None = None, mesh=None):
     """One PDHG run to tolerance. Returns (x, v, niter, eps)."""
     cap = maxit if it_cap is None else min(int(it_cap), maxit)
     k, eps = 0, 1.0
@@ -35,7 +39,7 @@ def primal_dual_loop(x, v, lam, l1weight, sigma, tau, grad, *, psi_dot, psi_hdot
         xn = x - tau * (psi_hdot(2.0 * vn - v) + grad(x))
         if primal_prox is not None:
             xn = primal_prox(xn)
-        eps = float(_norm_diff(xn, x)) if bool((xn != 0).any()) else 1.0
+        eps = stop_eps(xn, x, mesh)
         x, v, k = xn, vn, k + 1
     return x, v, k, eps
 
@@ -44,8 +48,9 @@ class PrimalDual:
     """``BackwardSolver``: PDHG with a warm dual and reweight-on-converge."""
 
     def __init__(self, tol: float = 1e-5, maxit: int = 1000, verbosity: int = 1, gamma: float = 1.0,
-                 on_converge=None, primal_prox=None):
+                 on_converge=None, primal_prox=None, mesh=None):
         self.tol = tol
+        self.mesh = mesh
         self.maxit = maxit
         self.verbosity = verbosity
         self.gamma = gamma
@@ -85,7 +90,7 @@ class PrimalDual:
             x, v, k, eps = primal_dual_loop(
                 x, v, lam, reg.l1weight, self.sigma, self.tau, self._grad,
                 psi_dot=reg.psi.dot, psi_hdot=reg.psi.hdot, primal_prox=self.primal_prox,
-                dual_update=reg.dual_update_fn, tol=self.tol, maxit=self.maxit, it_cap=budget,
+                dual_update=reg.dual_update_fn, tol=self.tol, maxit=self.maxit, it_cap=budget, mesh=self.mesh,
             )
             k_total += k
             budget -= k

@@ -3,14 +3,19 @@
 
 Design D3 holds: ``nu`` is the squared frame bound ||Psi Psi^T|| = nbasis
 for the SARA concatenation of orthonormal bases; presets pass
-``nu=len(bases)``.
+``nu=len(bases)``. Under a band mesh (``mesh``) ``psi`` spans this rank's
+band slice, and every sum over the bands (the dual update's, the
+reweighting's) is reduced over the band group.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
+from ..parallel.mesh import band_sum
 from .prox_21m import dual_update as _dual_update
 
 
@@ -25,15 +30,18 @@ def l1reweight_func(mcomps, rmsfactor, rms_comps, alpha=4):
 class L21:
     """R(x) = ||W Psi^T x||_{21m} over ``psi`` (a Psi on some device)."""
 
-    def __init__(self, psi, nu: float = 1.0, rmsfactor: float = 1.0, alpha: float = 2.0):
+    def __init__(self, psi, nu: float = 1.0, rmsfactor: float = 1.0, alpha: float = 2.0, mesh=None):
         self.psi = psi
+        self.mesh = mesh
         self.nu = nu
         self.rmsfactor = rmsfactor
         self.alpha = alpha
         self.l1weight = torch.ones((psi.nbasis, psi.nymax, psi.nxmax), dtype=psi.dtype, device=psi.device)
         self._rms_comps = None
 
-    dual_update_fn = staticmethod(_dual_update)
+    @property
+    def dual_update_fn(self):
+        return _dual_update if self.mesh is None else partial(_dual_update, mesh=self.mesh)
 
     @property
     def reweight_active(self) -> bool:
@@ -41,7 +49,7 @@ class L21:
 
     def init_reweighting(self, update):
         """Per-basis rms of the update's nonzero coefficients; arms reweighting."""
-        coeffs = self.psi.dot(update).sum(0).cpu().numpy()
+        coeffs = band_sum(self.psi.dot(update), self.mesh).cpu().numpy()
         rms_comps = np.ones(self.psi.nbasis)
         for i in range(self.psi.nbasis):
             nonzero = coeffs[i][coeffs[i] != 0]
@@ -51,5 +59,5 @@ class L21:
 
     def update_weights(self, x):
         """Recompute l1 weights from the current iterate."""
-        mcomps = self.psi.dot(x).sum(0).abs()
+        mcomps = band_sum(self.psi.dot(x), self.mesh).abs()
         self.l1weight = l1reweight_func(mcomps, self.rmsfactor, self._rms_comps, self.alpha)

@@ -1,9 +1,8 @@
 """The port's ``pfb-torch`` command line against the JAX package's ``pfb``,
 on the CPU (``--device cpu``).
 
-Parsing: ``--help`` of every command, the JAX parser's commands and flags,
-and the ``NotImplementedError`` of ``--use-mesh``, the one option the port
-lacks.
+Parsing: ``--help`` of every command, the JAX parser's commands and flags;
+``--use-mesh`` on one process equals the run without it.
 The slice: simulate -> init -> imager -> sara --niter 1 -> restore through
 both CLIs at ``recipes/sara.yml``'s size. The stores agree as
 tests/test_torch_simulate_init.py requires; DIRTY/PSF to 1e-9 relative
@@ -69,9 +68,21 @@ def test_parser_has_the_jax_commands_and_flags():
     (["deconv", "x.dt", "--use-mesh"], "parallel/"),
     (["sara", "x.dt", "--use-mesh"], "parallel/"),
 ])
-def test_unported_commands_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue A: {item}"):
-        cli.main(argv + ["--device", "cpu"])
+def test_unported_commands_raise(argv, item, port_store, tmp_path):
+    """``--use-mesh`` (the port's ``item``) runs: on one process its mesh is
+    one band slice and every collective the identity, so the tree equals a
+    run without the flag bit for bit."""
+    trees = []
+    for tag, flag in (("mesh", ["--use-mesh"]), ("plain", [])):
+        dt = tmp_path / tag
+        shutil.copytree(port_store[1], dt)
+        cli.main([argv[0], str(dt), "--niter", "1", "--cg-maxit", "10", "--pd-maxit", "30", *flag, "--device", "cpu"])
+        trees.append(TreeStore(str(dt)))
+    assert trees[0].attrs["hess_norm"] == trees[1].attrs["hess_norm"]
+    for key in trees[1].groups():
+        assert trees[0].group(key).attrs["niters"] == 1
+        for name in ("MODEL", "RESIDUAL", "UPDATE", "DUAL"):
+            np.testing.assert_array_equal(trees[0].group(key).read(name), trees[1].group(key).read(name))
 
 
 SIM = ["--nant", "12", "--ntime", "2", "--nchan", "4", "--nx", "64", "--noise", "0.1"]

@@ -165,11 +165,19 @@ def port_xds(tmp_path_factory):
 
 
 def test_unported_options_raise(port_xds):
-    """The device mesh is not ported yet (model transfer is: see
-    tests/test_torch_model2comps.py)."""
+    """``use_mesh=True`` on one process (a one-rank row mesh: the sharded
+    planner at one shard) gives the products of ``use_mesh=False``; an
+    unknown gridder raises."""
     xds = port_xds
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TI.imager(str(xds / "sim.xds"), str(xds / "x.dt"), device="cpu", use_mesh=True)
+    kw = dict(nband=2, nx=24, epsilon=1e-7, gridder="idg", fits_out=False, device="cpu")
+    TI.imager(str(xds / "sim.xds"), str(xds / "mesh.dt"), use_mesh=True, **kw)
+    assert TI.IMAGER_STATS["route"] == "idg" and TI.IMAGER_STATS["mesh_row_size"] == 1
+    TI.imager(str(xds / "sim.xds"), str(xds / "plain.dt"), use_mesh=False, **kw)
+    a, b = TreeStore(str(xds / "plain.dt")), TreeStore(str(xds / "mesh.dt"))
+    for g in a.groups():
+        for prod in ("DIRTY", "PSF", "WSUM", "NOISE"):
+            x, y = np.asarray(a.group(g).read(prod)), np.asarray(b.group(g).read(prod))
+            np.testing.assert_allclose(y, x, rtol=1e-10, atol=1e-10 * np.abs(x).max(), err_msg=(g, prod))
     with pytest.raises(ValueError):
         TI.imager(str(xds / "sim.xds"), str(xds / "x.dt"), gridder="wsclean", device="cpu")
 

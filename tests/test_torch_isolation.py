@@ -51,7 +51,8 @@ assert "pfb_imaging_tpu_torch.parallel.sharded" in names
 for m in ("cli", "recipes", "core.simulate", "core.init", "core.restore", "ops.dft", "core.kclean",
           "core.fluxtractor", "core.hci", "deconv.clark", "deconv.hogbom", "opt.forward_backward",
           "models.transients", "ops.precond", "ops.gauss", "ops.mask", "opt.fista", "deconv.nnls", "models.spi",
-          "utils.astrometry", "utils.naming", "utils.profiling", "utils.debug"):
+          "utils.astrometry", "utils.naming", "utils.profiling", "utils.debug", "parallel.mesh", "parallel.fft",
+          "parallel.multihost"):
     assert "pfb_imaging_tpu_torch." + m in names, m
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pfb_imaging_tpu"))
 print(len(names), bad)
@@ -82,7 +83,10 @@ def _entry_points():
     from pfb_imaging_tpu_torch.ops.gridder import plan_wgridder, wgridder_plan_from_jax
     from pfb_imaging_tpu_torch.ops.gridder_idg import plan_from_jax, plan_idg
     from pfb_imaging_tpu_torch.ops.hessian import HessianCube
-    from pfb_imaging_tpu_torch.parallel.sharded import plan_idg_multiband_freqs
+    from pfb_imaging_tpu_torch.parallel.mesh import shard_cube, stream_band_stack
+    from pfb_imaging_tpu_torch.parallel.multihost import init_distributed
+    from pfb_imaging_tpu_torch.parallel.sharded import (plan_idg_multiband_freqs, plan_idg_sharded,
+                                                        plan_wgridder_sharded, row_sharded_vis2dirty)
     from pfb_imaging_tpu_torch.recipes import run_recipe
     from pfb_imaging_tpu_torch.utils.restoration import convolve2gaussres, restore_image
     from pfb_imaging_tpu_torch.utils.stokes import weight_data
@@ -91,7 +95,8 @@ def _entry_points():
             plan_from_jax, HessianCube.build, degrid, model2comps, residual_from_parts_multiband,
             plan_idg_multiband_freqs, simulate_vis_store, init, restore, run_recipe, weight_data, dirty2vis_dft,
             vis2dirty_dft, convolve2gaussres, restore_image, kclean, fluxtractor, hci, make_ista, HessPSF, Gauss, Mask,
-            nnls]
+            nnls, init_distributed, plan_idg_sharded, plan_wgridder_sharded, row_sharded_vis2dirty, shard_cube,
+            stream_band_stack]
 
 
 @pytest.mark.parametrize("fn", _entry_points(), ids=lambda f: f.__qualname__)
@@ -150,3 +155,36 @@ def test_no_silent_cpu_fallback(tmp_path):
             cmd(str(tmp_path / "missing.dt"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         hci(str(tmp_path / "missing.xds"), str(tmp_path / "out.cube"))
+
+
+def test_module_tree_matches_the_jax_package():
+    """File for file, apart from the port's kernel build (``kernels/``)."""
+    ref = {p.relative_to(ROOT / "pfb_imaging_tpu") for p in (ROOT / "pfb_imaging_tpu").rglob("*.py")}
+    port = {p.relative_to(PKG) for p in PKG.rglob("*.py") if p.relative_to(PKG).parts[0] != "kernels"}
+    assert port == ref, sorted(map(str, port ^ ref))
+
+
+def test_init_distributed_never_changes_backend_or_device(tmp_path, monkeypatch):
+    """The card by default (raising without one), gloo only on the CPU or
+    when asked for, and a backend that cannot start raises."""
+    import torch.distributed as dist
+
+    from pfb_imaging_tpu_torch.parallel.multihost import init_distributed
+
+    for var in ("PFB_COORDINATOR", "PFB_NUM_PROCESSES", "PFB_PROCESS_ID", "MASTER_ADDR", "MASTER_PORT", "RANK",
+                "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    url = f"file://{tmp_path / 'rdv'}"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_distributed(url, 1, 0)
+    with pytest.raises(ValueError, match="coordinator"):
+        init_distributed(device="cpu")
+    with pytest.raises((RuntimeError, ValueError, AssertionError)):  # torch asserts on an unknown backend
+        init_distributed(url, 1, 0, backend="no-such-backend", device="cpu")
+    assert not dist.is_initialized()
+    init_distributed(url, 1, 0, device="cpu")
+    try:
+        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+    finally:
+        dist.destroy_process_group()
