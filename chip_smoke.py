@@ -140,7 +140,13 @@ exits non-zero:
                around five SARA primal-dual iterations (nothing raised) and
                the host syncs per iteration under
                ``set_sync_debug_mode("warn")``, ``memory_line()`` and the
-               PSF Hessian's flops by ``cost_analysis``.
+               PSF Hessian's flops by ``cost_analysis``; at band 0's
+               residual plan, ``hessian_vis_idg(beam=, eta=, wsum=)`` (B2
+               and B1 launched; its composition of the port's own calls
+               within 1e-6) and ``vis2dirty_idg`` with a mask positional
+               and by keyword (B1 launched; the run with the weight times
+               the mask within 1e-7); ``PrimalDual`` + ``L1`` on a lasso of
+               the cube's size (the soft threshold within 1e-5 max|b|).
  13. parallel — ``parallel/`` on the one card, each part's ranks started
                as child processes (``torch.multiprocessing.spawn``; a rank
                that fails or outlives its timeout fails the smoke): (a) one
@@ -169,7 +175,9 @@ with the widefield phase's launches, at the pipeline's launch shapes under
 ``*_pipeline_*`` keys, at the commands' under ``*_commands_*`` keys and at
 the S = 24 plan under ``*_s24_plan``; every kernel's ``launches_pipeline``
 and ``launches_commands``, which must be positive for B1/B2, as must their
-``launches_operators`` and ``launches_parallel`` by part and rank, with
+``launches_operators`` (the S = 24 plan),
+``launches_operators_hessian_vis_beam`` and ``launches_parallel`` by part
+and rank, with
 B1/B2 at rank 0's shard plans under ``*_parallel_*`` keys), the
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -2141,6 +2149,137 @@ def accuracy_s24_flips(dev, nrow: int = 50_000, nchan: int = 2, nx: int = 256, e
     return rec
 
 
+def idg_runtime_args(dev, imaged: Path, eta: float = 1e-3, seed: int = 47) -> dict:
+    """The IDG runtime arguments at band 0's residual plan of the imaged tree
+    (``residual_from_parts``'s cached plan; the run that plans it is not
+    counted), with that band's masked weight, WSUM and BEAM (the
+    partition's, or the cosine-tapered model at the band's mean frequency
+    where the imager wrote none):
+      * the counts zeroed right before ``hessian_vis_idg(plan, x, wgt_g,
+        beam=BEAM, eta=eta, wsum=WSUM)`` on band 0's MODEL (a seeded image
+        where it is zero) and read right after: B2 and B1 launched; held to
+        the composition of the port's own calls (x·beam → the round trip →
+        /wsum → ·beam → + eta·x) within rel L∞ 1e-6; its CUDA-event ms;
+      * ``vis2dirty_idg(plan, vis, wgt, mask)`` positional and with
+        ``mask=`` by keyword, a seeded 0/1 mask, each held to
+        ``vis2dirty_idg(plan, vis, wgt * mask)``: the same tensor, or within
+        rel L∞ 1e-7; B1 launched.
+    The patch assembly's ``index_add_`` adds in another order each run, so
+    the comparisons run under ``torch.use_deterministic_algorithms`` (its
+    sorted ``index_add``); the same comparisons with the atomic adds, and
+    two runs of one call, are recorded as the run-to-run spread, with the
+    Hessian's ms under the sorted adds."""
+    import warnings
+
+    import torch
+
+    from pfb_imaging_tpu_torch import real_dtype, to_device
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.ops.gridder_idg import hessian_vis_idg, vis2dirty_idg
+    from pfb_imaging_tpu_torch.utils.beam import cosine_taper_beam
+    from pfb_imaging_tpu_torch.utils.store import TreeStore
+
+    rdt = real_dtype(dev)
+    node = TreeStore(imaged).group("band0000_time0000")
+    pg = node.group("part0000")
+    nx = int(TreeStore(imaged).attrs["nx"])
+    model = np.asarray(node.read("MODEL")) if node.has("MODEL") else np.zeros((nx, nx))
+    TI.residual_from_parts(node, model, epsilon=1e-7, device=dev)
+    hits = [v for k, v in TI._PLAN_CACHE.items() if k[0] == str(pg.path)]
+    require(len(hits) == 1 and hits[0][4], "band 0's residual plan of the imaged tree cached, an IDG plan")
+    plan, wgt_g, _, beam, _ = hits[0]
+    if beam is None:
+        cell = float(TreeStore(imaged).attrs["cell_rad"])
+        lm = (np.arange(nx) - nx // 2) * cell
+        ll, mm = np.meshgrid(lm, lm, indexing="ij")
+        beam = to_device(cosine_taper_beam(ll, mm, float(np.asarray(pg.read("FREQ")).mean())), dev, rdt)
+    wsum = float(np.asarray(node.read("WSUM"))[0])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = to_device(model, dev, rdt)
+    if not bool(x.any()):
+        x = torch.randn((nx, nx), generator=gen, device=dev, dtype=rdt)
+    vis = np.asarray(pg.read("VIS"))
+    vc = torch.complex(to_device(vis.real, dev, rdt), to_device(vis.imag, dev, rdt))
+    wm = to_device(np.asarray(pg.read("WEIGHT")) * np.asarray(pg.read("MASK")), dev, rdt)
+    mask = (torch.rand(wm.shape, generator=gen, device=dev) > 0.5).to(rdt)
+
+    def hess():
+        return hessian_vis_idg(plan, x, wgt_g, beam=beam, eta=eta, wsum=wsum)
+
+    def comparisons(tag):
+        h, h2 = hess(), hess()
+        comp = hessian_vis_idg(plan, x * beam, wgt_g) / wsum * beam + eta * x
+        d_pos, d_kw = vis2dirty_idg(plan, vc, wm, mask), vis2dirty_idg(plan, vc, wm, mask=mask)
+        d_ref, d_ref2 = vis2dirty_idg(plan, vc, wm * mask), vis2dirty_idg(plan, vc, wm * mask)
+        out = dict(hessian_vs_composition_rel=rel_linf(h, comp), hessian_run_to_run_rel=rel_linf(h2, h),
+                   mask_positional_identical=bool(torch.equal(d_pos, d_ref)),
+                   mask_keyword_identical=bool(torch.equal(d_kw, d_ref)), mask_positional_rel=rel_linf(d_pos, d_ref),
+                   mask_keyword_rel=rel_linf(d_kw, d_ref), vis2dirty_run_to_run_rel=rel_linf(d_ref2, d_ref))
+        return {k + tag: v for k, v in out.items()}
+
+    torch.cuda.synchronize()
+    zero_counts()
+    hess()
+    torch.cuda.synchronize()
+    h_launches = read_counts()
+    zero_counts()
+    vis2dirty_idg(plan, vc, wm, mask)
+    vis2dirty_idg(plan, vc, wm, mask=mask)
+    torch.cuda.synchronize()
+    rec = dict(ngroups=plan.ngroups, nbins=plan.nbins, w_support=plan.w_support, S=plan.S, wsum=wsum, eta=eta,
+               beam_from_tree=hits[0][3] is not None, hessian_launches=h_launches, mask_launches=read_counts(),
+               mask_fraction=float(mask.mean()), hessian_ms=cuda_ms(hess, 5),
+               vis2dirty_mask_ms=cuda_ms(lambda: vis2dirty_idg(plan, vc, wm, mask), 5), **comparisons("_atomic"))
+    prev = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rec.update(comparisons(""), hessian_ms_deterministic=cuda_ms(hess, 5))
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    rec["nondeterministic_op_warnings"] = [str(w.message)[:200] for w in caught if "determinis" in str(w.message)]
+    emit({"phase": "operators", "stage": "idg_runtime_args", **rec})
+    require(h_launches["vals_from_patches"] > 0 and h_launches["patches_from_vals"] > 0,
+            "B2 and B1 launched by hessian_vis_idg(beam, eta, wsum)")
+    require(rec["hessian_vs_composition_rel"] <= 1e-6, "hessian_vis_idg(beam, eta, wsum) = its composition")
+    require(rec["mask_launches"]["patches_from_vals"] > 0, "B1 launched by vis2dirty_idg(mask)")
+    require(rec["mask_positional_rel"] <= 1e-7 and rec["mask_keyword_rel"] <= 1e-7,
+            "vis2dirty_idg(plan, vis, wgt, mask) = vis2dirty_idg(plan, vis, wgt * mask)")
+    return rec
+
+
+def lasso_primal_dual(dev, nband: int, nx: int, lam: float = 0.3, seed: int = 48) -> dict:
+    """``PrimalDual`` + ``L1(IdentityPsi)`` on ``tests/test_solvers.py``'s
+    lasso (min 0.5||x - b||^2 + lam||x||_1, hess norm 1) at the cube's size,
+    b seeded: L1 has no fused dual update, so this runs the Moreau
+    fallback through its prox. The answer is the soft threshold of b:
+    required within 1e-5 max|b| (f32). Its iterations and seconds."""
+    import torch
+
+    from pfb_imaging_tpu_torch import real_dtype
+    from pfb_imaging_tpu_torch.ops.identity_psi import IdentityPsi
+    from pfb_imaging_tpu_torch.opt.primal_dual import PrimalDual
+    from pfb_imaging_tpu_torch.prox.l1 import L1
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = torch.randn((nband, nx, nx), generator=gen, device=dev, dtype=real_dtype(dev))
+    pd = PrimalDual(tol=1e-8, maxit=5000, verbosity=0)
+    pd.setup(L1(IdentityPsi(nband, nx, nx, device=dev)), hessnorm=1.0)
+    pd.set_grad(lambda x: x - b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = pd.solve(torch.zeros_like(b), lam)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    xstar = torch.sign(b) * torch.clamp(b.abs() - lam, min=0.0)
+    rec = dict(nband=nband, nx=nx, lam=lam, iters=pd.niter_last, seconds=seconds,
+               max_abs_err=float((x - xstar).abs().max()), max_abs_b=float(b.abs().max()))
+    emit({"phase": "operators", "stage": "lasso_primal_dual_l1", **rec})
+    require(rec["max_abs_err"] <= 1e-5 * rec["max_abs_b"], "PrimalDual + L1 solves the lasso (the soft threshold)")
+    return rec
+
+
 def phase_operators(dev, imaged: Path, sky: dict, eta: float = 1e-2, cg_tol: float = 1e-4, cg_maxit: int = 1000,
                     cg_rel_limit: float = 1e-3, taper_width: int = 1, pd_iters: int = 5, f64_groups: int = 65536,
                     acc_nrow: int = 50_000, acc_nx: int = 256, seed: int = 46):
@@ -2173,9 +2312,12 @@ def phase_operators(dev, imaged: Path, sky: dict, eta: float = 1e-2, cg_tol: flo
         tree's SARA solve (model 0, residual DIRTY / total WSUM), which must
         raise nothing, then the host syncs per iteration of the same loop
         under ``torch.cuda.set_sync_debug_mode("warn")``;
-      * ``memory_line()`` and ``cost_analysis(hessian_psf, ...)``'s flops.
+      * ``memory_line()`` and ``cost_analysis(hessian_psf, ...)``'s flops;
+      * :func:`idg_runtime_args` at band 0's residual plan, then
+        :func:`lasso_primal_dual` at the cube's size.
     Returns (the S = 24 path's launches, B1/B2's record at the S = 24 plan,
-    the phase's record)."""
+    the phase's record, with the launches of the IDG runtime arguments'
+    calls)."""
     import warnings
     from functools import partial
 
@@ -2367,6 +2509,9 @@ def phase_operators(dev, imaged: Path, sky: dict, eta: float = 1e-2, cg_tol: flo
     require(prec["model_finite"], "primal-dual under bringup_checks: a finite model")
     rec["bringup"] = prec
     del solver, hess, reg, bwd, psi, x, r, v, xo
+    torch.cuda.empty_cache()
+    rec["idg_runtime_args"] = idg_runtime_args(dev, imaged)
+    rec["lasso_primal_dual_l1"] = lasso_primal_dual(dev, nband, nx)
     torch.cuda.empty_cache()
     return launches, krec, rec
 
@@ -2901,7 +3046,7 @@ def main(argv=None) -> int:
     pipe_launches, pipe_kern, _, sky = phase_pipeline(dev, ROOT / "build" / "chip_smoke_pipeline", keep_imaged=imaged,
                                                       keep_store=store)
     cmd_launches, cmd_kern, _ = phase_commands(dev, ROOT / "build" / "chip_smoke_commands", imaged, sky)
-    op_launches, op_kern, _ = phase_operators(dev, imaged, sky)
+    op_launches, op_kern, op_rec = phase_operators(dev, imaged, sky)
     par_launches, par_kern, _ = phase_parallel(dev, ROOT / "build" / "chip_smoke_parallel", imaged, store,
                                                sky["cell_rad"] * 180.0 / np.pi * 3600.0)
     shutil.rmtree(imaged)
@@ -2965,6 +3110,8 @@ def main(argv=None) -> int:
             **at_commands, launches_operators=op_launches[name], ms_s24_plan=op_kern[f"{tag}_ms"],
             plain_ms_s24_plan=op_kern[f"{tag}_plain_ms"], bound_ms_s24_plan=bound_s24, bound_by_s24_plan=bound_s24_by,
             rel_vs_f64_s24_plan=op_kern[f"{tag}_rel_vs_f64"], ng_s24_plan=op_kern["ng"], S_s24_plan=op_kern["S"],
+            launches_operators_hessian_vis_beam=op_rec["idg_runtime_args"]["hessian_launches"][name],
+            launches_operators_vis2dirty_mask=op_rec["idg_runtime_args"]["mask_launches"][name],
             launches_parallel={k: v[name] for k, v in par_launches.items()}, **at_parallel,
             **({"ms_compare_tree_tree_compare": timing["compare"][f"{tag}_ms_compare_tree_tree_compare"]}
                if "compare" in timing else {}),
@@ -2995,6 +3142,8 @@ def main(argv=None) -> int:
         require(k["launches_pipeline"] > 0, f"{k['name']} launched on the pipeline")
         require(k["launches_commands"] > 0, f"{k['name']} launched by the commands")
         require(k["launches_operators"] > 0, f"{k['name']} launched at the S = 24 plan")
+        require(k["launches_operators_hessian_vis_beam"] > 0,
+                f"{k['name']} launched by hessian_vis_idg(beam, eta, wsum)")
         require(all(n > 0 for n in k["launches_parallel"].values()), f"{k['name']} launched by every rank of (a), (b)")
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -30,6 +30,16 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
+def set_envs(nthreads: int | None = None, enable_x64: bool = False) -> None:
+    """Process bootstrap with the JAX package's arguments: ``nthreads`` sets
+    ``OMP_NUM_THREADS`` where it is unset. ``enable_x64`` has nothing to
+    switch here: the working type follows the device (:func:`real_dtype`)."""
+    import os
+
+    if nthreads is not None:
+        os.environ.setdefault("OMP_NUM_THREADS", str(nthreads))
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA request without a card raises
     (entry points default to the card and never fall back to the CPU)."""
@@ -42,6 +52,18 @@ def resolve_device(device) -> torch.device:
 def real_dtype(device) -> torch.dtype:
     """The working real dtype on ``device``: f64 on CPU, f32 on CUDA."""
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
+def checked_real_dtype(device, double_precision: bool | None = None) -> torch.dtype:
+    """:func:`real_dtype` for an entry point that takes JAX's ``double_precision``:
+    None means the device's type; the device's own type may be named; the
+    other is refused, before any tensor is made (the card's IDG kernels are
+    f32-only, and the CPU runs the f64 of the JAX x64 parity runs)."""
+    rdt = real_dtype(device)
+    if double_precision is not None and bool(double_precision) != (rdt == torch.float64):
+        raise ValueError(f"double_precision={double_precision!r} on {torch.device(device).type}: the port computes "
+                         f"in {'f64' if rdt == torch.float64 else 'f32'} there; pass None")
+    return rdt
 
 
 def complex_dtype(real: torch.dtype) -> torch.dtype:

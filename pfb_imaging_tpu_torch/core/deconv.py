@@ -41,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from .. import real_dtype, resolve_device, to_device, to_host
+from .. import checked_real_dtype, resolve_device, to_device, to_host
 from ..deconv.presets import PRESETS
 from ..parallel import multihost as mh
 from ..parallel.fft import psfhat_transposed
@@ -80,6 +80,7 @@ def deconv(
     epsilon: float = 1e-7,
     do_wgridding: bool = True,
     diverge_count: int = 3,
+    double_precision: bool | None = None,
     hess_norm: float | None = None,
     opts_extra: dict | None = None,
     use_mesh: bool = True,
@@ -89,10 +90,11 @@ def deconv(
 ):
     """Run the major cycle in place on the tree. Returns (model, residual)
     as numpy arrays, the same on every rank. Solver state lives on
-    ``device`` (f64 on the CPU, f32 on CUDA); the default is the card, and
-    there is no fallback to the CPU."""
+    ``device`` (f64 on the CPU, f32 on CUDA; ``double_precision`` may only
+    name that type, None takes it); the default is the card, and there is
+    no fallback to the CPU."""
+    rdt = checked_real_dtype(device, double_precision)
     dev = resolve_device(device)
-    rdt = real_dtype(dev)
     CYCLE_STATS.clear()
     distributed, me = mh.is_distributed(), mh.rank()
     dt = TreeStore(dt_path, mode="w")

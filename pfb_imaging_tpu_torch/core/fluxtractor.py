@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .. import real_dtype, resolve_device, to_device, to_host
+from .. import checked_real_dtype, resolve_device, to_device, to_host
 from ..ops.gridder import plan_wgridder
 from ..ops.hessian import hessian_vis
 from ..opt.pcg import pcg
@@ -29,10 +29,13 @@ log = get_logger("FLUXTRACTOR")
 
 
 def fluxtractor(dt_path, mask=None, eta: float = 1e-3, cg_tol: float = 1e-4, cg_maxit: int = 50,
-                epsilon: float = 1e-7, do_wgridding: bool = True, *, device="cuda"):
-    """Returns (model_mopped, residual_mopped) as f64 numpy arrays."""
+                epsilon: float = 1e-7, do_wgridding: bool = True, double_precision: bool | None = None, *,
+                device="cuda"):
+    """Returns (model_mopped, residual_mopped) as f64 numpy arrays.
+    ``double_precision`` may only name the device's type (f64 on the CPU,
+    f32 on the card): None takes it."""
+    rdt = checked_real_dtype(device, double_precision)
     dev = resolve_device(device)
-    rdt = real_dtype(dev)
     dt = TreeStore(dt_path, mode="w")
     require_complete(dt)
     attrs = dt.attrs

@@ -47,7 +47,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import real_dtype, resolve_device, to_device, to_device_async, to_host
+from .. import checked_real_dtype, real_dtype, resolve_device, to_device, to_device_async, to_host
 from ..constants import LIGHTSPEED
 from ..geometry import fitcleanbeam, set_image_size, wgridder_conventions
 from ..ops.gridder import dirty2vis, plan_wgridder, vis2dirty
@@ -540,7 +540,8 @@ def _timed_plan(fn, dev):
 
 
 def residual_from_parts(band_node: TreeStore, model_b, epsilon: float = 1e-7, do_wgridding: bool = True,
-                        gridder: str = "auto", as_device: bool = False, *, device="cuda"):
+                        double_precision: bool | None = None, gridder: str = "auto", as_device: bool = False, *,
+                        device="cuda"):
     """DIRTY - sum_p R_p^H W_p R_p (B_p model) for one band, un-normalised,
     computed on ``device`` and returned as an f64 numpy array, or with
     ``as_device`` as the tensor on ``device`` without waiting for it (so a
@@ -549,11 +550,13 @@ def residual_from_parts(band_node: TreeStore, model_b, epsilon: float = 1e-7, do
     ``gridder``: "idg", "stack" (classic ES w-stacking), or "auto" (IDG
     where its accuracy envelope covers ``epsilon`` and its planner accepts
     the partition, else stack). Plans are cached per partition path,
-    content stamp, geometry and ``gridder``, as in the JAX package."""
+    content stamp, geometry and ``gridder``, as in the JAX package.
+    ``double_precision`` may only name the device's type (f64 on the CPU,
+    f32 on the card): None takes it."""
     if gridder not in ("auto", "idg", "stack"):
         raise ValueError(f"gridder {gridder!r} not in ('auto', 'idg', 'stack')")
+    rdt = checked_real_dtype(device, double_precision)
     dev = resolve_device(device)
-    rdt = real_dtype(dev)
     nx, ny = band_node.read("DIRTY", mmap=True).shape
     model_t = to_device_async(model_b, dev, rdt)
     conv = torch.zeros((nx, ny), dtype=rdt, device=dev)
@@ -582,7 +585,8 @@ def residual_from_parts(band_node: TreeStore, model_b, epsilon: float = 1e-7, do
 
 
 def residual_from_parts_multiband(dt: TreeStore, band_keys: list, model, epsilon: float = 1e-7,
-                                  do_wgridding: bool = True, as_device: bool = False, *, device="cuda"):
+                                  do_wgridding: bool = True, double_precision: bool | None = None, *,
+                                  as_device: bool = False, device="cuda"):
     """The raw residual (nband, nx, ny) of all bands of one time slice, per
     partition one multiband IDG plan (``parallel.sharded``) whose B1 and B2
     launches take every band; f64 numpy, or with ``as_device`` the tensor
@@ -596,13 +600,14 @@ def residual_from_parts_multiband(dt: TreeStore, band_keys: list, model, epsilon
     major cycles decline at once, and ``RESIDUAL_DISPATCH_STATS`` counts the
     partitions only when the whole slice ran. The beam multiplies the model
     once, as in the per-band route (the JAX multiband route also multiplies
-    the result by it, which its per-band route does not)."""
+    the result by it, which its per-band route does not). ``double_precision``
+    as in :func:`residual_from_parts`."""
     from ..parallel.sharded import multiband_hessian_vis_idg, multiband_to_group_layout, plan_idg_multiband_freqs
 
+    rdt = checked_real_dtype(device, double_precision)
     if epsilon < IDG_MIN_EPS or len(band_keys) < 2:
         return None
     dev = resolve_device(device)
-    rdt = real_dtype(dev)
     nodes = [dt.group(k) for k in band_keys]
     part_keys = nodes[0].groups()
     if not part_keys or any(n.groups() != part_keys for n in nodes[1:]):

@@ -19,7 +19,7 @@ import time
 
 import numpy as np
 
-from .. import real_dtype, resolve_device, to_device, to_host
+from .. import checked_real_dtype, resolve_device, to_device, to_host
 from ..deconv.clark import clark
 from ..deconv.hogbom import hogbom
 from ..ops.psf import psf_to_psfhat
@@ -37,11 +37,13 @@ KCLEAN_STATS: list = []
 
 def kclean(dt_path, niter: int = 5, minor: str = "clark", gamma: float = 0.1, peak_factor: float = 0.15,
            sub_peak_factor: float = 0.75, minor_maxit: int = 50, subminor_maxit: int = 1000, threshold: float = 0.0,
-           mask=None, epsilon: float = 1e-7, do_wgridding: bool = True, *, device="cuda"):
+           mask=None, epsilon: float = 1e-7, do_wgridding: bool = True, double_precision: bool | None = None, *,
+           device="cuda"):
     """Returns (model, residual) as f64 numpy arrays; progress is
-    checkpointed into the tree."""
+    checkpointed into the tree. ``double_precision`` may only name the
+    device's type (f64 on the CPU, f32 on the card): None takes it."""
+    rdt = checked_real_dtype(device, double_precision)
     dev = resolve_device(device)
-    rdt = real_dtype(dev)
     KCLEAN_STATS.clear()
     dt = TreeStore(dt_path, mode="w")
     require_complete(dt)

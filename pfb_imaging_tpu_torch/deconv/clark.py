@@ -72,7 +72,7 @@ def subminor(residual, psf, active, model, wsums, gamma: float = 0.05, th: float
 
 
 def fsclark(dirty, psf, psfhat, wsums, mask=None, threshold: float = 0.0, gamma: float = 0.05, pf: float = 0.05,
-            maxit: int = 50, subpf: float = 0.5, submaxit: int = 1000, info: dict | None = None):
+            maxit: int = 50, subpf: float = 0.5, submaxit: int = 1000, *, info: dict | None = None):
     """Full-Stokes Clark CLEAN: dirty (nband, ncorr, nx, ny) wsum-normalised
     per correlation, psf (nband, ncorr, nx_psf, ny_psf), psfhat its rfft2,
     wsums (nband, ncorr). A host loop over major iterations. Returns
@@ -106,9 +106,11 @@ def fsclark(dirty, psf, psfhat, wsums, mask=None, threshold: float = 0.0, gamma:
 
 
 def clark(dirty, psf, psfhat, wsums, mask=None, threshold: float = 0.0, gamma: float = 0.05, pf: float = 0.05,
-          maxit: int = 50, subpf: float = 0.5, submaxit: int = 1000, info: dict | None = None):
+          maxit: int = 50, subpf: float = 0.5, submaxit: int = 1000, verbosity: int = 1, *,
+          info: dict | None = None):
     """Clark CLEAN on (nband, nx, ny) cubes (psf (nband, nx_psf, ny_psf),
-    psfhat its rfft2, wsums (nband,)). Returns (model, residual, status)."""
+    psfhat its rfft2, wsums (nband,)). Returns (model, residual, status).
+    ``verbosity`` keeps JAX's position; neither package's loop logs."""
     model, residual, status = fsclark(dirty[:, None], psf[:, None], psfhat[:, None], wsums[:, None], mask=mask,
                                       threshold=threshold, gamma=gamma, pf=pf, maxit=maxit, subpf=subpf,
                                       submaxit=submaxit, info=info)

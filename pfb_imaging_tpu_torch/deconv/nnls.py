@@ -19,7 +19,7 @@ from ..ops.psf import psf_convolve
 
 
 def nnls(dirty, psfhat, nx_psf: int, ny_psf: int, x0=None, tol: float = 1e-5, maxit: int = 100, hessnorm=None,
-         b0=None, generator=None, info=None, device="cuda"):
+         *, b0=None, generator=None, info=None, device="cuda"):
     """The non-negative model for ``dirty`` (nband, nx, ny) and the complex
     ``psfhat`` (nband, nx_psf, ny_psf//2+1), both moved to ``device``.
     ``hessnorm`` is the power method's estimate x 1.05 when None. FISTA's

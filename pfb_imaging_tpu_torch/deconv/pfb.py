@@ -13,6 +13,8 @@ from functools import partial
 
 import torch
 
+from ..ops import LinearOperator, require_protocol
+from ..opt import BackwardSolver, ForwardSolver
 from ..opt.power_method import power_method
 
 log = logging.getLogger("pfb_tpu.PFB")
@@ -62,6 +64,9 @@ class PFBSolver:
     def __init__(self, hess, forward_alg, backward_alg, prox, *, model, update, gamma: float = 1.0,
                  hessnorm: float | None = None, l1_reweight_from: int = 5, maxreweight: int = 20,
                  pm_tol: float = 1e-3, pm_maxit: int = 100, verbosity: int = 1, generator=None, mesh=None):
+        require_protocol(hess, LinearOperator, "hess")
+        require_protocol(forward_alg, ForwardSolver, "forward_alg")
+        require_protocol(backward_alg, BackwardSolver, "backward_alg")
         self.hess = hess
         self.forward_alg = forward_alg
         self.backward_alg = backward_alg

@@ -102,7 +102,7 @@ def make_sara(abspsfhat_per_band, wsums, geometry, model, update, opts=None, bea
     bwd = _build_backward(opts, mesh)
     bases = tuple(opts["bases"].split(",")) if isinstance(opts["bases"], str) else tuple(opts["bases"])
     psi = Psi(model.shape[0], geometry["nx"], geometry["ny"], bases=bases, nlevel=opts["nlevels"], device=device)
-    reg = L21(psi, nu=len(bases), rmsfactor=opts["rmsfactor"], alpha=opts["alpha"], mesh=mesh)
+    reg = L21(psi, bases, nu=len(bases), rmsfactor=opts["rmsfactor"], alpha=opts["alpha"], mesh=mesh)
     hess = _build_hess(abspsfhat_per_band, wsums, geometry, opts, beam_per_band, device, mesh, transposed)
     return _solver(hess, bwd, reg, model, update, opts, device, mesh)
 

@@ -56,6 +56,7 @@ def _build_and_load_locked():
 
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
     f64p = np.ctypeslib.ndpointer(np.float64, flags="C")
+    lib.uvw_to_pix.argtypes = [f64p, f64p, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_double] * 8 + [f64p] * 5
     lib.wplane_buckets.argtypes = [i64p] + [ctypes.c_int64] * 4 + [i64p] * 3
     lib.idg_coords.argtypes = (
         [f64p] * 2
@@ -82,6 +83,30 @@ def _lib():
     lib = _build_and_load()
     PLAN_STATS["numpy" if lib is None else "native"] += 1
     return lib
+
+
+def have_native() -> bool:
+    """Whether the host planning library built and loaded."""
+    return _build_and_load() is not None
+
+
+def uvw_to_pix(uvw, freq, su, sv, sw, scale_u, scale_v, inv_c, l_shift, m_shift):
+    """Fused coordinate conversion of (nrow, 3) uvw at each channel; returns
+    flat (u_pix, v_pix, w_lam, phase_shift), phase_shift = exp(-2 pi i (u
+    l_shift + v m_shift)) in wavelengths."""
+    lib = _lib()
+    nrow, nchan = uvw.shape[0], freq.shape[0]
+    if lib is None:
+        u_l = su * np.multiply.outer(uvw[:, 0], freq * inv_c)
+        v_l = sv * np.multiply.outer(uvw[:, 1], freq * inv_c)
+        w_l = sw * np.multiply.outer(uvw[:, 2], freq * inv_c)
+        shift = np.exp(-2j * np.pi * (u_l * l_shift + v_l * m_shift))
+        return (u_l * scale_u).ravel(), (v_l * scale_v).ravel(), w_l.ravel(), shift.ravel()
+    n = nrow * nchan
+    u_pix, v_pix, w_lam, sre, sim = (np.empty(n) for _ in range(5))
+    lib.uvw_to_pix(np.ascontiguousarray(uvw, dtype=np.float64), np.ascontiguousarray(freq, dtype=np.float64), nrow,
+                   nchan, su, sv, sw, scale_u, scale_v, inv_c, l_shift, m_shift, u_pix, v_pix, w_lam, sre, sim)
+    return u_pix, v_pix, w_lam, sre + 1j * sim
 
 
 def wplane_buckets(i0, nw: int, w_supp: int):

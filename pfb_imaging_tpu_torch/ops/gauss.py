@@ -37,7 +37,7 @@ def kron_matvec(mats, x):
 class Gauss:
     """GP prior operator over (nband, nx, ny) cubes on ``device``."""
 
-    def __init__(self, freqs, xcoords, ycoords, sigma_f=1.0, lf=1.0, lx=1.0, ly=1.0, jitter=1e-10, device="cuda"):
+    def __init__(self, freqs, xcoords, ycoords, sigma_f=1.0, lf=1.0, lx=1.0, ly=1.0, jitter=1e-10, *, device="cuda"):
         self.kf = expsq(freqs, freqs, sigma_f, lf) + jitter * np.eye(len(freqs))
         self.kx = expsq(xcoords, xcoords, 1.0, lx) + jitter * np.eye(len(xcoords))
         self.ky = expsq(ycoords, ycoords, 1.0, ly) + jitter * np.eye(len(ycoords))

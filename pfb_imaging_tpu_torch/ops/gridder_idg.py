@@ -101,7 +101,7 @@ def _fit_rows(S, xis, dus, phis, xc, ks, F):
 
 
 def fit_taper(S: int, half: int, ximax: float, chirp_max: float = CHIRP_BUDGET, tol: float | None = None,
-              widen: bool = False):
+              *, widen: bool = False):
     """Joint (taper c, band response T) optimisation; returns (c, T_of_xi, err).
 
     Minimises the deviation of the patch's demodulated image response from
@@ -937,14 +937,18 @@ def vis2dirty_idg_grouped(plan: IDGPlan, vals):
     return _idg_finish(plan, _idg_accumulate_bins(plan, patches))
 
 
-def vis2dirty_idg(plan: IDGPlan, vis, wgt=None, vis_im=None):
+def vis2dirty_idg(plan: IDGPlan, vis, wgt=None, mask=None, vis_im=None):
     """Grid (nrow, nchan) visibilities to an (nx, ny) dirty image (adjoint).
 
     ``vis`` is complex, or its real part with ``vis_im`` the imaginary part;
-    ``wgt`` (masked weights) multiplies each visibility.
+    ``wgt`` and ``mask`` multiply each visibility (the mask multiplies the
+    weight, as in JAX).
     """
     if vis_im is None:
         vis, vis_im = vis.real, vis.imag
+    if mask is not None:
+        mask = torch.as_tensor(mask).to(device=plan.device, dtype=plan.rdt)
+        wgt = mask if wgt is None else wgt.to(plan.rdt) * mask
     return vis2dirty_idg_grouped(plan, _idg_prepare(plan, vis, vis_im, wgt))
 
 
@@ -1055,14 +1059,23 @@ def _weighted_round_trip(plan: IDGPlan, vals, wgt):
     return _idg_prepare(plan, mvis[0], mvis[1])
 
 
-def hessian_vis_idg(plan: IDGPlan, x, wgt_g=None):
-    """Exact vis-space Hessian R^H W R x. ``wgt_g`` is the masked weight: in
-    group layout (:func:`to_group_layout`) for chirp plans, whose round trip
-    is then gather-free; in original (nrow, nchan) layout for wplanes plans,
-    where the weight applies to the replica sum, so the round trip pays the
-    replica gather each way."""
-    vals = _weighted_round_trip(plan, dirty2vis_idg_grouped(plan, x), wgt_g)
-    return vis2dirty_idg_grouped(plan, vals)
+def hessian_vis_idg(plan: IDGPlan, x, wgt_g=None, beam=None, eta: float = 0.0, wsum=None):
+    """Exact vis-space Hessian B R^H W R B x / wsum + eta x. ``wgt_g`` is the
+    masked weight: in group layout (:func:`to_group_layout`) for chirp
+    plans, whose round trip is then gather-free; in original (nrow, nchan)
+    layout for wplanes plans, where the weight applies to the replica sum,
+    so the round trip pays the replica gather each way. ``beam``, ``wsum``
+    and ``eta`` are applied around the round trip only when given."""
+    xin = x if beam is None else x * beam
+    vals = _weighted_round_trip(plan, dirty2vis_idg_grouped(plan, xin), wgt_g)
+    conv = vis2dirty_idg_grouped(plan, vals)
+    if wsum is not None:
+        conv = conv / wsum
+    if beam is not None:
+        conv = conv * beam
+    if eta:
+        conv = conv + eta * x
+    return conv
 
 
 # ── carrying a JAX plan across ───────────────────────────────────────

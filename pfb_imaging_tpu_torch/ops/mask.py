@@ -13,7 +13,7 @@ from .. import resolve_device
 class Mask:
     """image <-> unmasked-component vector, the indices on ``device``."""
 
-    def __init__(self, mask, device="cuda"):
+    def __init__(self, mask, *, device="cuda"):
         mask = np.asarray(mask)
         self.shape = mask.shape
         self.idx = torch.from_numpy(np.nonzero(mask.ravel())[0]).to(resolve_device(device))

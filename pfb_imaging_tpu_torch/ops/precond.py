@@ -50,7 +50,7 @@ class HessPSF:
     """
 
     def __init__(self, abspsfhat, nx_psf: int, ny_psf: int, beam=None, eta=1e-5, cg_tol: float = 1e-4,
-                 cg_maxit: int = 100, cg_minit: int = 1, taper_width: int = 32, device="cuda"):
+                 cg_maxit: int = 100, cg_minit: int = 1, taper_width: int = 32, *, device="cuda"):
         dev = resolve_device(device)
         rdt = real_dtype(dev)
         self.abspsfhat = as_device(abspsfhat, dev, rdt)

@@ -13,13 +13,15 @@ import math
 import torch
 
 
-def fista(fprime, prox, x0, beta, tol: float = 1e-3, maxit: int = 100, info=None):
+def fista(fprime, prox, x0, beta, tol: float = 1e-3, maxit: int = 100, report_freq: int = 10, verbosity: int = 1,
+          *, info=None):
     """Minimise f(x) + g(x) with smooth gradient ``fprime`` (returns
     (objective, gradient)) and prox of g. ``beta`` is the Lipschitz estimate.
 
     Returns the final iterate; the iterations and the backtracking events
     (objective increases that doubled ``beta``) go to ``info["niter"]`` and
-    ``info["nbacktrack"]`` when a dict is passed.
+    ``info["nbacktrack"]`` when a dict is passed. ``report_freq`` and
+    ``verbosity`` keep JAX's positions; neither package's loop logs.
     """
     hessnorm0 = beta
     t = 1.0

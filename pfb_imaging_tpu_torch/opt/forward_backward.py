@@ -14,6 +14,7 @@ from __future__ import annotations
 import logging
 import math
 
+from ..ops import PsiOperator, require_protocol
 from .pcg import stop_eps
 
 log = logging.getLogger("pfb_tpu.FB")
@@ -52,11 +53,12 @@ class ForwardBackward:
     ``on_converge`` declines runs up to ``maxit`` iterations again while
     the budget shrinks by the iterations taken."""
 
-    def __init__(self, tol: float = 1e-5, maxit: int = 1000, verbosity: int = 1, gamma: float = 1.0,
-                 acceleration: bool = True, on_converge=None, primal_prox=None, mesh=None):
+    def __init__(self, tol: float = 1e-5, maxit: int = 1000, report_freq: int = 10, verbosity: int = 1,
+                 gamma: float = 1.0, acceleration: bool = True, on_converge=None, primal_prox=None, *, mesh=None):
         self.tol = tol
         self.mesh = mesh
         self.maxit = maxit
+        self.report_freq = report_freq  # JAX's; the port logs once, at the end
         self.verbosity = verbosity
         self.gamma = gamma
         self.acceleration = acceleration
@@ -67,12 +69,16 @@ class ForwardBackward:
         self.niter_last = 0
 
     def setup(self, prox, hessnorm: float) -> None:
+        require_protocol(prox.psi, PsiOperator, "prox.psi")
         self._reg = prox
         self.hessnorm = float(hessnorm)
         self.step = 2.0 * self.gamma / self.hessnorm
 
     def set_grad(self, grad) -> None:
         self._grad = grad
+
+    def reset(self) -> None:
+        """No warm-start state beyond x itself."""
 
     def solve(self, x, lam: float):
         if self._reg is None:

@@ -51,7 +51,7 @@ def stop_eps(xn, x, mesh=None) -> float:
     return eps if nonzero > 0 else 1.0
 
 
-def pcg(aop, b, x0=None, precond=None, tol: float = 1e-5, maxit: int = 500, minit: int = 100, info=None,
+def pcg(aop, b, x0=None, precond=None, tol: float = 1e-5, maxit: int = 500, minit: int = 100, *, info=None,
         mesh=None):
     """Solve ``aop(x) = b``, preconditioned by ``precond`` (an approximate
     inverse of ``aop``) when it is given. Returns x (same shape as b); the
@@ -93,10 +93,11 @@ class PCG:
     """``ForwardSolver`` over a hess with a ``dot`` method, preconditioned by
     ``hess.precond`` where the hess has one."""
 
-    def __init__(self, tol: float = 1e-5, maxit: int = 500, minit: int = 100, mesh=None):
+    def __init__(self, tol: float = 1e-5, maxit: int = 500, minit: int = 100, verbosity: int = 1, *, mesh=None):
         self.tol = tol
         self.maxit = maxit
         self.minit = minit
+        self.verbosity = verbosity  # JAX's; neither solver logs
         self.mesh = mesh
         self.niter_last = 0
 

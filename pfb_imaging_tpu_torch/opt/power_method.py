@@ -12,7 +12,7 @@ import torch
 from .pcg import band_dots
 
 
-def power_method(aop, imsize, b0=None, tol: float = 1e-5, maxit: int = 250, generator=None,
+def power_method(aop, imsize, b0=None, tol: float = 1e-5, maxit: int = 250, *, generator=None,
                  device=None, dtype=None, mesh=None):
     """Largest eigenvalue of the symmetric operator ``aop``.
 

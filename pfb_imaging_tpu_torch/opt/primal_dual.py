@@ -8,8 +8,10 @@ Per iteration:
     x     = primal_prox(x)
     eps   = ||x - xp|| / ||x||
 
-Step sizes: sigma = hessnorm / (2 gamma) / nu, tau = 0.98 / (hessnorm /
-(2 gamma) + sigma nu^2), with ``nu`` the squared frame bound (design D3).
+Step sizes: sigma = hessnorm / (2 gamma) / nu unless given, tau = 0.98 /
+(hessnorm / (2 gamma) + sigma nu^2), with ``nu`` the squared frame bound
+(design D3). A regulariser without a fused ``dual_update_fn`` (``L1``) is
+served by the Moreau decomposition through its ``prox_fn``.
 Inner l1 reweighting is a host-level outer loop around the inner loop,
 and the dual is warm-started across ``solve`` calls. Under a band mesh the
 iterates are this rank's band slice: the dual update's band sum (the
@@ -24,6 +26,7 @@ import logging
 
 import torch
 
+from ..ops import PsiOperator, require_protocol
 from ..prox.prox_21m import dual_update as _dual_update_21m
 from .pcg import stop_eps
 
@@ -47,13 +50,15 @@ def primal_dual_loop(x, v, lam, l1weight, sigma, tau, grad, *, psi_dot, psi_hdot
 class PrimalDual:
     """``BackwardSolver``: PDHG with a warm dual and reweight-on-converge."""
 
-    def __init__(self, tol: float = 1e-5, maxit: int = 1000, verbosity: int = 1, gamma: float = 1.0,
-                 on_converge=None, primal_prox=None, mesh=None):
+    def __init__(self, tol: float = 1e-5, maxit: int = 1000, report_freq: int = 10, verbosity: int = 1,
+                 gamma: float = 1.0, sigma: float | None = None, on_converge=None, primal_prox=None, *, mesh=None):
         self.tol = tol
         self.mesh = mesh
         self.maxit = maxit
+        self.report_freq = report_freq  # JAX's; the port logs once, at the end
         self.verbosity = verbosity
         self.gamma = gamma
+        self._sigma_opt = sigma
         self.on_converge = on_converge
         self.primal_prox = primal_prox
         self._grad = None
@@ -61,13 +66,28 @@ class PrimalDual:
         self._v = None
 
     def setup(self, prox, hessnorm: float) -> None:
+        require_protocol(prox.psi, PsiOperator, "prox.psi")
         self._reg = prox
         self.hessnorm = float(hessnorm)
         nu = prox.nu
-        self.sigma = self.hessnorm / (2.0 * self.gamma) / nu
-        self.tau = 0.98 / (self.hessnorm / (2.0 * self.gamma) + self.sigma * nu**2)
+        sigma = self._sigma_opt
+        if sigma is None:
+            sigma = self.hessnorm / (2.0 * self.gamma) / nu
+        self.sigma = sigma
+        self.tau = 0.98 / (self.hessnorm / (2.0 * self.gamma) + sigma * nu**2)
         psi = prox.psi
         self._v = torch.zeros((psi.nband, psi.nbasis, psi.nymax, psi.nxmax), dtype=psi.dtype, device=psi.device)
+        # the regulariser's fused dual update where it has one, else the
+        # Moreau decomposition through its prox
+        fn = getattr(prox, "dual_update_fn", None)
+        if fn is None:
+            prox_fn = prox.prox_fn
+
+            def fn(vp, v, lam, sigma=1.0, weight=None):
+                vtilde = vp + sigma * v
+                return vtilde - sigma * prox_fn(vtilde, lam, sigma=sigma, weight=weight)
+
+        self._dual_fn = fn
 
     def set_grad(self, grad) -> None:
         self._grad = grad
@@ -88,9 +108,9 @@ class PrimalDual:
         eps = 1.0
         while budget > 0:
             x, v, k, eps = primal_dual_loop(
-                x, v, lam, reg.l1weight, self.sigma, self.tau, self._grad,
+                x, v, lam, getattr(reg, "l1weight", None), self.sigma, self.tau, self._grad,
                 psi_dot=reg.psi.dot, psi_hdot=reg.psi.hdot, primal_prox=self.primal_prox,
-                dual_update=reg.dual_update_fn, tol=self.tol, maxit=self.maxit, it_cap=budget, mesh=self.mesh,
+                dual_update=self._dual_fn, tol=self.tol, maxit=self.maxit, it_cap=budget, mesh=self.mesh,
             )
             k_total += k
             budget -= k

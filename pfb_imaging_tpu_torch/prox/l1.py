@@ -5,11 +5,14 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import PsiOperator, require_protocol
+
 
 class L1:
     """R(alpha) = ||W alpha||_1 over the coefficients of ``psi``."""
 
     def __init__(self, psi, nu: float = 1.0):
+        require_protocol(psi, PsiOperator, "psi")
         self.psi = psi
         self.nu = nu
         self.weight = torch.ones((psi.nbasis, psi.nymax, psi.nxmax), dtype=psi.dtype, device=psi.device)

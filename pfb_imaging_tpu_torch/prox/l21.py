@@ -15,8 +15,10 @@ from functools import partial
 import numpy as np
 import torch
 
+from ..ops import PsiOperator, require_protocol
 from ..parallel.mesh import band_sum
 from .prox_21m import dual_update as _dual_update
+from .prox_21m import prox_21m as _prox_21m
 
 
 def l1reweight_func(mcomps, rmsfactor, rms_comps, alpha=4):
@@ -28,20 +30,31 @@ def l1reweight_func(mcomps, rmsfactor, rms_comps, alpha=4):
 
 
 class L21:
-    """R(x) = ||W Psi^T x||_{21m} over ``psi`` (a Psi on some device)."""
+    """R(x) = ||W Psi^T x||_{21m} over ``psi`` (a Psi on some device);
+    ``bases`` names its bases (kept for the log, as in JAX)."""
 
-    def __init__(self, psi, nu: float = 1.0, rmsfactor: float = 1.0, alpha: float = 2.0, mesh=None):
+    def __init__(self, psi, bases, nu: float = 1.0, rmsfactor: float = 1.0, alpha: float = 2.0, *, mesh=None):
+        require_protocol(psi, PsiOperator, "psi")
         self.psi = psi
         self.mesh = mesh
         self.nu = nu
+        self.bases = tuple(bases)
         self.rmsfactor = rmsfactor
         self.alpha = alpha
         self.l1weight = torch.ones((psi.nbasis, psi.nymax, psi.nxmax), dtype=psi.dtype, device=psi.device)
         self._rms_comps = None
 
     @property
+    def prox_fn(self):
+        return _prox_21m if self.mesh is None else partial(_prox_21m, mesh=self.mesh)
+
+    @property
     def dual_update_fn(self):
         return _dual_update if self.mesh is None else partial(_dual_update, mesh=self.mesh)
+
+    def prox(self, v, lam, sigma: float = 1.0):
+        """prox_{(lam/sigma)||W .||_{21m}}(v/sigma)."""
+        return self.prox_fn(v, lam, sigma=sigma, weight=self.l1weight)
 
     @property
     def reweight_active(self) -> bool:

@@ -13,7 +13,7 @@ import torch
 from ..parallel.mesh import band_sum
 
 
-def prox_21m(v, lam, sigma: float = 1.0, weight=None, mesh=None):
+def prox_21m(v, lam, sigma: float = 1.0, weight=None, *, mesh=None):
     """prox of (lam/sigma)*||W .||_{21m} evaluated at v/sigma."""
     if weight is None:
         weight = torch.ones_like(v[0])
@@ -25,7 +25,7 @@ def prox_21m(v, lam, sigma: float = 1.0, weight=None, mesh=None):
     return v * ratio[None] / sigma
 
 
-def dual_update(vp, v, lam, sigma: float = 1.0, weight=None, mesh=None):
+def dual_update(vp, v, lam, sigma: float = 1.0, weight=None, *, mesh=None):
     """v = vtilde * min(1, lam*w / |sum_b vtilde|), vtilde = vp + sigma*v."""
     if weight is None:
         weight = torch.ones_like(v[0])

@@ -117,7 +117,7 @@ def _mini_yaml(text: str):
     return root
 
 
-def run_recipe(path: str, params: dict | None = None, device="cuda") -> None:
+def run_recipe(path: str, params: dict | None = None, *, device="cuda") -> None:
     """Execute a recipe through the port's CLI (in-process), every step on
     ``device``."""
     from .cli import main as cli_main

@@ -1,8 +1,10 @@
 """Primary-beam models and interpolation onto the image grid (the port's
 copy of pfb_imaging_tpu/utils/beam.py, host numpy): the analytic dish
 beams ``init`` evaluates at ingest (Gaussian, and the cosine-tapered
-MeerKAT-like model under its katbeam names), holography archives, and the
-small-grid -> image-grid interpolation the imager uses."""
+MeerKAT-like model under its katbeam names), holography archives, the
+small-grid -> image-grid interpolation the imager uses, a beam sampled at
+parallactically rotated coordinates, and the reprojection of a beam image
+between SIN-projected fields."""
 
 from __future__ import annotations
 
@@ -32,6 +34,11 @@ def interp_beam(beam_small, l_small, m_small, l_image, m_image):
                                      method="linear")
     pts = np.stack(np.broadcast_arrays(l_image, m_image), axis=-1)
     return interp(pts)
+
+
+def eval_beam(beam_small, l_small, m_small, xx, yy):
+    """:func:`interp_beam` under the reference's name."""
+    return interp_beam(beam_small, l_small, m_small, xx, yy)
 
 
 # katbeam-equivalent parametric model: theta_FWHM = fwhm_scale * lambda / D
@@ -100,3 +107,46 @@ def eval_beam_model(btype, l_grid, m_grid, freq, diameter: float = 13.5):
         amp, l_h, m_h, freqs = load_holography_npz(btype)
         return interp_beam(beam_at_freq(amp, freqs, freq), l_h, m_h, l_grid, m_grid)
     raise ValueError(f"Unknown beam model {btype!r}")
+
+
+def rotate_beam(beam_small, l_small, m_small, parang, l_out, m_out):
+    """A small-grid beam sampled at (l_out, m_out) rotated by the
+    parallactic angle ``parang`` (radians)."""
+    c, s = np.cos(parang), np.sin(parang)
+    ll, mm = np.broadcast_arrays(l_out, m_out)
+    return interp_beam(beam_small, l_small, m_small, c * ll - s * mm, s * ll + c * mm)
+
+
+def reproject_beam(beam_in, cell_in, radec_in, radec_out, cell_out, nxo, nyo, fill: float = 0.0):
+    """Reproject a beam image between SIN-projected tangent fields: each
+    output pixel's sky direction under the target projection is mapped to
+    the input projection's (l, m) and sampled bilinearly; directions off
+    the input grid get ``fill``. ``beam_in`` is (nx, ny) or (nstokes, nx,
+    ny); cells in radians, centres (ra, dec) in radians."""
+    from scipy.interpolate import RegularGridInterpolator
+
+    ra0, dec0 = radec_in
+    raf, decf = radec_out
+    single = beam_in.ndim == 2
+    bin_ = beam_in[None] if single else beam_in
+    nxi, nyi = bin_.shape[-2:]
+    # target pixels' direction cosines about (raf, decf)
+    lo = (np.arange(nxo) - nxo // 2) * cell_out
+    mo = (np.arange(nyo) - nyo // 2) * cell_out
+    ll, mm = np.meshgrid(lo, mo, indexing="ij")
+    nn = np.sqrt(np.maximum(1.0 - ll**2 - mm**2, 0.0))
+    # inverse SIN: the sky (ra, dec) of each target pixel
+    dec = np.arcsin(np.clip(mm * np.cos(decf) + nn * np.sin(decf), -1.0, 1.0))
+    ra = raf + np.arctan2(ll, nn * np.cos(decf) - mm * np.sin(decf))
+    # forward SIN about the input centre
+    dra = ra - ra0
+    l_in = np.cos(dec) * np.sin(dra)
+    m_in = np.sin(dec) * np.cos(dec0) - np.cos(dec) * np.sin(dec0) * np.cos(dra)
+    li = (np.arange(nxi) - nxi // 2) * cell_in
+    mi = (np.arange(nyi) - nyi // 2) * cell_in
+    out = np.empty((bin_.shape[0], nxo, nyo), bin_.dtype)
+    pts = np.stack([l_in, m_in], axis=-1)
+    for k in range(bin_.shape[0]):
+        it = RegularGridInterpolator((li, mi), bin_[k], bounds_error=False, fill_value=fill, method="linear")
+        out[k] = it(pts)
+    return out[0] if single else out

@@ -106,6 +106,46 @@ def test_hessian_vis_matches_jax(layout, eps):
     assert _rel(ht, hj) < 1e-9
 
 
+def _beam_wsum(nx, wgt):
+    beam = 0.5 + np.random.default_rng(29).random((nx, nx))
+    return beam, float(wgt.sum())
+
+
+@pytest.mark.parametrize("layout,eps", CASES)
+def test_hessian_vis_beam_eta_wsum_matches_jax(layout, eps):
+    """B R^H W R B x / wsum + eta x on a chirp plan, JAX's order of the
+    steps (the port took (plan, x, wgt_g) only)."""
+    pj, pt = _plans(layout, eps)
+    _, _, wgt, img = _data(layout)
+    beam, wsum = _beam_wsum(NX, wgt)
+    hj = J.hessian_vis_idg(pj, jnp.asarray(img), wgt_g=J.to_group_layout(pj, jnp.asarray(wgt)),
+                           beam=jnp.asarray(beam), eta=1e-3, wsum=wsum)
+    ht = T.hessian_vis_idg(pt, torch.as_tensor(img), wgt_g=T.to_group_layout(pt, torch.as_tensor(wgt)),
+                           beam=torch.as_tensor(beam), eta=1e-3, wsum=wsum)
+    assert _rel(ht, hj) < 1e-9
+    wg = T.to_group_layout(pt, torch.as_tensor(wgt))
+    plain = T.hessian_vis_idg(pt, torch.as_tensor(img * beam), wgt_g=wg)
+    assert _rel(ht, plain / wsum * torch.as_tensor(beam) + 1e-3 * torch.as_tensor(img)) < 1e-12
+
+
+@pytest.mark.parametrize("layout,eps", CASES)
+def test_vis2dirty_mask_in_jax_s_position(layout, eps):
+    """``vis2dirty_idg(plan, vis, wgt, mask)``, positional and by keyword,
+    grids JAX's image: the mask multiplies the weight (the port took a
+    positional fourth argument as the imaginary part)."""
+    pj, pt = _plans(layout, eps)
+    _, vis, wgt, _ = _data(layout)
+    mask = (np.random.default_rng(31).random(wgt.shape) > 0.3).astype(float)
+    dj = J.vis2dirty_idg(pj, jnp.asarray(vis), jnp.asarray(wgt), jnp.asarray(mask))
+    t = torch.as_tensor
+    pos = T.vis2dirty_idg(pt, t(vis), t(wgt), t(mask))
+    assert _rel(pos, dj) < 1e-9
+    assert torch.equal(T.vis2dirty_idg(pt, t(vis), wgt=t(wgt), mask=t(mask)), pos)
+    assert torch.equal(T.vis2dirty_idg(pt, t(vis), t(wgt * mask)), pos)
+    dj_mask_only = J.vis2dirty_idg(pj, jnp.asarray(vis), mask=jnp.asarray(mask))
+    assert _rel(T.vis2dirty_idg(pt, t(vis), mask=t(mask)), dj_mask_only) < 1e-9
+
+
 @pytest.mark.parametrize("layout,eps", CASES)
 def test_vis2dirty_within_delivered_accuracy_of_dft(layout, eps):
     pj, pt = _plans(layout, eps)
@@ -273,6 +313,22 @@ def test_wplanes_runtime_matches_jax(eps):
     assert _rel(T.dirty2vis_idg(pt, torch.as_tensor(img)), vj) < 1e-10
     hj = J.hessian_vis_idg(pj, jnp.asarray(img), wgt_g=jnp.asarray(wgt))
     assert _rel(T.hessian_vis_idg(pt, torch.as_tensor(img), wgt_g=torch.as_tensor(wgt)), hj) < 1e-10
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-7])
+def test_wplanes_hessian_beam_eta_wsum_matches_jax(eps):
+    """hessian_vis_idg(beam, eta, wsum) on a wplanes plan, whose weight is in
+    original layout, and vis2dirty_idg with a positional mask there."""
+    pj, pt = _wide_plans("wplanes", eps)
+    _, vis, wgt, img = _wide_data()
+    beam, wsum = _beam_wsum(WNX, wgt)
+    hj = J.hessian_vis_idg(pj, jnp.asarray(img), wgt_g=jnp.asarray(wgt), beam=jnp.asarray(beam), eta=1e-3,
+                           wsum=wsum)
+    t = torch.as_tensor
+    assert _rel(T.hessian_vis_idg(pt, t(img), wgt_g=t(wgt), beam=t(beam), eta=1e-3, wsum=wsum), hj) < 1e-9
+    mask = (np.random.default_rng(37).random(wgt.shape) > 0.3).astype(float)
+    dj = J.vis2dirty_idg(pj, jnp.asarray(vis), jnp.asarray(wgt), jnp.asarray(mask))
+    assert _rel(T.vis2dirty_idg(pt, t(vis), t(wgt), t(mask)), dj) < 1e-9
 
 
 @pytest.mark.parametrize("eps", [1e-5, 1e-7])

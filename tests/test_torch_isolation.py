@@ -52,7 +52,7 @@ for m in ("cli", "recipes", "core.simulate", "core.init", "core.restore", "ops.d
           "core.fluxtractor", "core.hci", "deconv.clark", "deconv.hogbom", "opt.forward_backward",
           "models.transients", "ops.precond", "ops.gauss", "ops.mask", "opt.fista", "deconv.nnls", "models.spi",
           "utils.astrometry", "utils.naming", "utils.profiling", "utils.debug", "parallel.mesh", "parallel.fft",
-          "parallel.multihost"):
+          "parallel.multihost", "ops", "opt", "deconv", "utils.beam", "native"):
     assert "pfb_imaging_tpu_torch." + m in names, m
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pfb_imaging_tpu"))
 print(len(names), bad)
