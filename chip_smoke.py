@@ -17,7 +17,13 @@ exits non-zero:
                one-plane grid of B5/B6), against its f64 and f32 plain
                versions (rel Linf <= 1e-5), and B4 (gather_grid_wstack) on the
                same plans against its f64 and f32 plain versions (<= 1e-5)
-               and against B3 by the adjoint identity (<= 1e-5);
+               and against B3 by the adjoint identity (<= 1e-5); then K1
+               (idg_assemble) and K2 (idg_extract) at three small plans
+               (chirp S = 16, chirp S = 24 with half 8, wplanes S = 32 padded
+               to per-bin capacities): each bin
+               twice (the same bits), against the plain versions (<= 1e-6 in
+               f32 and f64) and K1 against the gather-form plain version
+               (its own order of sums: the same bits recorded);
   3. accuracy — the port's f32 ``vis2dirty_idg`` at 256^2, 100k vis and
                epsilon 1e-7 against a direct f64 DFT on the card, within the
                plan's ``delivered_accuracy`` budgets; and the f32
@@ -36,7 +42,11 @@ exits non-zero:
                shape deconv ran (every band's groups in one launch, on the
                values that launch takes), and the final model's residual by
                the multiband and the per-band route, both timed and traced,
-               within ``ROUTE_REL_LIMIT`` of each other;
+               within ``ROUTE_REL_LIMIT`` of each other. At that launch also
+               the multiband Hessian twice (the same bits recorded) and K1/K2
+               over every bin of every band (``assembly_kernels``: two
+               launches the same bits, within 1e-6 of the plain versions,
+               K2 writing every group; ms of K1, K2 and the old torch path);
   5. profile — at the main path's shapes, CUDA-event ms of the PSF Hessian
                matvec, Psi.dot/hdot and the dual update, then 20 primal-dual
                and 20 CG iterations on the host clock and under
@@ -76,8 +86,9 @@ exits non-zero:
                zeroed right before it (every cycle on the multiband route,
                no band falling back, rms falling), B1/B2 at that route's
                launch shape (1.2M groups, patch offsets past 2^31; f64 on
-               the last 65,536 groups), the final model's residual by the
-               multiband and the per-band route (both on wplanes IDG plans,
+               the last 65,536 groups) and K1/K2 with the multiband
+               Hessian twice as in the main path, the final model's
+               residual by the multiband and the per-band route (both on wplanes IDG plans,
                timed and traced, within ``ROUTE_REL_LIMIT``),
                ``imager(gridder="auto")`` on a store of the array's sky
                visibilities (IDG, every image and PSF plan wplanes), and
@@ -113,7 +124,8 @@ exits non-zero:
                hogbom`` on another copy, ``fluxtractor`` on the Clark tree
                with ``--cg-maxit`` sized from one timed ``hessian_vis`` so the
                step takes about 20 s (the mop finite; B1/B2 in its
-               residual), ``deconv --preset ista --niter 1`` on a third copy
+               residual; its Hessian's scatter on B3, one apply run twice,
+               the same bits recorded), ``deconv --preset ista --niter 1`` on a third copy
                (B1/B2, the rms falling), then ``hci --nx 1024 --freq-chunks 4``
                on a 64-scan store of single integrations of the same array and
                sky from the simulator (IDG, one B1 launch a snapshot, the
@@ -141,13 +153,23 @@ exits non-zero:
                the host syncs per iteration under
                ``set_sync_debug_mode("warn")``, ``memory_line()`` and the
                PSF Hessian's flops by ``cost_analysis``; at band 0's
-               residual plan, ``hessian_vis_idg(beam=, eta=, wsum=)`` (B2
-               and B1 launched; its composition of the port's own calls
-               within 1e-6) and ``vis2dirty_idg`` with a mask positional
-               and by keyword (B1 launched; the run with the weight times
-               the mask within 1e-7); ``PrimalDual`` + ``L1`` on a lasso of
-               the cube's size (the soft threshold within 1e-5 max|b|).
- 13. parallel — ``parallel/`` on the one card, each part's ranks started
+               residual plan, ``hessian_vis_idg(beam=, eta=, wsum=)`` (B2,
+               B1, K2 and K1 launched; its composition of the port's own
+               calls within 1e-6; its device ms by kernel family from
+               ``torch.profiler``) and ``vis2dirty_idg`` with a mask
+               positional and by keyword (B1 launched; the run with the
+               weight times the mask within 1e-7), each of these and
+               ``dirty2vis_idg`` run twice; ``PrimalDual`` + ``L1`` on a
+               lasso of the cube's size (the soft threshold within 1e-5
+               max|b|).
+ 13. same_bits — with no determinism switch, every call run twice above
+               (``hessian_vis_idg(beam, eta, wsum)``, ``vis2dirty_idg(mask)``
+               and ``dirty2vis_idg`` at band 0's plan, the multiband Hessian
+               at the deconv and widefield launches, fluxtractor's classic
+               ``hessian_vis``) and ``sara --niter 2 --pd-maxit 20`` run
+               twice on copies of the imaged tree (MODEL and the MFS
+               residual) must give the same bits;
+ 14. parallel — ``parallel/`` on the one card, each part's ranks started
                as child processes (``torch.multiprocessing.spawn``; a rank
                that fails or outlives its timeout fails the smoke): (a) one
                rank on NCCL, ``sara --niter 1 --pd-maxit 100 --use-mesh`` on
@@ -169,7 +191,8 @@ exits non-zero:
                iterations. Two ranks share one card: the times are the
                collectives' cost, not scaling.
 Then the kernel summary line (every kernel with its launches on its main
-path, error, ms, plain ms and bound at the shape those launches take; B1/B2
+path, error, ms, plain ms and bound at the shape those launches take; K1/K2
+at the main path's and the widefield multiband launch, over every bin; B1/B2
 also at band 0's plan and at the widefield multiband launch and band plan,
 with the widefield phase's launches, at the pipeline's launch shapes under
 ``*_pipeline_*`` keys, at the commands' under ``*_commands_*`` keys and at
@@ -202,7 +225,7 @@ LIGHTSPEED = 299792458.0
 HBM_BYTES_PER_S = 3.35e12
 # rel Linf between the multiband and the per-band residual of one model, and
 # between deconv's residual and the multiband route's recomputation (f32
-# plans on different w grids, the assembly's atomic sums in another order)
+# plans on different w grids and group layouts)
 ROUTE_REL_LIMIT = 1e-4
 F32_FLOPS = 67e12
 # dense TF32 on the tensor cores; B1/B2 take three passes (3xTF32)
@@ -215,7 +238,13 @@ REPLACES = {
     "scatter_grid_wstack": "pfb_imaging_tpu/ops/gridder_pallas.py:353; pfb_imaging_tpu/ops/gridder_pallas.py:144; "
                            "pfb_imaging_tpu/ops/gridder_pallas.py:564",
     "gather_grid_wstack": "pfb_imaging_tpu/ops/gridder_pallas.py:717",
+    # the port's own kernels: the JAX functions were XLA ops, not Pallas kernels
+    "idg_assemble": "pfb_imaging_tpu/ops/gridder_idg.py:2026 (_assemble_bin)",
+    "idg_extract": "pfb_imaging_tpu/ops/gridder_idg.py:2482 (_extract_bin)",
 }
+# why library_ms is null for K1/K2
+ASSEMBLY_NO_LIBRARY = ("no one PyTorch call places patches periodically on a grid: the plain version is a lattice "
+                       "index_add_, r^2 shifted adds and a fold (K1), or a periodic extension and a gather (K2)")
 
 
 def emit(obj) -> None:
@@ -898,6 +927,212 @@ def multiband_kernels(model, f64_groups: int | None = None, f64_at_end: bool = F
     return rec, mplan
 
 
+def assembly_bounds(pairs) -> tuple:
+    """The least time (ms) of K1 and of K2 over ``pairs`` ((plan, bin), all
+    of one launch shape): bytes, each moved once, over the HBM rate. K1
+    reads each group's two S x S f32 planes, the bin's CSR row (4 (nbu nbv
+    + 1) bytes) and, where the plan has one, its order entries (4 bytes a
+    group), and writes the bin's complex64 grid once; K2 reads the grid and
+    the groups' int64 bucket ids and writes their patches. Their operations
+    (two f32 adds a patch element for K1, none for K2) take a thousandth of
+    that at the f32 rate."""
+    from pfb_imaging_tpu_torch.ops.gridder_idg import bucket_csr
+
+    k1 = k2 = 0
+    for p, b in pairs:
+        gc, grid = p.bin_gcount[b], 8 * p.nbig_x * p.nbig_y
+        k1 += 8 * gc * p.S**2 + grid + 4 * (p.nbu * p.nbv + 1) + (4 * gc if bucket_csr(p).order is not None else 0)
+        k2 += grid + 8 * gc + 8 * gc * p.S**2
+    return k1 / HBM_BYTES_PER_S * 1e3, k2 / HBM_BYTES_PER_S * 1e3
+
+
+def forward_grid(p, x, b: int):
+    """Bin ``b``'s complex (nbig_x, nbig_y) forward uv grid of image ``x``
+    at plan ``p``, as the forward computes it before K2."""
+    import torch
+
+    from pfb_imaging_tpu_torch import complex_dtype
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _screen
+
+    y = x.to(p.rdt).to(complex_dtype(p.rdt)) * torch.complex(p.corr_re, p.corr_im).conj()
+    if p.do_wgridding:
+        y = y * _screen(p, b, 1.0)
+    px0, py0 = p.nbig_x // 2 - p.nx // 2, p.nbig_y // 2 - p.ny // 2
+    padded = torch.zeros((p.nbig_x, p.nbig_y), dtype=y.dtype, device=y.device)
+    padded[px0 : px0 + p.nx, py0 : py0 + p.ny] = y
+    return torch.fft.fft2(torch.fft.ifftshift(padded))
+
+
+def assembly_kernels(plans: list, patches: list, grids: list, reps: int = 5, gather_bins: int = 1) -> dict:
+    """K1 (``assemble_bin``) and K2 (``extract_bin``) at one launch shape:
+    every non-empty bin of every plan of ``plans`` (the bands of a
+    multiband launch), plan i's groups taken from ``patches[i]`` (a view
+    into the launch's patch tensor) and its forward grid ``grids[i]`` (one
+    grid a plan, for all its bins). Per bin: K1 twice, the same bits
+    required, held against its plain version in f32 (the old path, whose
+    ``index_add_`` adds atomically on the card) and in f64, and on the first
+    ``gather_bins`` bins against the gather-form plain version (K1's own
+    order of sums); K2 twice into its patches, the same bits required, held
+    against its plain version; both within 1e-6 relative L-inf. CUDA-event
+    ms of all bins through K1 and through the old path, and of K2 and of
+    its plain version (the launch's whole assembly, or its whole
+    extraction); the bounds. K2 overwrites ``patches``."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops import gridder_idg as GI
+
+    pairs = [(i, b) for i, p in enumerate(plans) for b in range(p.nbins) if p.bin_gcount[b]]
+    k1_rel = k1_rel64 = k1_err = k1_gather_rel = k2_rel = k2_err = 0.0
+    k1_same = k1_gather_same = k2_same = k2_plain_same = True
+    for n, (i, b) in enumerate(pairs):
+        p, pat = plans[i], patches[i]
+        gs, gc = p.bin_gstart[b], p.bin_gcount[b]
+        bid_b = p.bid[gs : gs + gc]
+        g1, g2 = GI.assemble_bin(p, pat, b), GI.assemble_bin(p, pat, b)
+        k1_same &= bool(torch.equal(g1, g2))
+        ref32 = GI._assemble_bin(p, pat[:, gs : gs + gc], bid_b)
+        ref64 = GI._assemble_bin(p, pat[:, gs : gs + gc].double(), bid_b)
+        k1_rel = max(k1_rel, rel_linf(g1, ref32))
+        k1_rel64 = max(k1_rel64, rel_linf(g1.to(ref64.dtype), ref64))
+        k1_err = max(k1_err, float((g1.to(ref64.dtype) - ref64).abs().max()))
+        if n < gather_bins:
+            gref = GI.assemble_bin_gather_ref(p, pat, b)
+            k1_gather_same &= bool(torch.equal(g1, gref))
+            k1_gather_rel = max(k1_gather_rel, rel_linf(g1, gref))
+        del g1, g2, ref32, ref64
+    fill = [q.fill_(float("nan")) for q in patches]  # K2 must write every group
+    for i, b in pairs:
+        p, out = plans[i], fill[i]
+        gs, gc = p.bin_gstart[b], p.bin_gcount[b]
+        GI.extract_bin(p, grids[i], b, out)
+        e1 = out[:, gs : gs + gc].clone()
+        GI.extract_bin(p, grids[i], b, out)
+        k2_same &= bool(torch.equal(e1, out[:, gs : gs + gc]))
+        ref = GI._extract_bin(p, grids[i], p.bid[gs : gs + gc])
+        k2_plain_same &= bool(torch.equal(e1, ref))
+        k2_rel = max(k2_rel, rel_linf(e1, ref))
+        k2_err = max(k2_err, float((e1 - ref).abs().max()))
+        del e1, ref
+    covered = not any(bool(q.isnan().any()) for q in fill)
+    torch.cuda.synchronize()
+
+    def k1():
+        for i, b in pairs:
+            GI.assemble_bin(plans[i], patches[i], b)
+
+    def k1_plain():
+        for i, b in pairs:
+            p = plans[i]
+            gs, gc = p.bin_gstart[b], p.bin_gcount[b]
+            GI._assemble_bin(p, patches[i][:, gs : gs + gc], p.bid[gs : gs + gc])
+
+    def k2():
+        for i, b in pairs:
+            GI.extract_bin(plans[i], grids[i], b, patches[i])
+
+    def k2_plain():
+        for i, b in pairs:
+            p = plans[i]
+            gs, gc = p.bin_gstart[b], p.bin_gcount[b]
+            patches[i][:, gs : gs + gc] = GI._extract_bin(p, grids[i], p.bid[gs : gs + gc])
+
+    k1_bound, k2_bound = assembly_bounds([(plans[i], b) for i, b in pairs])
+    # what sets K1's time: the fullest bucket's groups (a cell under it sums
+    # them one by one) and the empty groups a padded plan puts in bucket 0
+    runs = [GI.bucket_csr(p).starts.diff() for p in plans]
+    rec = dict(
+        max_groups_per_bucket=max(int(r.max()) for r in runs),
+        groups_in_bucket_0=max(int(r[:: p.nbu * p.nbv].max()) for r, p in zip(runs, plans)),
+        empty_groups=sum(int((p.cg_idx == p.nrow * p.nchan).all(1).sum()) for p in plans),
+        nplans=len(plans), bins=len(pairs), ng=sum(p.ngroups for p in plans), S=plans[0].S,
+        nbig=[plans[0].nbig_x, plans[0].nbig_y], padded_order=[GI.bucket_csr(p).order is not None for p in plans],
+        k1_ms=cuda_ms(k1, reps), k1_plain_ms=cuda_ms(k1_plain, 2), k2_ms=cuda_ms(k2, reps),
+        k2_plain_ms=cuda_ms(k2_plain, 2), k1_bound_ms=k1_bound, k2_bound_ms=k2_bound,
+        k1_rel_vs_plain=k1_rel, k1_rel_vs_f64=k1_rel64, k1_max_abs_err=k1_err, k1_two_runs_identical=k1_same,
+        k1_gather_bins=min(gather_bins, len(pairs)), k1_gather_identical=k1_gather_same, k1_rel_vs_gather=k1_gather_rel,
+        k2_rel_vs_plain=k2_rel, k2_max_abs_err=k2_err, k2_plain_identical=k2_plain_same,
+        k2_two_runs_identical=k2_same, k2_wrote_every_group=covered,
+    )
+    require(k1_same and k2_same, "K1/K2: two launches give the same bits")
+    require(max(k1_rel, k1_rel64, k1_gather_rel, k2_rel) <= 1e-6, "K1/K2 within 1e-6 of their plain versions")
+    require(covered, "K2 wrote every group of the launch")
+    return rec
+
+
+def multiband_assembly(model, reps: int = 5) -> dict:
+    """At the multiband plan the main path just cached: the multiband
+    Hessian of ``model`` twice (the same bits required, no determinism
+    switch; its CUDA-event ms), then :func:`assembly_kernels` on the
+    patches its B1 launch takes and each band's bin-0 forward grid."""
+    import torch
+
+    from pfb_imaging_tpu_torch import real_dtype, to_device
+    from pfb_imaging_tpu_torch.core import imager as TI
+    from pfb_imaging_tpu_torch.ops import idg_fused as F
+    from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_bins_to_grid_patches, _weighted_round_trip
+    from pfb_imaging_tpu_torch.parallel.sharded import multiband_hessian_vis_idg
+
+    mb = [v for k, v in TI._PLAN_CACHE.items() if k[0] == "multiband"]
+    require(len(mb) == 1, "one multiband plan cached by the main path")
+    mplan, wgt = mb[0][0], mb[0][1]
+    p0 = mplan.plans[0]
+    x = to_device(model, p0.device, real_dtype(p0.device))
+    h1, h2 = multiband_hessian_vis_idg(mplan, x, wgt), multiband_hessian_vis_idg(mplan, x, wgt)
+    rec = dict(hessian_two_runs_identical=bool(torch.equal(h1, h2)),
+               hessian_ms=cuda_ms(lambda: multiband_hessian_vis_idg(mplan, x, wgt), 2))
+    del h1, h2
+    pat = torch.empty((2, mplan.nband * mplan.ngroups, p0.S, p0.S), dtype=p0.rdt, device=p0.device)
+    for b, p in enumerate(mplan.plans):
+        _idg_bins_to_grid_patches(p, x[b], out=pat[:, mplan.band(b)])
+    vals = F.vals_from_patches(pat, mplan.scal, p0.wcu, p0.wcv, p0.S)
+    del pat
+    for b, p in enumerate(mplan.plans):
+        vals[:, mplan.band(b)] = _weighted_round_trip(p, vals[:, mplan.band(b)], wgt[b])
+    pat = F.patches_from_vals(mplan.scal, vals, p0.wcu, p0.wcv, p0.S)
+    del vals
+    grids = [forward_grid(p, x[b], 0) for b, p in enumerate(mplan.plans)]
+    rec.update(assembly_kernels(mplan.plans, [pat[:, mplan.band(b)] for b in range(mplan.nband)], grids, reps=reps))
+    del pat, grids
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernels_assembly(dev, nrow: int = 20_000, nx: int = 512) -> list:
+    """K1/K2 at small plans on the card, every bin: chirp at S = 16 and at
+    S = 24 with half 8 (r = 3), and a wplanes plan at S = 32 padded to per-bin
+    capacities (its groups out of bucket order, as the multiband plans lay
+    them), on seeded patches and grids; :func:`assembly_kernels` with the
+    gather-form plain version on every bin (the same bits expected: it adds
+    in K1's order)."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops.gridder_idg import plan_idg
+
+    rng = np.random.default_rng(51)
+    uvw, freq = bench_coords(rng, nrow, 2)
+    uvw[:, 2] *= 30.0
+    cell = 2e-6 * 4096 / nx
+    kw = dict(nx=nx, ny=nx, cellx=cell, celly=cell, do_wgridding=True, divide_by_n=False, dtype=torch.float32,
+              device=dev)
+    out = []
+    for name, extra in (("chirp_s16", dict(epsilon=1e-5, w_mode="chirp")),
+                        ("chirp_s24_half8", dict(epsilon=1e-5, subgrid=24, half=8, w_mode="chirp")),
+                        ("wplanes_s32_padded", dict(epsilon=1e-7, w_mode="wplanes"))):
+        if name.endswith("padded"):
+            counts = plan_idg(uvw, freq, count_only=True, **kw, **extra)[1]
+            extra = dict(extra, bin_gcap=tuple(int(c) + 3 for c in counts))
+        p = plan_idg(uvw, freq, **kw, **extra)
+        pat = torch.as_tensor(rng.standard_normal((2, p.ngroups, p.S, p.S)), device=dev).float()
+        g = rng.standard_normal((2, p.nbig_x, p.nbig_y))
+        grid = torch.complex(*(torch.as_tensor(a, device=dev).float() for a in g))
+        rec = dict(case=name, half=p.half, w_support=p.w_support, nbins=p.nbins,
+                   **assembly_kernels([p], [pat], [grid], reps=5, gather_bins=p.nbins))
+        emit({"phase": "kernels", "kernel": "idg_assemble+idg_extract", **rec})
+        out.append(rec)
+    require(any(r["padded_order"][0] for r in out), "a padded plan's groups taken through the CSR's order")
+    return out
+
+
 def imager_plan_kernels(dev, dt_path: str, plans: list, band: int = 0, eps: float = 1e-7, f64_groups: int = 65536):
     """B1 at the imager's own launch shapes for ``band``: its image plan and
     its PSF plan, planned again from the partition the imager wrote to the
@@ -1096,6 +1331,7 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     require(np.isfinite(model).all() and np.isfinite(residual).all(), "model and residual finite")
     require(model.shape == (nband, nx, nx), "model shape")
     require(launches["patches_from_vals"] > 0 and launches["vals_from_patches"] > 0, "both kernels launched")
+    require(launches["idg_assemble"] > 0 and launches["idg_extract"] > 0, "K1 and K2 launched")
     require(near <= 1, "brightest model pixel on a true source")
     require(cyc[-1]["residual_dispatch"]["multiband_parts"] == niter and
             cyc[-1]["residual_dispatch"]["fallback_bands"] == 0, "every residual took the multiband route")
@@ -1105,6 +1341,9 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     emit({"phase": "main_path", "stage": "kernels_at_multiband_launch", **mb_kern})
     require(mb_kern["b1_rel_vs_f64"] <= 2e-6 and mb_kern["b2_rel_vs_f64"] <= 2e-6,
             "B1/B2 vs f64 plain at the main path's multiband launch")
+    # K1/K2 at the same launch, and the multiband Hessian twice
+    asm = multiband_assembly(model)
+    emit({"phase": "main_path", "stage": "assembly_at_multiband_launch", **asm})
     keys = [f"band{b:04d}_time0000" for b in range(nband)]
     routes = residual_routes(dev, TreeStore(dt_path), keys, model, eps, residual, trace=True)
     emit({"phase": "main_path", "stage": "residual_routes", **routes})
@@ -1113,7 +1352,7 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     torch.cuda.empty_cache()
     phase_profile(dev, dt_path, cyc[-1]["lam"])
     shutil.rmtree(workdir)
-    return timing, mb_kern, launches, summary
+    return timing, mb_kern, asm, launches, summary
 
 
 def write_xds(path: Path, uvw, chans, re, im) -> None:
@@ -1149,7 +1388,7 @@ def phase_imager(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int 
     from pfb_imaging_tpu_torch.core import imager as TI
     from pfb_imaging_tpu_torch.native import PLAN_STATS as NATIVE_STATS
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
-    from pfb_imaging_tpu_torch.ops.gridder import _vis2dirty_prepare, plan_wgridder, vis2dirty
+    from pfb_imaging_tpu_torch.ops.gridder import _vis2dirty_prepare, plan_wgridder, vis2dirty_plain
     from pfb_imaging_tpu_torch.utils.store import TreeStore
 
     cell_arcsec = 0.8251
@@ -1213,8 +1452,8 @@ def phase_imager(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int 
     kw = dict(cellx=float(out.attrs["cell_rad"]), celly=float(out.attrs["cell_rad"]), epsilon=eps, divide_by_n=False)
     t0 = time.perf_counter()
     plan64 = plan_wgridder(uvw0, f0, nx=nx, ny=nx, dtype=np.float64, device=dev, **kw)
-    d64 = vis2dirty(plan64, torch.as_tensor(vis0.real, device=dev).double(), wgt=wm.double(),
-                    vis_im=torch.as_tensor(vis0.imag, device=dev).double())
+    d64 = vis2dirty_plain(plan64, torch.as_tensor(vis0.real, device=dev).double(), wm.double(),
+                          vis_im=torch.as_tensor(vis0.imag, device=dev).double())
     torch.cuda.synchronize()
     stack_s = time.perf_counter() - t0
     dirty0 = torch.as_tensor(np.asarray(out.group("band0000_time0000").read("DIRTY")), device=dev)
@@ -1556,6 +1795,10 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
     require(kern["ng"] <= int32_groups or kern["f64_groups_past_int32_offsets"] > 0,
             "the f64 check reaches the groups past 2^31 patch elements")
     del mplan
+    # K1/K2 at the same launch, and the multiband Hessian twice
+    asm = multiband_assembly(model)
+    emit({"phase": "widefield", "stage": "assembly_at_multiband_launch", **asm})
+    require(launches["idg_assemble"] > 0 and launches["idg_extract"] > 0, "K1/K2 launched in deconv")
 
     # the final model's residual by both routes (multiband plans cached)
     routes = residual_routes(dev, TreeStore(dt_path), keys, model, eps, residual, trace=True)
@@ -1613,7 +1856,7 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
     require(rec_dg["vs_sky"]["rel_linf"] <= 1e-5, "widefield MODEL_DATA within 1e-5 of the sky")
     shutil.rmtree(workdir)
     return kern, kern_band, launches, dg_launches, dict(tree=tree, deconv=summary, routes=routes, imager=rec_im,
-                                                        degrid=rec_dg)
+                                                        degrid=rec_dg, assembly=asm)
 
 
 def cli_step(name: str, fn, dev, steps: dict, phase: str = "pipeline"):
@@ -1998,8 +2241,17 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
     w, m = to_device(pg.read("WEIGHT"), dev, rdt), to_device(pg.read("MASK"), dev, rdt)
     x = to_device(np.asarray(TreeStore(k_clark).group("band0000_time0000").read("MODEL")), dev, rdt)
     apply_ms = cuda_ms(lambda: hessian_vis(plan, x, wgt=w, mask=m), 2)
+    # the same apply twice, with no determinism switch (the classic scatter
+    # is B3 on the card)
+    zero_counts()
+    h1 = hessian_vis(plan, x, wgt=w, mask=m)
+    torch.cuda.synchronize()
+    h_launches = read_counts()
+    h_same = bool(torch.equal(h1, hessian_vis(plan, x, wgt=w, mask=m)))
+    require(h_launches["scatter_grid_wstack"] > 0 and h_launches["gather_grid_wstack"] == 0,
+            "the classic hessian_vis scatters through B3")
     nplanes = plan.nw
-    del plan, w, m, x
+    del plan, w, m, x, h1
     torch.cuda.empty_cache()
     cg_maxit = max(2, min(50, int((flux_seconds - nband * plan_s) / (nband * apply_ms / 1e3)) - 1))
     cli_step("fluxtractor", lambda: cli_main(["fluxtractor", k_clark, "--cg-maxit", str(cg_maxit), *on]), dev, steps,
@@ -2008,11 +2260,14 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
     finite = all(np.isfinite(np.asarray(tree.group(k).read(n))).all() for k in tree.groups() if k.startswith("band")
                  for n in ("MODEL_MOPPED", "RESIDUAL_MOPPED", "UPDATE"))
     steps["fluxtractor"].update(cg_maxit=cg_maxit, hessian_vis_ms=apply_ms, hessian_vis_plan_seconds=plan_s,
-                                w_planes=nplanes)
+                                w_planes=nplanes, hessian_vis_launches=h_launches,
+                                hessian_vis_two_runs_identical=h_same)
     emit({"phase": "commands", "stage": "fluxtractor_checks", "cg_maxit": cg_maxit, "hessian_vis_ms": apply_ms,
-          "hessian_vis_plan_seconds": plan_s, "w_planes": nplanes, "finite": finite})
+          "hessian_vis_plan_seconds": plan_s, "w_planes": nplanes, "finite": finite,
+          "hessian_vis_launches": h_launches, "hessian_vis_two_runs_identical": h_same})
     require(finite, "fluxtractor: MODEL_MOPPED, RESIDUAL_MOPPED and UPDATE finite")
     launched("fluxtractor")
+    require(steps["fluxtractor"]["launches"]["scatter_grid_wstack"] > 0, "fluxtractor's Hessian scatters through B3")
     shutil.rmtree(k_clark)
 
     ista = copy("ista.dt")
@@ -2074,8 +2329,7 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
                diff_after_rel=float(np.abs(diff[after] / 5.0 - 1.0).max()))
     emit({"phase": "commands", "stage": "hci_step_transient", **rec})
     require(rec["before_max_abs"] < 0.5 and rec["after_rel_to_amplitude"] < 0.15, "hci: the step's frames at its pixel")
-    # before t0 the two runs grid the same visibilities; they differ only by
-    # the order of the card's sums
+    # before t0 the two runs grid the same visibilities
     require(rec["diff_before_max_abs"] < 1e-4 * 5.0 and rec["diff_after_rel"] < 1e-4,
             "hci: the injected step is 0 before t0 and its amplitude after")
 
@@ -2164,18 +2418,16 @@ def idg_runtime_args(dev, imaged: Path, eta: float = 1e-3, seed: int = 47) -> di
         ``mask=`` by keyword, a seeded 0/1 mask, each held to
         ``vis2dirty_idg(plan, vis, wgt * mask)``: the same tensor, or within
         rel L∞ 1e-7; B1 launched.
-    The patch assembly's ``index_add_`` adds in another order each run, so
-    the comparisons run under ``torch.use_deterministic_algorithms`` (its
-    sorted ``index_add``); the same comparisons with the atomic adds, and
-    two runs of one call, are recorded as the run-to-run spread, with the
-    Hessian's ms under the sorted adds."""
-    import warnings
-
+    Two runs each of the Hessian, of ``vis2dirty_idg`` and of
+    ``dirty2vis_idg`` on the same inputs, with no determinism switch: whether
+    they give the same bits (required in the ``same_bits`` stage). The
+    Hessian's device time a call by kernel family (B2, B1, K1, K2, FFTs,
+    gathers, the rest), from ``torch.profiler``."""
     import torch
 
     from pfb_imaging_tpu_torch import real_dtype, to_device
     from pfb_imaging_tpu_torch.core import imager as TI
-    from pfb_imaging_tpu_torch.ops.gridder_idg import hessian_vis_idg, vis2dirty_idg
+    from pfb_imaging_tpu_torch.ops.gridder_idg import dirty2vis_idg, hessian_vis_idg, vis2dirty_idg
     from pfb_imaging_tpu_torch.utils.beam import cosine_taper_beam
     from pfb_imaging_tpu_torch.utils.store import TreeStore
 
@@ -2206,17 +2458,6 @@ def idg_runtime_args(dev, imaged: Path, eta: float = 1e-3, seed: int = 47) -> di
     def hess():
         return hessian_vis_idg(plan, x, wgt_g, beam=beam, eta=eta, wsum=wsum)
 
-    def comparisons(tag):
-        h, h2 = hess(), hess()
-        comp = hessian_vis_idg(plan, x * beam, wgt_g) / wsum * beam + eta * x
-        d_pos, d_kw = vis2dirty_idg(plan, vc, wm, mask), vis2dirty_idg(plan, vc, wm, mask=mask)
-        d_ref, d_ref2 = vis2dirty_idg(plan, vc, wm * mask), vis2dirty_idg(plan, vc, wm * mask)
-        out = dict(hessian_vs_composition_rel=rel_linf(h, comp), hessian_run_to_run_rel=rel_linf(h2, h),
-                   mask_positional_identical=bool(torch.equal(d_pos, d_ref)),
-                   mask_keyword_identical=bool(torch.equal(d_kw, d_ref)), mask_positional_rel=rel_linf(d_pos, d_ref),
-                   mask_keyword_rel=rel_linf(d_kw, d_ref), vis2dirty_run_to_run_rel=rel_linf(d_ref2, d_ref))
-        return {k + tag: v for k, v in out.items()}
-
     torch.cuda.synchronize()
     zero_counts()
     hess()
@@ -2226,22 +2467,29 @@ def idg_runtime_args(dev, imaged: Path, eta: float = 1e-3, seed: int = 47) -> di
     vis2dirty_idg(plan, vc, wm, mask)
     vis2dirty_idg(plan, vc, wm, mask=mask)
     torch.cuda.synchronize()
+    mask_launches = read_counts()
+    h, h2 = hess(), hess()
+    comp = hessian_vis_idg(plan, x * beam, wgt_g) / wsum * beam + eta * x
+    d_pos, d_kw = vis2dirty_idg(plan, vc, wm, mask), vis2dirty_idg(plan, vc, wm, mask=mask)
+    d_ref, d_ref2 = vis2dirty_idg(plan, vc, wm * mask), vis2dirty_idg(plan, vc, wm * mask)
+    f1, f2 = dirty2vis_idg(plan, x), dirty2vis_idg(plan, x)
     rec = dict(ngroups=plan.ngroups, nbins=plan.nbins, w_support=plan.w_support, S=plan.S, wsum=wsum, eta=eta,
-               beam_from_tree=hits[0][3] is not None, hessian_launches=h_launches, mask_launches=read_counts(),
+               beam_from_tree=hits[0][3] is not None, hessian_launches=h_launches, mask_launches=mask_launches,
                mask_fraction=float(mask.mean()), hessian_ms=cuda_ms(hess, 5),
-               vis2dirty_mask_ms=cuda_ms(lambda: vis2dirty_idg(plan, vc, wm, mask), 5), **comparisons("_atomic"))
-    prev = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            rec.update(comparisons(""), hessian_ms_deterministic=cuda_ms(hess, 5))
-    finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
-    rec["nondeterministic_op_warnings"] = [str(w.message)[:200] for w in caught if "determinis" in str(w.message)]
+               vis2dirty_mask_ms=cuda_ms(lambda: vis2dirty_idg(plan, vc, wm, mask), 5),
+               dirty2vis_ms=cuda_ms(lambda: dirty2vis_idg(plan, x), 5),
+               hessian_vs_composition_rel=rel_linf(h, comp), hessian_composition_identical=bool(torch.equal(h, comp)),
+               mask_positional_identical=bool(torch.equal(d_pos, d_ref)),
+               mask_keyword_identical=bool(torch.equal(d_kw, d_ref)), mask_positional_rel=rel_linf(d_pos, d_ref),
+               mask_keyword_rel=rel_linf(d_kw, d_ref), hessian_two_runs_identical=bool(torch.equal(h, h2)),
+               vis2dirty_two_runs_identical=bool(torch.equal(d_ref, d_ref2)),
+               dirty2vis_two_runs_identical=bool(torch.equal(f1, f2)), hessian_split=device_ms_by_family(hess, 3))
+    del h, h2, comp, d_pos, d_kw, d_ref, d_ref2, f1, f2
     emit({"phase": "operators", "stage": "idg_runtime_args", **rec})
     require(h_launches["vals_from_patches"] > 0 and h_launches["patches_from_vals"] > 0,
             "B2 and B1 launched by hessian_vis_idg(beam, eta, wsum)")
+    require(h_launches["idg_extract"] > 0 and h_launches["idg_assemble"] > 0,
+            "K2 and K1 launched by hessian_vis_idg(beam, eta, wsum)")
     require(rec["hessian_vs_composition_rel"] <= 1e-6, "hessian_vis_idg(beam, eta, wsum) = its composition")
     require(rec["mask_launches"]["patches_from_vals"] > 0, "B1 launched by vis2dirty_idg(mask)")
     require(rec["mask_positional_rel"] <= 1e-7 and rec["mask_keyword_rel"] <= 1e-7,
@@ -2514,6 +2762,51 @@ def phase_operators(dev, imaged: Path, sky: dict, eta: float = 1e-2, cg_tol: flo
     rec["lasso_primal_dual_l1"] = lasso_primal_dual(dev, nband, nx)
     torch.cuda.empty_cache()
     return launches, krec, rec
+
+
+def phase_same_bits(dev, workdir: Path, imaged: Path, calls: dict, niter: int = 2, pd_maxit: int = 20) -> dict:
+    """Two runs, the same bits, with no determinism switch. ``calls`` maps
+    each call an earlier phase ran twice on the same inputs
+    (``hessian_vis_idg(beam, eta, wsum)``, ``vis2dirty_idg(mask)`` and
+    ``dirty2vis_idg`` at band 0's residual plan of the imaged tree, the
+    multiband Hessian at the deconv and widefield launches, fluxtractor's
+    classic ``hessian_vis``) to whether the two gave the same bits; then
+    ``pfb-torch sara --niter 2 --pd-maxit 20`` runs twice, each on its own
+    copy of the imaged tree, and its MODEL and MFS residual are compared bit
+    for bit. Every one must give the same bits."""
+    import torch
+
+    from pfb_imaging_tpu_torch.cli import main as cli_main
+    from pfb_imaging_tpu_torch.core import imager as TI
+
+    if workdir.exists():
+        shutil.rmtree(workdir)
+    workdir.mkdir(parents=True)
+    runs = []
+    for i in range(2):
+        dt = workdir / f"sara_{i}.dt"
+        shutil.copytree(imaged, dt)
+        TI._PLAN_CACHE.clear()
+        TI._PLAN_CACHE_BYTES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_main(["sara", str(dt), "--niter", str(niter), "--pd-maxit", str(pd_maxit), "--device", str(dev)])
+        torch.cuda.synchronize()
+        runs.append(dict(seconds=time.perf_counter() - t0, model=_tree_cube(dt), residual=mfs_image(dt, "RESIDUAL")))
+    TI._PLAN_CACHE.clear()
+    TI._PLAN_CACHE_BYTES = 0
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir)
+    a, b = runs
+    rec = dict(calls, sara_model_identical=bool(np.array_equal(a["model"], b["model"])),
+               sara_mfs_residual_identical=bool(np.array_equal(a["residual"], b["residual"])),
+               sara_model_max_abs_diff=float(np.abs(a["model"] - b["model"]).max()),
+               sara_mfs_residual_max_abs_diff=float(np.abs(a["residual"] - b["residual"]).max()),
+               sara_seconds=[r["seconds"] for r in runs], sara_model_abs_sum=float(np.abs(a["model"]).sum()))
+    emit({"phase": "same_bits", **rec})
+    differ = [k for k, v in rec.items() if k.endswith("identical") and not v]
+    require(not differ and rec["sara_model_abs_sum"] > 0, f"two runs give the same bits (differ: {differ})")
+    return rec
 
 
 # ── parallel: ranks as child processes ──────────────────────────────
@@ -2889,19 +3182,21 @@ def phase_parallel(dev, workdir: Path, imaged: Path, store: Path, cell_arcsec: f
 
 def zero_counts() -> None:
     """Every kernel's launch count to 0."""
+    from pfb_imaging_tpu_torch.ops import gridder_idg as GI
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
     from pfb_imaging_tpu_torch.ops import idg_fused as F
 
-    for counts in (F.LAUNCHES, GP.LAUNCHES):
+    for counts in (F.LAUNCHES, GP.LAUNCHES, GI.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def read_counts() -> dict:
+    from pfb_imaging_tpu_torch.ops import gridder_idg as GI
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
     from pfb_imaging_tpu_torch.ops import idg_fused as F
 
-    return {**F.LAUNCHES, **GP.LAUNCHES}
+    return {**F.LAUNCHES, **GP.LAUNCHES, **GI.LAUNCHES}
 
 
 def device_busy_ms(prof) -> float:
@@ -2929,6 +3224,36 @@ def top_device_ops(prof, n: int = 6) -> list:
     rows = [(e.key, dev_us(e) / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     return [[k[:60], ms, c] for k, ms, c in sorted(rows, key=lambda r: -r[1])[:n]]
+
+
+# kernel families of a profiled call: the first family whose key is in a
+# kernel's name (lower case) takes its device time
+KERNEL_FAMILIES = (("b2_vals_from_patches", "vals_from_patches"), ("b1_patches_from_vals", "patches_from_vals"),
+                   ("k1_idg_assemble", "idg_assemble"), ("k2_idg_extract", "idg_extract"), ("fft", "fft"),
+                   ("gather", "index"), ("gather", "gather"))
+
+
+def device_ms_by_family(fn, reps: int = 3) -> dict:
+    """Device ms a call of ``fn`` by kernel family (``KERNEL_FAMILIES``,
+    the rest under ``other``) over ``reps`` calls under ``torch.profiler``,
+    with the device-busy ms a call and the top kernels."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    fam = {name: 0.0 for name, _ in KERNEL_FAMILIES} | {"other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+        key = e.key.lower()
+        fam[next((n for n, k in KERNEL_FAMILIES if k in key), "other")] += us / 1e3 / reps
+    return dict(ms_per_call=fam, device_busy_ms_per_call=device_busy_ms(prof) / reps, top_kernels=top_device_ops(prof, 8))
 
 
 def phase_profile(dev, dt_path: Path, lam: float, iters: int = 20):
@@ -3032,21 +3357,32 @@ def main(argv=None) -> int:
     emit({"phase": "device", "build_seconds": time.perf_counter() - t0, "library": build.library_path().name})
 
     kern = phase_kernels(dev)
+    phase_kernels_assembly(dev)
     scat, gath = phase_kernels_scatter(dev)
     phase_accuracy(dev)
     phase_accuracy_pallas(dev)
     compare = build_idg_library(args.compare_idg.resolve()) if args.compare_idg else None
-    timing, main_mb, launches, _ = phase_main(dev, ROOT / "build" / "chip_smoke", compare_idg=compare)
+    timing, main_mb, main_asm, launches, _ = phase_main(dev, ROOT / "build" / "chip_smoke", compare_idg=compare)
     b3, im_launches, ctx = phase_imager(dev, ROOT / "build" / "chip_smoke_imager")
     b4, dg_launches, _ = phase_degrid(dev, ctx)
     phase_widefield_accuracy(dev)
-    wide, wide_band, wf_launches, wf_dg_launches, _ = phase_widefield(dev, ROOT / "build" / "chip_smoke_widefield")
+    wide, wide_band, wf_launches, wf_dg_launches, wf_rec = phase_widefield(dev, ROOT / "build" / "chip_smoke_widefield")
+    wide_asm = wf_rec["assembly"]
     imaged = ROOT / "build" / "chip_smoke_commands_imaged.dt"
     store = ROOT / "build" / "chip_smoke_parallel_store.xds"
     pipe_launches, pipe_kern, _, sky = phase_pipeline(dev, ROOT / "build" / "chip_smoke_pipeline", keep_imaged=imaged,
                                                       keep_store=store)
-    cmd_launches, cmd_kern, _ = phase_commands(dev, ROOT / "build" / "chip_smoke_commands", imaged, sky)
+    cmd_launches, cmd_kern, cmd_steps = phase_commands(dev, ROOT / "build" / "chip_smoke_commands", imaged, sky)
     op_launches, op_kern, op_rec = phase_operators(dev, imaged, sky)
+    args = op_rec["idg_runtime_args"]
+    phase_same_bits(dev, ROOT / "build" / "chip_smoke_same_bits", imaged, {
+        "hessian_vis_idg_beam_identical": args["hessian_two_runs_identical"],
+        "vis2dirty_idg_mask_identical": args["vis2dirty_two_runs_identical"],
+        "dirty2vis_idg_identical": args["dirty2vis_two_runs_identical"],
+        "multiband_hessian_deconv_launch_identical": main_asm["hessian_two_runs_identical"],
+        "multiband_hessian_widefield_launch_identical": wide_asm["hessian_two_runs_identical"],
+        "fluxtractor_hessian_vis_identical": cmd_steps["fluxtractor"]["hessian_vis_two_runs_identical"],
+    })
     par_launches, par_kern, _ = phase_parallel(dev, ROOT / "build" / "chip_smoke_parallel", imaged, store,
                                                sky["cell_rad"] * 180.0 / np.pi * 3600.0)
     shutil.rmtree(imaged)
@@ -3110,8 +3446,8 @@ def main(argv=None) -> int:
             **at_commands, launches_operators=op_launches[name], ms_s24_plan=op_kern[f"{tag}_ms"],
             plain_ms_s24_plan=op_kern[f"{tag}_plain_ms"], bound_ms_s24_plan=bound_s24, bound_by_s24_plan=bound_s24_by,
             rel_vs_f64_s24_plan=op_kern[f"{tag}_rel_vs_f64"], ng_s24_plan=op_kern["ng"], S_s24_plan=op_kern["S"],
-            launches_operators_hessian_vis_beam=op_rec["idg_runtime_args"]["hessian_launches"][name],
-            launches_operators_vis2dirty_mask=op_rec["idg_runtime_args"]["mask_launches"][name],
+            launches_operators_hessian_vis_beam=args["hessian_launches"][name],
+            launches_operators_vis2dirty_mask=args["mask_launches"][name],
             launches_parallel={k: v[name] for k, v in par_launches.items()}, **at_parallel,
             **({"ms_compare_tree_tree_compare": timing["compare"][f"{tag}_ms_compare_tree_tree_compare"]}
                if "compare" in timing else {}),
@@ -3138,7 +3474,27 @@ def main(argv=None) -> int:
         ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["ms"] for r in gath},
         plain_ms_nbig4096={f"W{r['W']}_nw{r['nw']}": r["plain_ms"] for r in gath},
     ))
-    for k in kernels[:2]:
+    for name, tag in (("idg_assemble", "k1"), ("idg_extract", "k2")):
+        # at the main path's launch shape: every bin of every band of its
+        # multiband residual, one adjoint's assembly or one forward's extraction
+        kernels.append(dict(
+            name=name, route="cuda", source="pfb_imaging_tpu_torch/csrc/idg_assemble.cu", replaces=REPLACES[name],
+            launches=launches[name], max_abs_err=main_asm[f"{tag}_max_abs_err"], ms=main_asm[f"{tag}_ms"],
+            plain_ms=main_asm[f"{tag}_plain_ms"], bound_ms=main_asm[f"{tag}_bound_ms"], bound_by="bytes",
+            library_ms=None, library_ms_null_because=ASSEMBLY_NO_LIBRARY, ng=main_asm["ng"], S=main_asm["S"],
+            bins=main_asm["bins"], bound_share=main_asm[f"{tag}_bound_ms"] / main_asm[f"{tag}_ms"],
+            rel_vs_plain=main_asm[f"{tag}_rel_vs_plain"], two_runs_identical=main_asm[f"{tag}_two_runs_identical"],
+            ms_widefield_launch=wide_asm[f"{tag}_ms"], plain_ms_widefield_launch=wide_asm[f"{tag}_plain_ms"],
+            bound_ms_widefield_launch=wide_asm[f"{tag}_bound_ms"], ng_widefield_launch=wide_asm["ng"],
+            bins_widefield_launch=wide_asm["bins"], max_abs_err_widefield_launch=wide_asm[f"{tag}_max_abs_err"],
+            launches_widefield_deconv=wf_launches[name], launches_widefield_degrid=wf_dg_launches[name],
+            launches_pipeline=pipe_launches[name], launches_commands=cmd_launches[name],
+            launches_operators=op_launches[name],
+            launches_operators_hessian_vis_beam=args["hessian_launches"][name],
+            launches_operators_vis2dirty_mask=args["mask_launches"][name],
+            launches_parallel={k: v[name] for k, v in par_launches.items()},
+        ))
+    for k in kernels[:2] + kernels[-2:]:
         require(k["launches_pipeline"] > 0, f"{k['name']} launched on the pipeline")
         require(k["launches_commands"] > 0, f"{k['name']} launched by the commands")
         require(k["launches_operators"] > 0, f"{k['name']} launched at the S = 24 plan")

@@ -2,8 +2,9 @@
 
 Exponential-of-semicircle (ES) kernel resampling on an oversampled uv grid
 plus improved w-stacking: visibilities are sorted and bucketed by their base
-w-plane on the host, and each plane's bucket is gridded (scatter by
-``index_add_``) or degridded (gather by advanced indexing), with one
+w-plane on the host, and each plane's bucket is gridded (on the card by
+the scatter kernel B3 of ``gridder_pallas``, in a fixed order; on the CPU
+by ``index_add_``) or degridded (gather by advanced indexing), with one
 ``torch.fft`` transform and an image-space w-screen per plane.
 
 What differs from the JAX plan, for accuracy and not for speed: the plan
@@ -370,7 +371,25 @@ def _as_ri(vis, vis_im):
 def vis2dirty(plan: WGridderPlan, vis, wgt=None, mask=None, vis_im=None):
     """Grid (nrow, nchan) visibilities to an (nx, ny) dirty image (the exact
     adjoint of :func:`dirty2vis`). ``vis`` is complex, or its real part
-    with ``vis_im`` the imaginary part."""
+    with ``vis_im`` the imaginary part.
+
+    On the card the scatter is the CUDA kernel B3
+    (``gridder_pallas.vis2dirty_scatter``), which adds in a fixed order, so
+    two runs give the same bits; it takes f32 plans and raises on others.
+    On the CPU it is :func:`vis2dirty_plain`."""
+    if plan.device.type == "cpu":
+        return vis2dirty_plain(plan, vis, wgt, mask, vis_im)
+    from .gridder_pallas import vis2dirty_scatter  # imported here: gridder_pallas imports this module
+
+    if plan.rdt != torch.float32:
+        raise ValueError(f"on the card the classic scatter is the f32 kernel B3; this plan is {plan.rdt}: plan "
+                         "with dtype=np.float32")
+    return vis2dirty_scatter(plan, vis, wgt, mask, vis_im)
+
+
+def vis2dirty_plain(plan: WGridderPlan, vis, wgt=None, mask=None, vis_im=None):
+    """Plain version of :func:`vis2dirty`: each plane's bucket scattered by
+    ``index_add_`` (:func:`_scatter_plane`), in the plan's dtype."""
     vals = _vis2dirty_prepare(plan, *_as_ri(vis, vis_im), wgt, mask)
     acc = torch.zeros((plan.nx, plan.ny), dtype=complex_dtype(plan.rdt), device=plan.device)
     for p in range(plan.nw):

@@ -24,11 +24,13 @@ in f64 and cast to the working dtype.
 
 Runtime (torch, per w-bin or w-plane loop):
   adjoint  vis -> group values (one gather) -> patches (CUDA kernel B1,
-           ``idg_fused.patches_from_vals``) -> ``index_add_`` onto the
-           bucket lattice -> shifted-slice placement + periodic fold ->
-           ifft2 -> crop -> screen -> sum over bins -> correction;
-  forward  its exact transpose: correction -> screen -> fft2 -> periodic
-           window extraction -> patches -> group values (kernel B2,
+           ``idg_fused.patches_from_vals``) -> each bin's uv grid (kernel K1,
+           ``assemble_bin``: every cell summed in a fixed
+           order, so two runs give the same bits) -> ifft2 -> crop ->
+           screen -> sum over bins -> correction;
+  forward  its exact transpose: correction -> screen -> fft2 -> each
+           group's periodic window (kernel K2, ``extract_bin``)
+           -> patches -> group values (kernel B2,
            ``idg_fused.vals_from_patches``) -> slot phase and hermitian
            sign -> back to the visibilities (``dirty2vis_idg``): one scatter
            in chirp mode, a gather of each visibility's ``w_support``
@@ -49,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -253,7 +256,7 @@ def _fit_disk_put(key, c, err) -> None:
 # ── plan ─────────────────────────────────────────────────────────────
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)  # plans hash by identity (the assembly's CSR cache)
 class IDGPlan:
     """Static layout + device tensors for one (uvw, freq) layout.
 
@@ -843,7 +846,29 @@ def delivered_accuracy(plan: IDGPlan) -> dict:
                 edge=eps_alg + 5.0 * substrate * amp)
 
 
-# ── runtime: adjoint (vis -> dirty) ──────────────────────────────────
+# ── runtime: the patch assembly (K1) and its transpose (K2) ──────────
+#
+# Group g of a bin, with bucket (bu, bv) = divmod(bid[g], nbv), carries an
+# S x S patch whose element (su, sv) lands on the grid cell
+#     ((bu half + su - k0_off) mod nbig_x, (bv half + sv - k0_off) mod nbig_y):
+# the closed form of the JAX ``_assemble_bin`` (pfb_imaging_tpu/ops/
+# gridder_idg.py:2026: a scatter of each patch onto its bucket's lattice
+# cell, the r x r quarters of every cell, r = S / half, shift-added into the
+# extended plane, which folds periodically onto the grid) and of its
+# transpose ``_extract_bin`` (:2482). ``_assemble_bin`` /
+# ``_extract_bin`` are the plain versions in the JAX formula (``index_add_``
+# onto the lattice, in order on the CPU); ``assemble_bin_gather_ref`` /
+# ``extract_bin_gather_ref`` the plain versions in the kernels' closed form,
+# CSR and order of sums, so that the CPU tests check the kernels' index
+# arithmetic; ``assemble_bin`` / ``extract_bin`` the wrappers, which run the
+# JAX-formula plain versions for CPU tensors and launch the CUDA kernels K1
+# ``idg_assemble`` / K2 ``idg_extract`` (``csrc/idg_assemble.cu``, f32) for
+# CUDA tensors or raise. K1 writes each grid cell once, from the one thread
+# that owns it, summing its contributors in an order fixed at plan time (by
+# wrap, then quarter (a, b), then group index ascending within the bucket),
+# so two runs give the same bits. ``LAUNCHES`` counts kernel launches.
+
+LAUNCHES = {"idg_assemble": 0, "idg_extract": 0}
 
 
 def _ext_dims(plan):
@@ -889,6 +914,215 @@ def _assemble_bin(plan, p_b, bid_b):
     return torch.complex(planes[0], planes[1])
 
 
+def _extract_bin(plan, grid, bid_b):
+    """Transpose of :func:`_assemble_bin`: per-group S x S windows of the
+    periodically extended grid. Returns (2, gc, S, S)."""
+    S, half = plan.S, plan.half
+    r = S // half
+    ko, nbx, nby = plan.k0_off, plan.nbig_x, plan.nbig_y
+    nbu, nbv = plan.nbu, plan.nbv
+    ext_u, ext_v = _ext_dims(plan)
+    R_u, R_v = nbu + r - 1, nbv + r - 1
+    fu = torch.cat([grid[nbx - ko :, :], grid] + ([grid[: ext_u - nbx - ko, :]] if ext_u - nbx - ko > 0 else []), 0)
+    out = torch.cat([fu[:, nby - ko :], fu] + ([fu[:, : ext_v - nby - ko]] if ext_v - nby - ko > 0 else []), 1)
+    planes = []
+    for arr in (out.real, out.imag):
+        L = arr.reshape(R_u, half, R_v, half).permute(0, 2, 1, 3)
+        orig = arr.new_zeros((nbu, nbv, S, S))
+        for a in range(r):
+            for b in range(r):
+                orig[:, :, a * half : (a + 1) * half, b * half : (b + 1) * half] += L[a : a + nbu, b : b + nbv]
+        planes.append(orig.reshape(nbu * nbv, S, S)[bid_b])
+    return torch.stack(planes)
+
+
+# ── the per-plan CSR: each bin's groups by bucket ─────────────────────
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BucketCSR:
+    """Each bin's groups by bucket: those of bucket k in bin b are
+    ``order[starts[b * nb + k] : starts[b * nb + k + 1]]`` (nb = nbu nbv),
+    ascending. ``order`` (ng,) int32 is None where the plan's groups already
+    lie in (bin, bucket) order, as the chirp and wplanes planners lay them;
+    a padded plan (``bin_gcap``, the multiband plans) ends each bin's block
+    with empty bucket-0 groups, and then ``order`` is the stable permutation
+    into that order. ``starts`` (nbins nb + 1,) int32: 4 bytes a bucket and
+    bin, 1 / (2 S^2) of the lattice the JAX formula fills a bin. ``bid`` and
+    ``bins`` are the plan's when it was built (a plan padded in place gets a
+    new CSR)."""
+
+    bid: torch.Tensor
+    bins: tuple
+    order: torch.Tensor | None
+    starts: torch.Tensor
+
+
+_CSR: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def bucket_csr(plan) -> BucketCSR:
+    """The plan's :class:`BucketCSR`, on its device, cached by plan
+    identity; an entry leaves the cache with its plan."""
+    bins = (plan.bin_gstart, plan.bin_gcount)
+    csr = _CSR.get(plan)
+    if csr is None or csr.bid is not plan.bid or csr.bins != bins:
+        csr = _CSR[plan] = _build_csr(plan, bins)
+    return csr
+
+
+def _build_csr(plan, bins) -> BucketCSR:
+    dev, nb, ng = plan.bid.device, plan.nbu * plan.nbv, plan.ngroups
+    if plan.bid.dtype != torch.int64 or not plan.bid.is_contiguous():
+        raise ValueError("plan.bid must be a contiguous int64 tensor")
+    if ng and not bool(((plan.bid >= 0) & (plan.bid < nb)).all()):
+        raise ValueError(f"plan bucket ids outside [0, {nb})")
+    bin_of = torch.full((ng,), -1, dtype=torch.int64, device=dev)  # groups outside every bin sort first
+    for b, (gs, gc) in enumerate(zip(*bins)):
+        bin_of[gs : gs + gc] = b
+    key, perm = torch.sort(bin_of * nb + plan.bid, stable=True)
+    starts = torch.searchsorted(key, torch.arange(plan.nbins * nb + 1, device=dev))
+    identity = torch.equal(perm, torch.arange(ng, device=dev))
+    return BucketCSR(bid=plan.bid, bins=bins, order=None if identity else perm.to(torch.int32),
+                     starts=starts.to(torch.int32))
+
+
+# ── the plain versions in the kernels' closed form ────────────────────
+
+
+def _axis_terms(n: int, nbk: int, ext: int, half: int, r: int, ko: int, dev):
+    """Along one axis of length ``n``: for each wrap, for each quarter, the
+    (valid, bucket row, patch row) of every cell, as K1 enumerates them."""
+    t0 = (torch.arange(n, device=dev) + ko) % n
+    wraps = []
+    for w in range(-(-ext // n)):
+        t = t0 + w * n
+        quarters = []
+        for a in range(r):
+            bk = t // half - a
+            ok = (t < ext) & (bk >= 0) & (bk < nbk)
+            quarters.append((ok, bk.clamp(0, nbk - 1), t - bk * half))  # patch row in [0, S)
+        wraps.append(quarters)
+    return wraps
+
+
+def assemble_bin_gather_ref(plan, patches, b: int):
+    """Plain version of K1 in its own closed form, CSR and order of sums:
+    bin ``b``'s complex (nbig_x, nbig_y) grid from the plan's (2, ng, S, S)
+    patches, each cell the sum, by wrap, then quarter, then group, of the
+    patch elements landing on it."""
+    S, half, ko = plan.S, plan.half, plan.k0_off
+    r, nb = S // half, plan.nbu * plan.nbv
+    ext_u, ext_v = (plan.nbu + r - 1) * half, (plan.nbv + r - 1) * half
+    dev = patches.device
+    csr = bucket_csr(plan)
+    starts = csr.starts[b * nb : (b + 1) * nb + 1].to(torch.int64)
+    order = None if csr.order is None else csr.order.to(torch.int64)
+    max_count = int((starts[1:] - starts[:-1]).max()) if nb else 0
+    acc = [patches.new_zeros((plan.nbig_x, plan.nbig_y)) for _ in range(2)]
+    terms_u = _axis_terms(plan.nbig_x, plan.nbu, ext_u, half, r, ko, dev)
+    terms_v = _axis_terms(plan.nbig_y, plan.nbv, ext_v, half, r, ko, dev)
+    for wu in terms_u:
+        for wv in terms_v:
+            for oku, bu, su in wu:
+                for okv, bv, sv in wv:
+                    k = bu[:, None] * plan.nbv + bv[None, :]
+                    lo = starts[k]
+                    cnt = torch.where(oku[:, None] & okv[None, :], starts[k + 1] - lo, 0)
+                    for j in range(max_count):
+                        live = j < cnt
+                        i = torch.where(live, lo + j, 0)
+                        g = i if order is None else order[i]
+                        for c in range(2):
+                            val = patches[c][g, su[:, None], sv[None, :]]
+                            acc[c] = acc[c] + torch.where(live, val, 0.0)
+    return torch.complex(acc[0], acc[1])
+
+
+def extract_bin_gather_ref(plan, grid, b: int):
+    """Plain version of K2 in its closed form: bin ``b``'s (2, gc, S, S)
+    patches gathered from the complex (nbig_x, nbig_y) grid."""
+    gs, gc = plan.bin_gstart[b], plan.bin_gcount[b]
+    bid = plan.bid[gs : gs + gc]
+    s = torch.arange(plan.S, device=grid.device)
+    x = (torch.div(bid, plan.nbv, rounding_mode="floor")[:, None] * plan.half + s - plan.k0_off) % plan.nbig_x
+    y = ((bid % plan.nbv)[:, None] * plan.half + s - plan.k0_off) % plan.nbig_y
+    v = grid[x[:, :, None], y[:, None, :]]
+    return torch.stack([v.real, v.imag])
+
+
+# ── the wrappers ──────────────────────────────────────────────────────
+
+
+def _check_patches(plan, patches) -> None:
+    S = plan.S
+    if patches.device != plan.bid.device:
+        raise ValueError(f"patches are on {patches.device}, the plan on {plan.bid.device}")
+    if patches.dtype != torch.float32:
+        raise TypeError(f"patches: the CUDA kernel takes float32, got {patches.dtype}")
+    if tuple(patches.shape) != (2, plan.ngroups, S, S) or patches.stride()[1:] != (S * S, S, 1):
+        raise ValueError(f"patches: shape {tuple(patches.shape)} != {(2, plan.ngroups, S, S)} or its groups "
+                         "not contiguous")
+
+
+def _check_grid(plan, grid) -> None:
+    if grid.device != plan.bid.device:
+        raise ValueError(f"grid is on {grid.device}, the plan on {plan.bid.device}")
+    if grid.dtype != torch.complex64:
+        raise TypeError(f"grid: the CUDA kernel takes complex64, got {grid.dtype}")
+    if tuple(grid.shape) != (plan.nbig_x, plan.nbig_y) or not grid.is_contiguous():
+        raise ValueError(f"grid: shape {tuple(grid.shape)} != {(plan.nbig_x, plan.nbig_y)} or not contiguous")
+
+
+def assemble_bin(plan, patches, b: int):
+    """Bin ``b``'s complex (nbig_x, nbig_y) uv grid from the plan's (2, ng,
+    S, S) patches (the groups may be a view into a larger tensor along the
+    first axis): the plain version for CPU tensors, else K1 (f32)."""
+    gs, gc = plan.bin_gstart[b], plan.bin_gcount[b]
+    if patches.device.type == "cpu":
+        return _assemble_bin(plan, patches[:, gs : gs + gc], plan.bid[gs : gs + gc])
+    _check_patches(plan, patches)
+    csr = bucket_csr(plan)
+    nb = plan.nbu * plan.nbv
+    out = torch.empty((plan.nbig_x, plan.nbig_y), dtype=torch.complex64, device=patches.device)  # written whole
+    from ..kernels.build import check, load
+
+    code = load().pfb_idg_assemble(
+        patches.data_ptr(), patches.stride(0), None if csr.order is None else csr.order.data_ptr(),
+        csr.starts.data_ptr() + 4 * b * nb, out.data_ptr(), plan.nbig_x, plan.nbig_y, plan.S, plan.half, plan.k0_off,
+        plan.nbu, plan.nbv, idg_fused._stream(patches.device),
+    )
+    check(code, "idg_assemble")
+    LAUNCHES["idg_assemble"] += 1
+    return out
+
+
+def extract_bin(plan, grid, b: int, out):
+    """Bin ``b``'s (2, gc, S, S) patches of the complex (nbig_x, nbig_y) uv
+    grid, written into its groups of ``out`` (2, ng, S, S), which is
+    returned: the plain version for CPU tensors, else K2 (f32)."""
+    gs, gc = plan.bin_gstart[b], plan.bin_gcount[b]
+    if grid.device.type == "cpu":
+        out[:, gs : gs + gc] = _extract_bin(plan, grid, plan.bid[gs : gs + gc])
+        return out
+    _check_grid(plan, grid)
+    _check_patches(plan, out)
+    if gc:
+        from ..kernels.build import check, load
+
+        S = plan.S
+        code = load().pfb_idg_extract(
+            grid.data_ptr(), plan.bid.data_ptr() + 8 * gs, out.data_ptr() + 4 * gs * S * S, out.stride(0), gc, S,
+            plan.half, plan.k0_off, plan.nbv, plan.nbig_x, plan.nbig_y, idg_fused._stream(grid.device),
+        )
+        check(code, "idg_extract")
+        LAUNCHES["idg_extract"] += 1
+    return out
+
+
+# ── runtime: adjoint (vis -> dirty) ──────────────────────────────────
+
+
 def _crop(plan, big):
     px0 = plan.nbig_x // 2 - plan.nx // 2
     py0 = plan.nbig_y // 2 - plan.ny // 2
@@ -915,10 +1149,9 @@ def _idg_accumulate_bins(plan: IDGPlan, patches):
     """Sum of per-bin images: assemble -> ifft2 -> fftshift -> crop -> screen."""
     acc = torch.zeros((plan.nx, plan.ny), dtype=complex_dtype(plan.rdt), device=plan.device)
     for b in range(plan.nbins):
-        gs, gc = plan.bin_gstart[b], plan.bin_gcount[b]
-        if gc == 0:
+        if plan.bin_gcount[b] == 0:
             continue
-        grid = _assemble_bin(plan, patches[:, gs : gs + gc], plan.bid[gs : gs + gc])
+        grid = assemble_bin(plan, patches, b)
         big = torch.fft.ifft2(grid) * (plan.nbig_x * plan.nbig_y)
         a = _crop(plan, torch.fft.fftshift(big))
         if plan.do_wgridding:
@@ -955,49 +1188,23 @@ def vis2dirty_idg(plan: IDGPlan, vis, wgt=None, mask=None, vis_im=None):
 # ── runtime: forward (dirty -> vis), exact conj-transpose ────────────
 
 
-def _extract_bin(plan, grid, bid_b):
-    """Transpose of :func:`_assemble_bin`: per-group S x S windows of the
-    periodically extended grid. Returns (2, gc, S, S)."""
-    S, half = plan.S, plan.half
-    r = S // half
-    ko, nbx, nby = plan.k0_off, plan.nbig_x, plan.nbig_y
-    nbu, nbv = plan.nbu, plan.nbv
-    ext_u, ext_v = _ext_dims(plan)
-    R_u, R_v = nbu + r - 1, nbv + r - 1
-    fu = torch.cat([grid[nbx - ko :, :], grid] + ([grid[: ext_u - nbx - ko, :]] if ext_u - nbx - ko > 0 else []), 0)
-    out = torch.cat([fu[:, nby - ko :], fu] + ([fu[:, : ext_v - nby - ko]] if ext_v - nby - ko > 0 else []), 1)
-    planes = []
-    for arr in (out.real, out.imag):
-        L = arr.reshape(R_u, half, R_v, half).permute(0, 2, 1, 3)
-        orig = arr.new_zeros((nbu, nbv, S, S))
-        for a in range(r):
-            for b in range(r):
-                orig[:, :, a * half : (a + 1) * half, b * half : (b + 1) * half] += L[a : a + nbu, b : b + nbv]
-        planes.append(orig.reshape(nbu * nbv, S, S)[bid_b])
-    return torch.stack(planes)
-
-
 def _idg_bins_to_grid_patches(plan: IDGPlan, image, out=None):
     """Forward: image -> (2, ng, S, S) patch uv samples, bin-contiguous,
     written into ``out`` when it is given."""
     cdt = complex_dtype(plan.rdt)
     y = image.to(plan.rdt).to(cdt) * torch.complex(plan.corr_re, plan.corr_im).conj()
-    if out is None:
-        patches = torch.zeros((2, plan.ngroups, plan.S, plan.S), dtype=plan.rdt, device=plan.device)
-    else:
-        patches = out
-        patches.zero_()
+    # every group lies in one bin, so the bins write every patch
+    patches = torch.empty((2, plan.ngroups, plan.S, plan.S), dtype=plan.rdt, device=plan.device) if out is None else out
     px0 = plan.nbig_x // 2 - plan.nx // 2
     py0 = plan.nbig_y // 2 - plan.ny // 2
     for b in range(plan.nbins):
-        gs, gc = plan.bin_gstart[b], plan.bin_gcount[b]
-        if gc == 0:
+        if plan.bin_gcount[b] == 0:
             continue
         yb = y * _screen(plan, b, 1.0) if plan.do_wgridding else y
         padded = torch.zeros((plan.nbig_x, plan.nbig_y), dtype=cdt, device=plan.device)
         padded[px0 : px0 + plan.nx, py0 : py0 + plan.ny] = yb
         grid = torch.fft.fft2(torch.fft.ifftshift(padded))
-        patches[:, gs : gs + gc] = _extract_bin(plan, grid, plan.bid[gs : gs + gc])
+        extract_bin(plan, grid, b, patches)
     return patches
 
 
