@@ -18,12 +18,13 @@ exits non-zero:
                versions (rel Linf <= 1e-5), and B4 (gather_grid_wstack) on the
                same plans against its f64 and f32 plain versions (<= 1e-5)
                and against B3 by the adjoint identity (<= 1e-5); then K1
-               (idg_assemble) and K2 (idg_extract) at three small plans
-               (chirp S = 16, chirp S = 24 with half 8, wplanes S = 32 padded
-               to per-bin capacities): each bin
-               twice (the same bits), against the plain versions (<= 1e-6 in
-               f32 and f64) and K1 against the gather-form plain version
-               (its own order of sums: the same bits recorded);
+               (idg_chunk_sums + idg_assemble) and K2 (idg_extract) at four
+               small plans (chirp S = 16, chirp S = 24 with half 8, wplanes
+               S = 32 padded to per-bin capacities, and padded by 4000 groups
+               a bin, so that bucket 0 is summed in chunks): each bin twice
+               (the same bits), against the plain versions (<= 1e-6 in f32
+               and f64), K1 and its chunk sums against the gather-form plain
+               version (its own chunks and order of sums: the same bits);
   3. accuracy — the port's f32 ``vis2dirty_idg`` at 256^2, 100k vis and
                epsilon 1e-7 against a direct f64 DFT on the card, within the
                plan's ``delivered_accuracy`` budgets; and the f32
@@ -46,7 +47,8 @@ exits non-zero:
                the multiband Hessian twice (the same bits recorded) and K1/K2
                over every bin of every band (``assembly_kernels``: two
                launches the same bits, within 1e-6 of the plain versions,
-               K2 writing every group; ms of K1, K2 and the old torch path);
+               K2 writing every group; ms of K1, its chunk sums, K2 and the
+               old torch path; long buckets, chunks, the longest chains);
   5. profile — at the main path's shapes, CUDA-event ms of the PSF Hessian
                matvec, Psi.dot/hdot and the dual update, then 20 primal-dual
                and 20 CG iterations on the host clock and under
@@ -972,8 +974,11 @@ def assembly_kernels(plans: list, patches: list, grids: list, reps: int = 5, gat
     required, held against its plain version in f32 (the old path, whose
     ``index_add_`` adds atomically on the card) and in f64, and on the first
     ``gather_bins`` bins against the gather-form plain version (K1's own
-    order of sums); K2 twice into its patches, the same bits required, held
-    against its plain version; both within 1e-6 relative L-inf. CUDA-event
+    chunks and order of sums: the same bits required, and of the chunk
+    sums); K2 twice into its patches, the same bits required, held against
+    its plain version; both within 1e-6 relative L-inf (K1 of the f32 plain
+    version, or, where that is itself more than 1e-6 from f64, nearer to
+    f64 than it, as with thousands of random groups in one bucket). CUDA-event
     ms of all bins through K1 and through the old path, and of K2 and of
     its plain version (the launch's whole assembly, or its whole
     extraction); the bounds. K2 overwrites ``patches``."""
@@ -982,8 +987,9 @@ def assembly_kernels(plans: list, patches: list, grids: list, reps: int = 5, gat
     from pfb_imaging_tpu_torch.ops import gridder_idg as GI
 
     pairs = [(i, b) for i, p in enumerate(plans) for b in range(p.nbins) if p.bin_gcount[b]]
-    k1_rel = k1_rel64 = k1_err = k1_gather_rel = k2_rel = k2_err = 0.0
-    k1_same = k1_gather_same = k2_same = k2_plain_same = True
+    k1_rel = k1_rel64 = k1_err = k1_gather_rel = k2_rel = k2_err = plain_rel64 = 0.0
+    k1_same = k1_gather_same = k2_same = k2_plain_same = chunks_gather_same = k1_f32_ok = True
+    k1_worst = {}
     for n, (i, b) in enumerate(pairs):
         p, pat = plans[i], patches[i]
         gs, gc = p.bin_gstart[b], p.bin_gcount[b]
@@ -992,13 +998,27 @@ def assembly_kernels(plans: list, patches: list, grids: list, reps: int = 5, gat
         k1_same &= bool(torch.equal(g1, g2))
         ref32 = GI._assemble_bin(p, pat[:, gs : gs + gc], bid_b)
         ref64 = GI._assemble_bin(p, pat[:, gs : gs + gc].double(), bid_b)
-        k1_rel = max(k1_rel, rel_linf(g1, ref32))
-        k1_rel64 = max(k1_rel64, rel_linf(g1.to(ref64.dtype), ref64))
+        rel, rel64 = rel_linf(g1, ref32), rel_linf(g1.to(ref64.dtype), ref64)
+        plain64 = rel_linf(ref32.to(ref64.dtype), ref64)
+        # the f32 plain version sums a long bucket's groups one after another
+        # (in no fixed order on the card): where that alone leaves it more
+        # than 1e-6 from f64, K1 must instead be the nearer of the two to f64
+        if float(ref64.abs().max()) == 0.0:  # a bin of empty groups only: K1 must give zeros
+            k1_f32_ok &= not bool(g1.any())
+        else:
+            k1_f32_ok &= rel <= 1e-6 or (plain64 > 1e-6 and rel64 < plain64)
+        if rel64 >= k1_rel64 or rel >= k1_rel:  # the bin furthest from a plain version, for the record
+            k1_worst = dict(plan=i, bin=b, rel_vs_plain=rel, rel_vs_f64=rel64, plain_rel_vs_f64=plain64)
+        k1_rel, k1_rel64, plain_rel64 = max(k1_rel, rel), max(k1_rel64, rel64), max(plain_rel64, plain64)
         k1_err = max(k1_err, float((g1.to(ref64.dtype) - ref64).abs().max()))
         if n < gather_bins:
             gref = GI.assemble_bin_gather_ref(p, pat, b)
             k1_gather_same &= bool(torch.equal(g1, gref))
             k1_gather_rel = max(k1_gather_rel, rel_linf(g1, gref))
+            part = GI.chunk_sums(p, pat, b)
+            if part is not None:
+                chunks_gather_same &= bool(torch.equal(part, GI.chunk_sums_ref(p, pat, b)))
+            del gref, part
         del g1, g2, ref32, ref64
     fill = [q.fill_(float("nan")) for q in patches]  # K2 must write every group
     for i, b in pairs:
@@ -1020,6 +1040,10 @@ def assembly_kernels(plans: list, patches: list, grids: list, reps: int = 5, gat
         for i, b in pairs:
             GI.assemble_bin(plans[i], patches[i], b)
 
+    def k1_chunks():
+        for i, b in pairs:
+            GI.chunk_sums(plans[i], patches[i], b)
+
     def k1_plain():
         for i, b in pairs:
             p = plans[i]
@@ -1037,26 +1061,62 @@ def assembly_kernels(plans: list, patches: list, grids: list, reps: int = 5, gat
             patches[i][:, gs : gs + gc] = GI._extract_bin(p, grids[i], p.bid[gs : gs + gc])
 
     k1_bound, k2_bound = assembly_bounds([(plans[i], b) for i, b in pairs])
-    # what sets K1's time: the fullest bucket's groups (a cell under it sums
-    # them one by one) and the empty groups a padded plan puts in bucket 0
+    # what sets K1's time: the fullest bucket's groups and the empty groups a
+    # padded plan puts in bucket 0, cut into chunks; the longest chains
     runs = [GI.bucket_csr(p).starts.diff() for p in plans]
+    chains = [chain_lengths(plans[i], b) for i, b in pairs]
+    chunk_len = [GI.bucket_csr(p).chunks.diff(dim=1) for p in plans if GI.bucket_csr(p).chunks is not None]
     rec = dict(
         max_groups_per_bucket=max(int(r.max()) for r in runs),
         groups_in_bucket_0=max(int(r[:: p.nbu * p.nbv].max()) for r, p in zip(runs, plans)),
+        long_buckets=sum(int((r > GI.LONG_BUCKET).sum()) for r in runs),
+        chunks=sum(len(c) for c in chunk_len), longest_chunk=max((int(c.max()) for c in chunk_len), default=0),
+        longest_cell_chain=max(c[0] for c in chains), longest_cell_chain_unchunked=max(c[1] for c in chains),
         empty_groups=sum(int((p.cg_idx == p.nrow * p.nchan).all(1).sum()) for p in plans),
         nplans=len(plans), bins=len(pairs), ng=sum(p.ngroups for p in plans), S=plans[0].S,
         nbig=[plans[0].nbig_x, plans[0].nbig_y], padded_order=[GI.bucket_csr(p).order is not None for p in plans],
-        k1_ms=cuda_ms(k1, reps), k1_plain_ms=cuda_ms(k1_plain, 2), k2_ms=cuda_ms(k2, reps),
-        k2_plain_ms=cuda_ms(k2_plain, 2), k1_bound_ms=k1_bound, k2_bound_ms=k2_bound,
-        k1_rel_vs_plain=k1_rel, k1_rel_vs_f64=k1_rel64, k1_max_abs_err=k1_err, k1_two_runs_identical=k1_same,
+        k1_ms=cuda_ms(k1, reps), k1_chunk_sums_ms=cuda_ms(k1_chunks, reps), k1_plain_ms=cuda_ms(k1_plain, 2),
+        k2_ms=cuda_ms(k2, reps), k2_plain_ms=cuda_ms(k2_plain, 2), k1_bound_ms=k1_bound, k2_bound_ms=k2_bound,
+        k1_rel_vs_plain=k1_rel, k1_rel_vs_f64=k1_rel64, k1_plain_rel_vs_f64=plain_rel64, k1_max_abs_err=k1_err,
+        k1_two_runs_identical=k1_same, k1_worst_bin=k1_worst,
         k1_gather_bins=min(gather_bins, len(pairs)), k1_gather_identical=k1_gather_same, k1_rel_vs_gather=k1_gather_rel,
+        k1_chunk_sums_gather_identical=chunks_gather_same,
         k2_rel_vs_plain=k2_rel, k2_max_abs_err=k2_err, k2_plain_identical=k2_plain_same,
         k2_two_runs_identical=k2_same, k2_wrote_every_group=covered,
     )
     require(k1_same and k2_same, "K1/K2: two launches give the same bits")
-    require(max(k1_rel, k1_rel64, k1_gather_rel, k2_rel) <= 1e-6, "K1/K2 within 1e-6 of their plain versions")
+    require(k1_gather_same and chunks_gather_same, "K1 and its chunk sums give the gather form's bits")
+    require(max(k1_rel64, k1_gather_rel, k2_rel) <= 1e-6 and k1_f32_ok,
+            f"K1/K2 within 1e-6 of their plain versions (K1 {k1_worst}, K2 {k2_rel})")
     require(covered, "K2 wrote every group of the launch")
     return rec
+
+
+def chain_lengths(p, b: int) -> tuple:
+    """The longest chain of adds one cell of bin ``b`` makes in K1's
+    assembly (a group of a short bucket, or a chunk partial of a long one,
+    each one add), and the same without chunks (every group): over the
+    cells, the sum over its wraps and quarters of its buckets' terms."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops import gridder_idg as GI
+
+    csr, nb, r = GI.bucket_csr(p), p.nbu * p.nbv, p.S // p.half
+    counts = csr.starts[b * nb : (b + 1) * nb + 1].diff().to(torch.int64)
+    parts = torch.zeros_like(counts) if csr.pstarts is None else csr.pstarts[b * nb : (b + 1) * nb + 1].diff()
+    terms = torch.where(parts > 0, parts.to(torch.int64), counts)
+    ext_u, ext_v = GI._ext_dims(p)
+    new = torch.zeros((p.nbig_x, p.nbig_y), dtype=torch.int64, device=counts.device)
+    old = torch.zeros_like(new)
+    for wu in GI._axis_terms(p.nbig_x, p.nbu, ext_u, p.half, r, p.k0_off, counts.device):
+        for wv in GI._axis_terms(p.nbig_y, p.nbv, ext_v, p.half, r, p.k0_off, counts.device):
+            for oku, bu, _ in wu:
+                for okv, bv, _ in wv:
+                    k = bu[:, None] * p.nbv + bv[None, :]
+                    ok = oku[:, None] & okv[None, :]
+                    new += torch.where(ok, terms[k], 0)
+                    old += torch.where(ok, counts[k], 0)
+    return int(new.max()), int(old.max())
 
 
 def multiband_assembly(model, reps: int = 5) -> dict:
@@ -1101,9 +1161,10 @@ def phase_kernels_assembly(dev, nrow: int = 20_000, nx: int = 512) -> list:
     """K1/K2 at small plans on the card, every bin: chirp at S = 16 and at
     S = 24 with half 8 (r = 3), and a wplanes plan at S = 32 padded to per-bin
     capacities (its groups out of bucket order, as the multiband plans lay
-    them), on seeded patches and grids; :func:`assembly_kernels` with the
-    gather-form plain version on every bin (the same bits expected: it adds
-    in K1's order)."""
+    them), by 3 groups a bin and by 4000 (bucket 0 then holds thousands of
+    groups, summed in chunks), on seeded patches and grids, the padding's
+    too; :func:`assembly_kernels` with the gather-form plain version on
+    every bin (the same bits required: it adds in K1's order)."""
     import torch
 
     from pfb_imaging_tpu_torch.ops.gridder_idg import plan_idg
@@ -1117,10 +1178,12 @@ def phase_kernels_assembly(dev, nrow: int = 20_000, nx: int = 512) -> list:
     out = []
     for name, extra in (("chirp_s16", dict(epsilon=1e-5, w_mode="chirp")),
                         ("chirp_s24_half8", dict(epsilon=1e-5, subgrid=24, half=8, w_mode="chirp")),
-                        ("wplanes_s32_padded", dict(epsilon=1e-7, w_mode="wplanes"))):
-        if name.endswith("padded"):
+                        ("wplanes_s32_padded", dict(epsilon=1e-7, w_mode="wplanes")),
+                        ("wplanes_s32_long_bucket0", dict(epsilon=1e-7, w_mode="wplanes"))):
+        if name.startswith("wplanes"):
             counts = plan_idg(uvw, freq, count_only=True, **kw, **extra)[1]
-            extra = dict(extra, bin_gcap=tuple(int(c) + 3 for c in counts))
+            pad = 4000 if name.endswith("bucket0") else 3
+            extra = dict(extra, bin_gcap=tuple(int(c) + pad for c in counts))
         p = plan_idg(uvw, freq, **kw, **extra)
         pat = torch.as_tensor(rng.standard_normal((2, p.ngroups, p.S, p.S)), device=dev).float()
         g = rng.standard_normal((2, p.nbig_x, p.nbig_y))
@@ -1130,6 +1193,7 @@ def phase_kernels_assembly(dev, nrow: int = 20_000, nx: int = 512) -> list:
         emit({"phase": "kernels", "kernel": "idg_assemble+idg_extract", **rec})
         out.append(rec)
     require(any(r["padded_order"][0] for r in out), "a padded plan's groups taken through the CSR's order")
+    require(out[-1]["groups_in_bucket_0"] >= 4000 and out[-1]["chunks"] > 0, "bucket 0 summed in chunks")
     return out
 
 
@@ -1332,6 +1396,7 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     require(model.shape == (nband, nx, nx), "model shape")
     require(launches["patches_from_vals"] > 0 and launches["vals_from_patches"] > 0, "both kernels launched")
     require(launches["idg_assemble"] > 0 and launches["idg_extract"] > 0, "K1 and K2 launched")
+    require(launches["idg_chunk_sums"] > 0, "K1's chunk sums launched")
     require(near <= 1, "brightest model pixel on a true source")
     require(cyc[-1]["residual_dispatch"]["multiband_parts"] == niter and
             cyc[-1]["residual_dispatch"]["fallback_bands"] == 0, "every residual took the multiband route")
@@ -1799,6 +1864,7 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
     asm = multiband_assembly(model)
     emit({"phase": "widefield", "stage": "assembly_at_multiband_launch", **asm})
     require(launches["idg_assemble"] > 0 and launches["idg_extract"] > 0, "K1/K2 launched in deconv")
+    require(launches["idg_chunk_sums"] > 0, "K1's chunk sums launched in deconv")
 
     # the final model's residual by both routes (multiband plans cached)
     routes = residual_routes(dev, TreeStore(dt_path), keys, model, eps, residual, trace=True)
@@ -3180,6 +3246,17 @@ def phase_parallel(dev, workdir: Path, imaged: Path, store: Path, cell_arcsec: f
     return launches, b[0]["kernels"], dict(a=a, b=b, c=c, summary=summary)
 
 
+def k1_chunk_fields(launches: dict, main_asm: dict, wide_asm: dict) -> dict:
+    """K1's chunk sums (its first launch, inside its ms) in the kernels line:
+    launches on the main path, ms, long buckets, chunks and the longest
+    chains at the deconv and the widefield launch."""
+    keys = ("long_buckets", "chunks", "longest_chunk", "longest_cell_chain", "longest_cell_chain_unchunked",
+            "groups_in_bucket_0")
+    return dict(launches_chunk_sums=launches["idg_chunk_sums"], chunk_sums_ms=main_asm["k1_chunk_sums_ms"],
+                chunk_sums_ms_widefield_launch=wide_asm["k1_chunk_sums_ms"],
+                **{k: main_asm[k] for k in keys}, **{f"{k}_widefield_launch": wide_asm[k] for k in keys})
+
+
 def zero_counts() -> None:
     """Every kernel's launch count to 0."""
     from pfb_imaging_tpu_torch.ops import gridder_idg as GI
@@ -3229,7 +3306,8 @@ def top_device_ops(prof, n: int = 6) -> list:
 # kernel families of a profiled call: the first family whose key is in a
 # kernel's name (lower case) takes its device time
 KERNEL_FAMILIES = (("b2_vals_from_patches", "vals_from_patches"), ("b1_patches_from_vals", "patches_from_vals"),
-                   ("k1_idg_assemble", "idg_assemble"), ("k2_idg_extract", "idg_extract"), ("fft", "fft"),
+                   ("k1_idg_assemble", "idg_assemble"), ("k1_idg_assemble", "idg_chunk_sums"),
+                   ("k2_idg_extract", "idg_extract"), ("fft", "fft"),
                    ("gather", "index"), ("gather", "gather"))
 
 
@@ -3483,6 +3561,7 @@ def main(argv=None) -> int:
             plain_ms=main_asm[f"{tag}_plain_ms"], bound_ms=main_asm[f"{tag}_bound_ms"], bound_by="bytes",
             library_ms=None, library_ms_null_because=ASSEMBLY_NO_LIBRARY, ng=main_asm["ng"], S=main_asm["S"],
             bins=main_asm["bins"], bound_share=main_asm[f"{tag}_bound_ms"] / main_asm[f"{tag}_ms"],
+            bound_share_widefield_launch=wide_asm[f"{tag}_bound_ms"] / wide_asm[f"{tag}_ms"],
             rel_vs_plain=main_asm[f"{tag}_rel_vs_plain"], two_runs_identical=main_asm[f"{tag}_two_runs_identical"],
             ms_widefield_launch=wide_asm[f"{tag}_ms"], plain_ms_widefield_launch=wide_asm[f"{tag}_plain_ms"],
             bound_ms_widefield_launch=wide_asm[f"{tag}_bound_ms"], ng_widefield_launch=wide_asm["ng"],
@@ -3493,6 +3572,7 @@ def main(argv=None) -> int:
             launches_operators_hessian_vis_beam=args["hessian_launches"][name],
             launches_operators_vis2dirty_mask=args["mask_launches"][name],
             launches_parallel={k: v[name] for k, v in par_launches.items()},
+            **(k1_chunk_fields(launches, main_asm, wide_asm) if tag == "k1" else {}),
         ))
     for k in kernels[:2] + kernels[-2:]:
         require(k["launches_pipeline"] > 0, f"{k['name']} launched on the pipeline")

@@ -102,9 +102,13 @@ def _load():
     # w_support, do_w, p0, stream
     lib.pfb_gather_grid_wstack.argtypes = [vp, i, vp, vp, vp, vp, vp, i] + [vp] * 7 + [ll, i, f, i, i, i, i, i, i, vp]
     lib.pfb_gather_grid_wstack.restype = i
-    # patches, cstride, order (or NULL), starts, grid; nbig_x, nbig_y, S, half,
+    # patches, cstride, order (or NULL), chunks, nchunk, partials, pstride, S, stream
+    lib.pfb_idg_chunk_sums.argtypes = [vp, ll, vp, vp, i, vp, ll, i, vp]
+    lib.pfb_idg_chunk_sums.restype = i
+    # patches, cstride, order (or NULL), starts, first (or NULL), partials (or
+    # NULL), pstride, pstarts (or NULL), c0, grid; nbig_x, nbig_y, S, half,
     # k0_off, nbu, nbv, stream
-    lib.pfb_idg_assemble.argtypes = [vp, ll, vp, vp, vp] + [i] * 7 + [vp]
+    lib.pfb_idg_assemble.argtypes = [vp, ll, vp, vp, vp, vp, ll, vp, i, vp] + [i] * 7 + [vp]
     lib.pfb_idg_assemble.restype = i
     # grid, bid, patches, cstride, gc; S, half, k0_off, nbv, nbig_x, nbig_y, stream
     lib.pfb_idg_extract.argtypes = [vp, vp, vp, ll, ll] + [i] * 6 + [vp]

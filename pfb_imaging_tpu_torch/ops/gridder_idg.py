@@ -859,16 +859,32 @@ def delivered_accuracy(plan: IDGPlan) -> dict:
 # ``_extract_bin`` are the plain versions in the JAX formula (``index_add_``
 # onto the lattice, in order on the CPU); ``assemble_bin_gather_ref`` /
 # ``extract_bin_gather_ref`` the plain versions in the kernels' closed form,
-# CSR and order of sums, so that the CPU tests check the kernels' index
-# arithmetic; ``assemble_bin`` / ``extract_bin`` the wrappers, which run the
-# JAX-formula plain versions for CPU tensors and launch the CUDA kernels K1
-# ``idg_assemble`` / K2 ``idg_extract`` (``csrc/idg_assemble.cu``, f32) for
-# CUDA tensors or raise. K1 writes each grid cell once, from the one thread
-# that owns it, summing its contributors in an order fixed at plan time (by
-# wrap, then quarter (a, b), then group index ascending within the bucket),
-# so two runs give the same bits. ``LAUNCHES`` counts kernel launches.
+# CSR, chunks and order of sums, so that the CPU tests check the kernels'
+# index arithmetic; ``assemble_bin`` / ``extract_bin`` the wrappers, which
+# run the JAX-formula plain versions for CPU tensors and launch the CUDA
+# kernels (``csrc/idg_assemble.cu``, f32) for CUDA tensors or raise.
+#
+# What bounds K1 is bytes, once the work is spread: bucket sizes are skewed,
+# and a padded plan (``bin_gcap``, the multiband plans) puts all its empty
+# groups, thousands a bin, in bucket 0, whose cells would each add them one
+# after another while the rest of the card idles. So every bucket with more
+# than ``LONG_BUCKET`` groups is cut at plan time into chunks of
+# ``chunk_length(n)`` consecutive CSR entries (a function of the bucket's
+# count alone, so of the plan alone: any card gives the same bits), and K1
+# is two launches: ``idg_chunk_sums`` sums each chunk's patches element by
+# element, in CSR order, into a scratch partial (blocks a chunk and a tile of
+# its elements, so a 6,000-group bucket becomes ~64 chains of ~96 side by
+# side over the whole card), then ``idg_assemble`` writes each grid cell
+# once, from the one thread that owns it, with no zeroing and no atomics.
+# Its blocks are pairs of lattice cells of the extended plane's first wrap,
+# so the threads of a cell share their buckets. A cell sums, from 0, by
+# wrap (u, then v), then quarter (a, then b), then in
+# the bucket either its groups in CSR order (short) or its chunk partials in
+# chunk order (long), so two runs give the same bits. ``LAUNCHES`` counts
+# kernel launches: K1 is ``idg_chunk_sums`` (bins with a long bucket) and
+# ``idg_assemble``, K2 ``idg_extract``.
 
-LAUNCHES = {"idg_assemble": 0, "idg_extract": 0}
+LAUNCHES = {"idg_chunk_sums": 0, "idg_assemble": 0, "idg_extract": 0}
 
 
 def _ext_dims(plan):
@@ -936,7 +952,47 @@ def _extract_bin(plan, grid, bid_b):
     return torch.stack(planes)
 
 
-# ── the per-plan CSR: each bin's groups by bucket ─────────────────────
+# ── the per-plan CSR: each bin's groups by bucket, long buckets in chunks ─
+
+# A bucket with more groups than this is summed in chunks (K1's first
+# launch); of 8, 16, 24, 32 and 64, 16 and 8 gave K1's least time at both
+# multiband launches of chip_smoke.py on an H100 (PERF.md, section 6)
+LONG_BUCKET = 16
+# chunk lengths are multiples of this (a warp)
+CHUNK_QUANTUM = 32
+
+
+def chunk_length(n):
+    """Groups in each chunk of a long bucket of ``n`` groups (an int or an
+    integer array): ceil(sqrt(n)) rounded up to a multiple of
+    ``CHUNK_QUANTUM``, so a chunk's chain and the chain of its bucket's
+    partials grow alike; the last chunk takes the rest."""
+    n = np.asarray(n, dtype=np.int64)
+    s = np.sqrt(n.astype(np.float64)).astype(np.int64)  # floor(sqrt(n)), exact after the two corrections
+    s -= s * s > n
+    s += (s + 1) * (s + 1) <= n
+    s += s * s < n
+    return -(-s // CHUNK_QUANTUM) * CHUNK_QUANTUM
+
+
+def _chunk_table(starts: np.ndarray):
+    """The chunks of the long buckets of a CSR ``starts`` (int64, every bin
+    and bucket): (pstarts, chunks), where bucket k's chunks are
+    ``chunks[pstarts[k] : pstarts[k + 1]]`` (none for a short bucket), each
+    a [lo, hi) range of CSR entries, consecutive and in CSR order. A
+    function of the counts alone."""
+    counts = np.diff(starts)
+    long = np.flatnonzero(counts > LONG_BUCKET)
+    n = counts[long]
+    length = chunk_length(n)
+    nch = -(-n // length)
+    pcount = np.zeros(len(counts), np.int64)
+    pcount[long] = nch
+    pstarts = np.concatenate([[0], np.cumsum(pcount)])
+    j = np.arange(int(nch.sum())) - np.repeat(pstarts[long], nch)  # chunk index within its bucket
+    lo = np.repeat(starts[long], nch) + j * np.repeat(length, nch)
+    hi = np.minimum(lo + np.repeat(length, nch), np.repeat(starts[long + 1], nch))
+    return pstarts, np.stack([lo, hi], 1)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -947,15 +1003,25 @@ class BucketCSR:
     lie in (bin, bucket) order, as the chirp and wplanes planners lay them;
     a padded plan (``bin_gcap``, the multiband plans) ends each bin's block
     with empty bucket-0 groups, and then ``order`` is the stable permutation
-    into that order. ``starts`` (nbins nb + 1,) int32: 4 bytes a bucket and
-    bin, 1 / (2 S^2) of the lattice the JAX formula fills a bin. ``bid`` and
-    ``bins`` are the plan's when it was built (a plan padded in place gets a
-    new CSR)."""
+    into that order, and ``first`` (nbins nb,) int32 holds, for each bucket
+    whose groups are consecutive (every bucket but a padded bucket 0), its
+    first group, so that K1 reads no ``order`` entry for it (-1 elsewhere).
+    ``starts`` (nbins nb + 1,) int32: 4 bytes a bucket and bin, 1 / (2 S^2)
+    of the lattice the JAX formula fills a bin. The long buckets' chunks
+    (:func:`_chunk_table`): ``chunks`` (nchunks, 2) int32 CSR ranges and
+    ``pstarts`` (nbins nb + 1,) int32 each bucket's first chunk, both None
+    where no bucket is long; ``bin_chunk0`` (nbins + 1, host ints) each
+    bin's first chunk. ``bid`` and ``bins`` are the plan's when it was built
+    (a plan padded in place gets a new CSR)."""
 
     bid: torch.Tensor
     bins: tuple
     order: torch.Tensor | None
+    first: torch.Tensor | None
     starts: torch.Tensor
+    pstarts: torch.Tensor | None
+    chunks: torch.Tensor | None
+    bin_chunk0: tuple
 
 
 _CSR: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
@@ -983,8 +1049,25 @@ def _build_csr(plan, bins) -> BucketCSR:
     key, perm = torch.sort(bin_of * nb + plan.bid, stable=True)
     starts = torch.searchsorted(key, torch.arange(plan.nbins * nb + 1, device=dev))
     identity = torch.equal(perm, torch.arange(ng, device=dev))
+    pstarts, chunks = _chunk_table(starts.cpu().numpy())
+    has = len(chunks) > 0
     return BucketCSR(bid=plan.bid, bins=bins, order=None if identity else perm.to(torch.int32),
-                     starts=starts.to(torch.int32))
+                     first=None if identity else _first_of_runs(perm, starts), starts=starts.to(torch.int32),
+                     pstarts=torch.as_tensor(pstarts, dtype=torch.int32, device=dev) if has else None,
+                     chunks=torch.as_tensor(chunks, dtype=torch.int32, device=dev) if has else None,
+                     bin_chunk0=tuple(int(c) for c in pstarts[::nb]))
+
+
+def _first_of_runs(perm, starts):
+    """Each bucket's first group where its groups ``perm[starts[k] :
+    starts[k + 1]]`` are consecutive, else -1 (int32)."""
+    counts = starts.diff()
+    s0, s1 = int(starts[0]), int(starts[-1])
+    bucket = torch.repeat_interleave(torch.arange(len(counts), device=perm.device), counts)
+    step = perm[s0 + 1 : s1] - perm[s0 : s1 - 1]
+    gaps = torch.zeros_like(counts).index_add_(0, bucket[1:], ((step != 1) & (bucket[1:] == bucket[:-1])).long())
+    head = perm[starts[:-1].clamp(max=max(len(perm) - 1, 0))] if len(perm) else torch.zeros_like(counts)
+    return torch.where((gaps == 0) & (counts > 0), head, -1).to(torch.int32)
 
 
 # ── the plain versions in the kernels' closed form ────────────────────
@@ -1006,10 +1089,29 @@ def _axis_terms(n: int, nbk: int, ext: int, half: int, r: int, ko: int, dev):
     return wraps
 
 
+def chunk_sums_ref(plan, patches, b: int):
+    """Plain version of K1's first launch: bin ``b``'s chunk partials (2,
+    nchunk, S, S), each the sum from 0 of its chunk's patches in CSR order."""
+    csr = bucket_csr(plan)
+    c0, c1 = csr.bin_chunk0[b], csr.bin_chunk0[b + 1]
+    part = patches.new_zeros((2, c1 - c0, plan.S, plan.S))
+    if c1 == c0:
+        return part
+    lo, hi = (csr.chunks[c0:c1, i].to(torch.int64) for i in range(2))
+    order = None if csr.order is None else csr.order.to(torch.int64)
+    for j in range(int((hi - lo).max())):
+        live = (j < hi - lo)[:, None, None]
+        i = torch.where(live[:, 0, 0], lo + j, lo)
+        g = i if order is None else order[i]
+        part = torch.where(live, part + patches[:, g], part)
+    return part
+
+
 def assemble_bin_gather_ref(plan, patches, b: int):
-    """Plain version of K1 in its own closed form, CSR and order of sums:
-    bin ``b``'s complex (nbig_x, nbig_y) grid from the plan's (2, ng, S, S)
-    patches, each cell the sum, by wrap, then quarter, then group, of the
+    """Plain version of K1 in its own closed form, CSR, chunks and order of
+    sums: bin ``b``'s complex (nbig_x, nbig_y) grid from the plan's (2, ng,
+    S, S) patches, each cell the sum from 0, by wrap, then quarter, then in
+    the bucket its groups (short) or its chunk partials (long), of the
     patch elements landing on it."""
     S, half, ko = plan.S, plan.half, plan.k0_off
     r, nb = S // half, plan.nbu * plan.nbv
@@ -1018,7 +1120,15 @@ def assemble_bin_gather_ref(plan, patches, b: int):
     csr = bucket_csr(plan)
     starts = csr.starts[b * nb : (b + 1) * nb + 1].to(torch.int64)
     order = None if csr.order is None else csr.order.to(torch.int64)
-    max_count = int((starts[1:] - starts[:-1]).max()) if nb else 0
+    c0 = csr.bin_chunk0[b]
+    part = chunk_sums_ref(plan, patches, b)
+    if part.shape[1]:
+        pst = csr.pstarts[b * nb : (b + 1) * nb + 1].to(torch.int64) - c0
+    else:
+        pst, part = torch.zeros_like(starts), patches.new_zeros((2, 1, S, S))  # no long bucket: never read
+    npart = pst[1:] - pst[:-1]
+    terms = torch.where(npart > 0, npart, starts[1:] - starts[:-1])
+    max_terms = int(terms.max()) if nb else 0
     acc = [patches.new_zeros((plan.nbig_x, plan.nbig_y)) for _ in range(2)]
     terms_u = _axis_terms(plan.nbig_x, plan.nbu, ext_u, half, r, ko, dev)
     terms_v = _axis_terms(plan.nbig_y, plan.nbv, ext_v, half, r, ko, dev)
@@ -1027,15 +1137,17 @@ def assemble_bin_gather_ref(plan, patches, b: int):
             for oku, bu, su in wu:
                 for okv, bv, sv in wv:
                     k = bu[:, None] * plan.nbv + bv[None, :]
-                    lo = starts[k]
-                    cnt = torch.where(oku[:, None] & okv[None, :], starts[k + 1] - lo, 0)
-                    for j in range(max_count):
+                    lo, plo, long = starts[k], pst[k], npart[k] > 0
+                    cnt = torch.where(oku[:, None] & okv[None, :], terms[k], 0)
+                    for j in range(max_terms):
                         live = j < cnt
-                        i = torch.where(live, lo + j, 0)
+                        i = torch.where(live & ~long, lo + j, 0)
                         g = i if order is None else order[i]
-                        for c in range(2):
-                            val = patches[c][g, su[:, None], sv[None, :]]
-                            acc[c] = acc[c] + torch.where(live, val, 0.0)
+                        c = torch.where(live & long, plo + j, 0)
+                        for ri in range(2):
+                            val = torch.where(long, part[ri][c, su[:, None], sv[None, :]],
+                                              patches[ri][g, su[:, None], sv[None, :]])
+                            acc[ri] = torch.where(live, acc[ri] + val, acc[ri])
     return torch.complex(acc[0], acc[1])
 
 
@@ -1074,23 +1186,73 @@ def _check_grid(plan, grid) -> None:
         raise ValueError(f"grid: shape {tuple(grid.shape)} != {(plan.nbig_x, plan.nbig_y)} or not contiguous")
 
 
+def _check_k1_layout(plan) -> None:
+    """K1's blocks are half x half threads (at least a warp) over whole
+    lattice cells, its terms even offsets, and a warp sets up 2 (S / half)^2
+    buckets: so half is even and at least 6, S / half at most 4, and the
+    grid's sides multiples of half (the planner's half 8, 12 and 16 are)."""
+    S, half = plan.S, plan.half
+    if half < 6 or half % 2 or S // half > 4 or plan.nbig_x % half or plan.nbig_y % half:
+        raise ValueError(f"K1 takes an even half >= 6 with S / half <= 4 and grid sides multiples of half; got "
+                         f"S {S}, half {half}, grid {(plan.nbig_x, plan.nbig_y)}")
+
+
+def _launch_chunk_sums(plan, patches, csr, b: int, lib):
+    """Bin ``b``'s chunk partials by K1's first kernel (arguments checked by
+    the caller), or None where the bin has no long bucket."""
+    c0, c1 = csr.bin_chunk0[b], csr.bin_chunk0[b + 1]
+    if c1 == c0:
+        return None
+    if patches.data_ptr() % 16 or patches.stride(0) % 4:
+        raise ValueError("patches: K1 reads 16-byte vectors; the tensor's start or plane stride is not aligned to them")
+    part = torch.empty((2, c1 - c0, plan.S, plan.S), dtype=torch.float32, device=patches.device)  # written whole
+    from ..kernels.build import check
+
+    code = lib.pfb_idg_chunk_sums(
+        patches.data_ptr(), patches.stride(0), None if csr.order is None else csr.order.data_ptr(),
+        csr.chunks.data_ptr() + 8 * c0, c1 - c0, part.data_ptr(), part.stride(0), plan.S,
+        idg_fused._stream(patches.device),
+    )
+    check(code, "idg_chunk_sums")
+    LAUNCHES["idg_chunk_sums"] += 1
+    return part
+
+
+def chunk_sums(plan, patches, b: int):
+    """K1's first launch: bin ``b``'s chunk partials (2, nchunk, S, S), or
+    None where the bin has no long bucket; the plain version for CPU
+    tensors, else the kernel (f32)."""
+    if patches.device.type == "cpu":
+        csr = bucket_csr(plan)
+        return chunk_sums_ref(plan, patches, b) if csr.bin_chunk0[b + 1] > csr.bin_chunk0[b] else None
+    _check_patches(plan, patches)
+    from ..kernels.build import load
+
+    return _launch_chunk_sums(plan, patches, bucket_csr(plan), b, load())
+
+
 def assemble_bin(plan, patches, b: int):
     """Bin ``b``'s complex (nbig_x, nbig_y) uv grid from the plan's (2, ng,
     S, S) patches (the groups may be a view into a larger tensor along the
-    first axis): the plain version for CPU tensors, else K1 (f32)."""
+    first axis): the plain version for CPU tensors, else K1 (f32): the chunk
+    sums of the bin's long buckets, where it has any, then the assembly."""
     gs, gc = plan.bin_gstart[b], plan.bin_gcount[b]
     if patches.device.type == "cpu":
         return _assemble_bin(plan, patches[:, gs : gs + gc], plan.bid[gs : gs + gc])
     _check_patches(plan, patches)
-    csr = bucket_csr(plan)
-    nb = plan.nbu * plan.nbv
-    out = torch.empty((plan.nbig_x, plan.nbig_y), dtype=torch.complex64, device=patches.device)  # written whole
+    _check_k1_layout(plan)
     from ..kernels.build import check, load
 
-    code = load().pfb_idg_assemble(
+    lib, csr, nb = load(), bucket_csr(plan), plan.nbu * plan.nbv
+    part = _launch_chunk_sums(plan, patches, csr, b, lib)
+    out = torch.empty((plan.nbig_x, plan.nbig_y), dtype=torch.complex64, device=patches.device)  # written whole
+    code = lib.pfb_idg_assemble(
         patches.data_ptr(), patches.stride(0), None if csr.order is None else csr.order.data_ptr(),
-        csr.starts.data_ptr() + 4 * b * nb, out.data_ptr(), plan.nbig_x, plan.nbig_y, plan.S, plan.half, plan.k0_off,
-        plan.nbu, plan.nbv, idg_fused._stream(patches.device),
+        csr.starts.data_ptr() + 4 * b * nb, None if csr.first is None else csr.first.data_ptr() + 4 * b * nb,
+        None if part is None else part.data_ptr(), 0 if part is None else part.stride(0),
+        None if part is None else csr.pstarts.data_ptr() + 4 * b * nb, csr.bin_chunk0[b], out.data_ptr(),
+        plan.nbig_x, plan.nbig_y, plan.S, plan.half, plan.k0_off, plan.nbu, plan.nbv,
+        idg_fused._stream(patches.device),
     )
     check(code, "idg_assemble")
     LAUNCHES["idg_assemble"] += 1

@@ -7,12 +7,17 @@ versions in the JAX formula (``_assemble_bin``/``_extract_bin``, with
 ``index_add_``) and against JAX's own ``_assemble_bin``/``_extract_bin``, on
 the same numpy-seeded patches and grids in f64, at small plans built by the
 port's planner and converted from JAX plans by ``plan_from_jax``: chirp and
-wplanes, S = 16, 24 (half 12 and 8) and 32, padded groups (``bin_gcap``) and
-an empty bin. Tolerance 1e-12 relative L-inf (f64 sums in another order);
+wplanes, S = 16, 24 (half 12 and 8) and 32, padded groups (``bin_gcap``),
+an empty bin, and padded plans whose bucket 0 is long (summed in chunks:
+1100 groups a bin, and 97, one past a chunk boundary), with random values
+in the padding. Tolerance 1e-12 relative L-inf (f64 sums in another order);
 the adjoint identity <assemble(P), G> = <P, extract(G)> to 1e-12; the per-bin
-CSR visits every group once. On a CUDA card only (``gpu``): K1/K2 against
-their plain versions (1e-6 relative, f32) and two launches the same bits;
-the classic ``vis2dirty`` through B3, the same bits twice.
+CSR visits every group once; the chunk table covers every group of each
+long bucket once, in CSR order, and is a function of the bucket counts. On
+a CUDA card only (``gpu``): K1/K2 against their plain versions (1e-6
+relative, f32), K1 and its chunk sums the gather form's bits, two launches
+the same bits, the chunk table built on the card equal to the CPU's; the
+classic ``vis2dirty`` through B3, the same bits twice.
 
 JAX is imported inside the tests that compare with it, so the ``gpu``
 tests also run where only PyTorch is installed:
@@ -47,6 +52,11 @@ CASES = {
     "padded_chirp": (dict(epsilon=1e-5, pad=3), "wide"),
     "padded_wplanes": (dict(epsilon=1e-5, w_mode="wplanes", pad=2), "wide"),
     "empty_bin": (dict(epsilon=1e-5, nbins=6), "split"),
+    # bucket 0 of every bin past LONG_BUCKET: 1100-1101 groups, chunks of 64
+    # (the last shorter), and 97 groups (one of them the plan's own), one
+    # past a chunk boundary
+    "padded_long_bucket0": (dict(epsilon=1e-5, pad=1100), "wide"),
+    "padded_one_past_chunk": (dict(epsilon=1e-5, w_mode="wplanes", pad=96), "wide"),
 }
 _PLANS: dict = {}
 
@@ -125,6 +135,17 @@ def test_cases_cover_the_layouts():
         assert (T.bucket_csr(pt).order is not None) == case.startswith("padded"), case
     assert seen["S"] >= {(16, 8), (24, 12), (24, 8), (32, 16)} and seen["ws"] == {False, True}
     assert 0 in _plans("empty_bin")[1].bin_gcount
+    for case in CASES:
+        pt = _plans(case)[1]
+        csr, nb = T.bucket_csr(pt), pt.nbu * pt.nbv
+        counts = np.diff(csr.starts.numpy().astype(np.int64))
+        bucket0 = counts[: pt.nbins * nb : nb]
+        assert (csr.chunks is not None) == ("long" in case or "chunk" in case), case
+        if "long" in case:  # several chunks of 64 in every non-empty bin
+            assert np.all(bucket0[bucket0 > 0] >= 1100) and np.all(np.diff(csr.bin_chunk0) >= 17), case
+        if "chunk" in case:  # a long bucket one past a chunk boundary
+            long = counts[counts > T.LONG_BUCKET]
+            assert np.any(long % T.chunk_length(long) == 1), case
 
 
 @pytest.mark.parametrize("built", ["port", "from_jax"])
@@ -196,6 +217,77 @@ def test_csr_visits_each_group_once(case):
                 assert np.all(bid[groups] == k) and np.all(np.diff(groups) > 0)
                 seen.extend(groups)
             assert sorted(seen) == list(range(gs, gs + gc))
+
+
+@pytest.mark.parametrize("n,length", [(65, 32), (97, 32), (1024, 32), (1025, 64), (6053, 96), (8217, 96),
+                                      (100_000, 320)])
+def test_chunk_length(n, length):
+    """ceil(sqrt(n)) rounded up to a warp multiple, exact in integers."""
+    assert int(T.chunk_length(n)) == length
+    assert T.chunk_length(np.array([n]))[0] == length
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_chunk_table_covers_long_buckets(case):
+    """Every bucket with more than LONG_BUCKET groups is cut into chunks of
+    ``chunk_length(n)`` consecutive CSR entries (the last takes the rest),
+    which cover its range exactly once in CSR order; no short bucket has a
+    chunk; each bin's chunks are its own. The table depends on the bucket
+    counts alone: a CSR rebuilt from a copy of the same ``bid`` gives the
+    same table, and so does the table of the counts alone."""
+    _, pt, pc = _plans(case)
+    for plan in (pt, pc):
+        csr, nb = T.bucket_csr(plan), plan.nbu * plan.nbv
+        starts = csr.starts.numpy().astype(np.int64)
+        pstarts = np.zeros_like(starts) if csr.pstarts is None else csr.pstarts.numpy().astype(np.int64)
+        chunks = np.zeros((0, 2), np.int64) if csr.chunks is None else csr.chunks.numpy().astype(np.int64)
+        assert csr.bin_chunk0 == tuple(int(c) for c in pstarts[::nb]) and pstarts[-1] == len(chunks)
+        for k, n in enumerate(np.diff(starts)):
+            mine = chunks[pstarts[k] : pstarts[k + 1]]
+            if n <= T.LONG_BUCKET:
+                assert len(mine) == 0, (case, k)
+                continue
+            length = int(T.chunk_length(n))
+            assert len(mine) == -(-n // length), (case, k)
+            assert mine[0, 0] == starts[k] and mine[-1, 1] == starts[k + 1] and np.all(mine[1:, 0] == mine[:-1, 1])
+            assert np.all(mine[:-1, 1] - mine[:-1, 0] == length) and 0 < mine[-1, 1] - mine[-1, 0] <= length
+        again = T._build_csr(dataclasses.replace(plan, bid=plan.bid.clone()), (plan.bin_gstart, plan.bin_gcount))
+        for f in ("starts", "pstarts", "chunks", "order", "first"):
+            a, b = getattr(csr, f), getattr(again, f)
+            assert (a is None and b is None) or torch.equal(a, b), (case, f)
+        assert again.bin_chunk0 == csr.bin_chunk0
+        table = T._chunk_table(np.concatenate([[0], np.cumsum(np.diff(starts))]) + starts[0])
+        np.testing.assert_array_equal(table[0], pstarts if len(chunks) else np.zeros_like(starts))
+        np.testing.assert_array_equal(table[1], chunks)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_first_marks_consecutive_buckets(case):
+    """Where the CSR has an ``order``, ``first[k]`` is bucket k's first
+    group exactly where its groups are consecutive (K1 then reads no order
+    entry for it), else -1; without one every bucket is consecutive."""
+    _, pt, _ = _plans(case)
+    csr = T.bucket_csr(pt)
+    if csr.order is None:
+        assert csr.first is None
+        return
+    starts, order, first = csr.starts.numpy(), csr.order.numpy(), csr.first.numpy()
+    for k in range(len(starts) - 1):
+        groups = order[starts[k] : starts[k + 1]]
+        run = len(groups) > 0 and np.array_equal(groups, groups[0] + np.arange(len(groups)))
+        assert first[k] == (groups[0] if run else -1), (case, k)
+    assert (first < 0).sum() >= 1  # a padded bucket 0 has its plan's own groups, then the padding
+
+
+def test_k1_layout_check():
+    """K1 takes every case's layout (half 8, 12, 16) and refuses, before
+    any launch, a half it has no blocks for."""
+    for case in CASES:
+        T._check_k1_layout(_plans(case)[1])
+    pt = _plans("chirp_s16")[1]
+    for half in (4, 2):
+        with pytest.raises(ValueError, match="half"):
+            T._check_k1_layout(dataclasses.replace(pt, half=half))
 
 
 def test_csr_follows_a_plan_padded_in_place():
@@ -292,9 +384,11 @@ def _f32_plan(case, dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernels_match_plain_on_cuda(case):
-    """K1 and K2 against their plain versions in f32 (1e-6 relative; the
-    gather form adds in K1's order), one launch count per call, and two
-    launches the same bits."""
+    """K1 and K2 against their plain versions in f32 and f64 (1e-6
+    relative; where the f32 plain version's own sums of a long bucket leave
+    it more than 1e-6 from f64, K1 nearer to f64 than it), K1 and its chunk
+    sums the gather form's bits (it adds in K1's order), one launch count
+    per call, and two launches the same bits."""
     dev = _cuda()
     plan = _f32_plan(case, dev)
     P, G = (t.to(dev) for t in _seeded(plan, 21))
@@ -308,19 +402,42 @@ def test_kernels_match_plain_on_cuda(case):
         T.extract_bin(plan, G, b, out1)
         T.extract_bin(plan, G, b, out2)
         torch.cuda.synchronize()
+        chunked = T.bucket_csr(plan).bin_chunk0[b + 1] > T.bucket_csr(plan).bin_chunk0[b]
         assert T.LAUNCHES["idg_assemble"] == before["idg_assemble"] + 2
+        assert T.LAUNCHES["idg_chunk_sums"] == before["idg_chunk_sums"] + (2 if chunked else 0)
         assert T.LAUNCHES["idg_extract"] == before["idg_extract"] + (2 if gc else 0)
         assert torch.equal(g1, g2) and torch.equal(out1[:, gs : gs + gc], out2[:, gs : gs + gc])
         if gc == 0:
             assert not g1.any()
             continue
         ref = T._assemble_bin(plan, P[:, gs : gs + gc], plan.bid[gs : gs + gc])
-        assert _rel(g1.cpu(), ref.cpu()) < 1e-6
-        assert _rel(g1.cpu(), T.assemble_bin_gather_ref(plan, P, b).cpu()) < 1e-6
+        ref64 = T._assemble_bin(plan, P[:, gs : gs + gc].double(), plan.bid[gs : gs + gc]).cpu()
+        rel, rel64, plain64 = _rel(g1.cpu(), ref.cpu()), _rel(g1.cpu(), ref64), _rel(ref.cpu(), ref64)
+        # the f32 plain version adds a long bucket's groups one by one: where
+        # that leaves it more than 1e-6 from f64, K1 must be the nearer to f64
+        assert rel64 < 1e-6 and (rel < 1e-6 or (plain64 > 1e-6 and rel64 < plain64)), (rel, rel64, plain64)
+        assert torch.equal(g1, T.assemble_bin_gather_ref(plan, P, b))
+        if chunked:
+            assert torch.equal(T.chunk_sums(plan, P, b), T.chunk_sums_ref(plan, P, b))
         assert torch.equal(out1[:, gs : gs + gc], T._extract_bin(plan, G, plan.bid[gs : gs + gc]))
     assert not out1.isnan().any()
     with pytest.raises(TypeError, match="float32"):
         T.assemble_bin(plan, P.double(), 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["padded_long_bucket0", "padded_one_past_chunk"])
+def test_chunk_table_same_on_the_card(case):
+    """The CSR and chunk table of a plan on the card equal those built on
+    the CPU from the same ``bid``: the chunks depend on the plan alone."""
+    dev = _cuda()
+    plan = _f32_plan(case, dev)
+    bins = (plan.bin_gstart, plan.bin_gcount)
+    on_card = T.bucket_csr(plan)
+    on_cpu = T._build_csr(dataclasses.replace(plan, bid=plan.bid.cpu()), bins)
+    assert on_card.chunks is not None and on_card.bin_chunk0 == on_cpu.bin_chunk0
+    for f in ("starts", "pstarts", "chunks", "order", "first"):
+        assert torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f)), f
 
 
 @pytest.mark.gpu
