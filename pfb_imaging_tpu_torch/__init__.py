@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.profiling import span
+
 __version__ = "0.1.0"
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -106,7 +108,8 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     host memory, with one wait for the stream."""
     if t.device.type != "cuda":
         return t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
+    with span("fetch"):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
     return host.numpy()

@@ -48,14 +48,16 @@ from ..parallel.fft import psfhat_transposed
 from ..parallel.mesh import COLLECTIVE_STATS, band_sharding, make_mesh, shard_cube, stream_band_stack
 from ..utils.logging import get_logger
 from ..utils.modelspec import eval_coeffs_to_cube, fit_image_cube, save_mds
-from ..utils.profiling import memory_line
+from ..utils.profiling import count, memory_line, span
 from ..utils.store import TreeStore, require_complete
 from .imager import RESIDUAL_DISPATCH_STATS, residual_from_parts, residual_from_parts_multiband
 
 log = get_logger("DECONV")
 
 # per-cycle telemetry of the last ``deconv`` call (read by chip_smoke.py):
-# one dict per major cycle with seconds, rms, rmax, lam and iteration counts
+# one dict per major cycle with seconds (the cycle to its residual; the
+# minor cycle, the model fit, the residual, the tree write), the bytes
+# written, rms, rmax, lam and iteration counts
 CYCLE_STATS: list = []
 
 
@@ -239,104 +241,116 @@ def deconv(
         return {kind: {f: v[f] - c0.get(kind, {}).get(f, 0) for f in ("count", "bytes")} for kind, v in c1.items()}
 
     for k in range(iter0, iter0 + niter):
-        t0 = time.perf_counter()
-        coll0 = collectives()
-        rin = residual if band_beam is None else residual * band_beam
-        upd_t = mdl_t = None
-        if solver is not None:
-            solver.first(shard_cube(mesh, rin / wsum, device=dev, dtype=rdt))
-            upd_t = solver.forward(None)
-        coll_cg = collectives()
-        update = gather(upd_t)
-        lam = (init_factor if (iter0 == 0 and k == 0) else 1.0) * rmsfactor * rms  # D5
-        coll_pd0 = collectives()
-        if solver is not None:
-            mdl_t = solver.backward(lam)
-            solver.last()
-        coll_pd = collectives()
-        model = gather(mdl_t)
-        iters = [int(getattr(solver.forward_alg, "niter_last", -1)), int(getattr(bwd, "niter_last", -1)),
-                 solver.hess_norm] if solver is not None else [0, 0, 0.0]
-        if distributed:  # rank 0's counts on every rank
-            iters = mh.allsum(np.asarray(iters if me == 0 else [0, 0, 0.0], dtype=np.float64)).tolist()
-        t_minor = time.perf_counter() - t0
+        with span("deconv.cycle"):
+            t0 = time.perf_counter()
+            coll0 = collectives()
+            rin = residual if band_beam is None else residual * band_beam
+            upd_t = mdl_t = None
+            with span("deconv.forward"):
+                if solver is not None:
+                    solver.first(shard_cube(mesh, rin / wsum, device=dev, dtype=rdt))
+                    upd_t = solver.forward(None)
+                coll_cg = collectives()
+                update = gather(upd_t)
+            lam = (init_factor if (iter0 == 0 and k == 0) else 1.0) * rmsfactor * rms  # D5
+            with span("deconv.backward"):
+                coll_pd0 = collectives()
+                if solver is not None:
+                    mdl_t = solver.backward(lam)
+                    solver.last()
+                coll_pd = collectives()
+                model = gather(mdl_t)
+                iters = [int(getattr(solver.forward_alg, "niter_last", -1)), int(getattr(bwd, "niter_last", -1)),
+                         solver.hess_norm] if solver is not None else [0, 0, 0.0]
+                if distributed:  # rank 0's counts on every rank
+                    iters = mh.allsum(np.asarray(iters if me == 0 else [0, 0, 0.0], dtype=np.float64)).tolist()
+            t_minor = time.perf_counter() - t0
 
-        if fit_mds and model.any():
-            times_u = np.asarray(node_times).reshape(nband_f, ntime)[0]
-            freqs_u = freq_out.reshape(nband_f, ntime)[:, 0]
-            mcube = model.reshape(nband_f, ntime, nx, ny).transpose(1, 0, 2, 3)
-            coeffs, ix, iy, mattrs = fit_image_cube(times_u, freqs_u, mcube, nbasisf=nbasisf or nband_f,
-                                                    nbasist=min(ntime, 2), device=dev)
-            if me == 0:
-                save_mds(TreeStore(str(dt.path).replace(".dt", ".mds"), mode="w"), coeffs, ix, iy, mattrs)
-            mcube = eval_coeffs_to_cube(times_u, freqs_u, coeffs, ix, iy, mattrs)
-            model = mcube.transpose(1, 0, 2, 3).reshape(nband, nx, ny)
+            with span("deconv.fit"):
+                if fit_mds and model.any():
+                    times_u = np.asarray(node_times).reshape(nband_f, ntime)[0]
+                    freqs_u = freq_out.reshape(nband_f, ntime)[:, 0]
+                    mcube = model.reshape(nband_f, ntime, nx, ny).transpose(1, 0, 2, 3)
+                    coeffs, ix, iy, mattrs = fit_image_cube(times_u, freqs_u, mcube, nbasisf=nbasisf or nband_f,
+                                                            nbasist=min(ntime, 2), device=dev)
+                    if me == 0:
+                        save_mds(TreeStore(str(dt.path).replace(".dt", ".mds"), mode="w"), coeffs, ix, iy, mattrs)
+                    mcube = eval_coeffs_to_cube(times_u, freqs_u, coeffs, ix, iy, mattrs)
+                    model = mcube.transpose(1, 0, 2, 3).reshape(nband, nx, ny)
 
-        t1 = time.perf_counter()
-        by_time: dict = {}
-        for b, key in enumerate(band_nodes):
-            if b in owned:
-                by_time.setdefault(key.split("_time")[-1], []).append((b, key))
-        serial, queued = [], []
-        for items in by_time.values():
-            idxs = [b for b, _ in items]
-            out = residual_from_parts_multiband(dt, [key for _, key in items], model[idxs], epsilon=epsilon,
-                                                do_wgridding=do_wgridding, as_device=True, device=dev)
-            if out is not None:
-                queued.append((idxs, out))
+            t1 = time.perf_counter()
+            with span("deconv.residual"):
+                by_time: dict = {}
+                for b, key in enumerate(band_nodes):
+                    if b in owned:
+                        by_time.setdefault(key.split("_time")[-1], []).append((b, key))
+                serial, queued = [], []
+                for items in by_time.values():
+                    idxs = [b for b, _ in items]
+                    out = residual_from_parts_multiband(dt, [key for _, key in items], model[idxs], epsilon=epsilon,
+                                                        do_wgridding=do_wgridding, as_device=True, device=dev)
+                    if out is not None:
+                        queued.append((idxs, out))
+                    else:
+                        serial.extend(items)
+                RESIDUAL_DISPATCH_STATS["fallback_bands"] += len(serial)
+                queued += [([b], residual_from_parts(dt.group(key), model[b], epsilon=epsilon,
+                                                     do_wgridding=do_wgridding, as_device=True, device=dev)[None])
+                           for b, key in serial]
+                for idxs, r in queued:  # everything is queued on the device before the first fetch
+                    residual[idxs] = to_host(r)
+                if distributed:
+                    # each rank gridded its bands: the sum is the whole cube on every rank
+                    keep = np.zeros(nband)
+                    keep[list(owned)] = 1.0
+                    residual = mh.allsum(residual * keep[:, None, None])
+            t_resid = time.perf_counter() - t1
+
+            rms_p, rmax_p = rms, rmax
+            mfs = residual.sum(axis=0) / wsum
+            rms, rmax = float(np.std(mfs)), float(np.abs(mfs).max())
+            hess_norm_k = iters[2]
+            stats = dict(iter=k + 1, seconds=time.perf_counter() - t0, minor_seconds=t_minor,
+                         fit_seconds=t1 - t0 - t_minor, residual_seconds=t_resid, lam=lam, rms=rms, rmax=rmax,
+                         model_abs_sum=float(np.abs(model).sum()), cg_iters=int(iters[0]), pd_iters=int(iters[1]),
+                         residual_dispatch=dict(RESIDUAL_DISPATCH_STATS),
+                         mesh=None if mesh is None else dict(mesh.shape, in_mesh=mesh.in_mesh),
+                         collectives=since(coll0, collectives()), collectives_cg=since(coll0, coll_cg),
+                         collectives_pd=since(coll_pd0, coll_pd))
+
+            if rms < best_rms:
+                best_rms = rms
+                best_model = model.copy()
+
+            t2 = time.perf_counter()
+            with span("deconv.write"):
+                duals = dict(mh.owned_band_slices(bwd._v, mesh)) if getattr(bwd, "_v", None) is not None else {}
+                nbytes = 0
+                for b, key in enumerate(band_nodes):
+                    if b not in owned:
+                        continue  # one writer a band node: the rank that holds it
+                    node = dt.group(key)
+                    arrays = dict(MODEL=model[b], UPDATE=update[b], RESIDUAL=residual[b], MODEL_BEST=best_model[b])
+                    if b in duals:
+                        arrays["DUAL"] = duals[b]
+                    for name, a in arrays.items():
+                        node.write(name, a)
+                        nbytes += np.asarray(a).nbytes
+                    node.set_attrs(niters=k + 1, rms=rms, rmax=rmax, hess_norm=hess_norm_k)
+                count("deconv.write_bytes", nbytes)
+            stats.update(write_seconds=time.perf_counter() - t2, write_bytes=nbytes)
+            CYCLE_STATS.append(stats)
+            log.info("iter %d: lam=%.3e rms=%.3e rmax=%.3e cg=%d pd=%d (%.2f s; fit %.2f s, write %.2f s %.1f MB) "
+                     "[%s]", k + 1, lam, rms, rmax, stats["cg_iters"], stats["pd_iters"], stats["seconds"],
+                     stats["fit_seconds"], stats["write_seconds"], nbytes / 1e6, memory_line())
+            mh.barrier(f"deconv-iter-{k}")
+
+            if rms > rms_p and rmax > rmax_p:
+                diverge += 1
+                if diverge >= diverge_count:
+                    log.info("Algorithm is diverging, terminating")
+                    break
             else:
-                serial.extend(items)
-        RESIDUAL_DISPATCH_STATS["fallback_bands"] += len(serial)
-        queued += [([b], residual_from_parts(dt.group(key), model[b], epsilon=epsilon, do_wgridding=do_wgridding,
-                                             as_device=True, device=dev)[None]) for b, key in serial]
-        for idxs, r in queued:  # everything is queued on the device before the first fetch
-            residual[idxs] = to_host(r)
-        if distributed:
-            # each rank gridded its bands: the sum is the whole cube on every rank
-            keep = np.zeros(nband)
-            keep[list(owned)] = 1.0
-            residual = mh.allsum(residual * keep[:, None, None])
-        t_resid = time.perf_counter() - t1
-
-        rms_p, rmax_p = rms, rmax
-        mfs = residual.sum(axis=0) / wsum
-        rms, rmax = float(np.std(mfs)), float(np.abs(mfs).max())
-        hess_norm_k = iters[2]
-        stats = dict(iter=k + 1, seconds=time.perf_counter() - t0, minor_seconds=t_minor, residual_seconds=t_resid,
-                     lam=lam, rms=rms, rmax=rmax, model_abs_sum=float(np.abs(model).sum()), cg_iters=int(iters[0]),
-                     pd_iters=int(iters[1]),
-                     residual_dispatch=dict(RESIDUAL_DISPATCH_STATS),
-                     mesh=None if mesh is None else dict(mesh.shape, in_mesh=mesh.in_mesh),
-                     collectives=since(coll0, collectives()), collectives_cg=since(coll0, coll_cg),
-                     collectives_pd=since(coll_pd0, coll_pd))
-        CYCLE_STATS.append(stats)
-        log.info("iter %d: lam=%.3e rms=%.3e rmax=%.3e cg=%d pd=%d (%.2f s) [%s]", k + 1, lam, rms, rmax,
-                 stats["cg_iters"], stats["pd_iters"], stats["seconds"], memory_line())
-
-        if rms < best_rms:
-            best_rms = rms
-            best_model = model.copy()
-
-        duals = dict(mh.owned_band_slices(bwd._v, mesh)) if getattr(bwd, "_v", None) is not None else {}
-        for b, key in enumerate(band_nodes):
-            if b not in owned:
-                continue  # one writer a band node: the rank that holds it
-            node = dt.group(key)
-            node.write("MODEL", model[b])
-            node.write("UPDATE", update[b])
-            node.write("RESIDUAL", residual[b])
-            node.write("MODEL_BEST", best_model[b])
-            if b in duals:
-                node.write("DUAL", duals[b])
-            node.set_attrs(niters=k + 1, rms=rms, rmax=rmax, hess_norm=hess_norm_k)
-        mh.barrier(f"deconv-iter-{k}")
-
-        if rms > rms_p and rmax > rmax_p:
-            diverge += 1
-            if diverge >= diverge_count:
-                log.info("Algorithm is diverging, terminating")
-                break
-        else:
-            diverge = 0
+                diverge = 0
 
     return model, residual

@@ -61,7 +61,7 @@ from ..parallel.sharded import plan_idg_sharded, sharded_dirty2vis_idg, sharded_
 from ..utils.fits import save_fits, set_wcs
 from ..utils.logging import get_logger
 from ..utils.modelspec import eval_coeffs_to_slice, load_mds
-from ..utils.profiling import memory_line
+from ..utils.profiling import count, memory_line, span
 from ..utils.store import TreeStore, band_key, part_key
 
 log = get_logger("IMAGER")
@@ -557,31 +557,41 @@ def residual_from_parts(band_node: TreeStore, model_b, epsilon: float = 1e-7, do
         raise ValueError(f"gridder {gridder!r} not in ('auto', 'idg', 'stack')")
     rdt = checked_real_dtype(device, double_precision)
     dev = resolve_device(device)
-    nx, ny = band_node.read("DIRTY", mmap=True).shape
-    model_t = to_device_async(model_b, dev, rdt)
-    conv = torch.zeros((nx, ny), dtype=rdt, device=dev)
-    want_idg = gridder == "idg" or (gridder == "auto" and epsilon >= IDG_MIN_EPS)
-    for pk in band_node.groups():
-        pg = band_node.group(pk)
-        key = (str(pg.path), _part_stamp(pg), nx, ny, epsilon, do_wgridding, gridder, str(dev))
-        cached = _PLAN_CACHE.get(key)
-        if cached is None:
-            cell = band_node.attrs.get("cell_rad", 0.0) or _cell_from_root(band_node)
-            kw = dict(nx=nx, ny=ny, cellx=cell, celly=cell, l0=pg.attrs.get("l0", 0.0), m0=pg.attrs.get("m0", 0.0),
-                      epsilon=epsilon, do_wgridding=do_wgridding, divide_by_n=False, dtype=rdt, device=dev)
-            cached = _timed_plan(lambda: _plan_partition(pg, pk, kw, gridder, want_idg, dev, rdt), dev)
-            _plan_cache_put(key, cached)
-        else:
-            _PLAN_CACHE.move_to_end(key)
-        plan, wgt, mask, beam, is_idg = cached
-        xin = model_t if beam is None else model_t * beam
-        if is_idg:
-            conv += hessian_vis_idg(plan, xin, wgt_g=wgt)
-        else:
-            conv += vis2dirty(plan, dirty2vis(plan, xin), wgt=wgt, mask=mask)
-    # DIRTY is read while the card works through the queued round trips
-    resid = to_device_async(band_node.read("DIRTY", mmap=True), dev, rdt) - conv
-    return resid if as_device else to_host(resid).astype(np.float64)
+    with span("residual"):
+        with span("residual.lookup"):
+            nx, ny = band_node.read("DIRTY", mmap=True).shape
+            parts = band_node.groups()
+        with span("residual.upload"):
+            model_t = to_device_async(model_b, dev, rdt)
+        conv = torch.zeros((nx, ny), dtype=rdt, device=dev)
+        want_idg = gridder == "idg" or (gridder == "auto" and epsilon >= IDG_MIN_EPS)
+        for pk in parts:
+            with span("residual.lookup"):
+                pg = band_node.group(pk)
+                key = (str(pg.path), _part_stamp(pg), nx, ny, epsilon, do_wgridding, gridder, str(dev))
+                cached = _PLAN_CACHE.get(key)
+                if cached is None:
+                    cell = band_node.attrs.get("cell_rad", 0.0) or _cell_from_root(band_node)
+                    kw = dict(nx=nx, ny=ny, cellx=cell, celly=cell, l0=pg.attrs.get("l0", 0.0),
+                              m0=pg.attrs.get("m0", 0.0), epsilon=epsilon, do_wgridding=do_wgridding,
+                              divide_by_n=False, dtype=rdt, device=dev)
+                    count("residual.plan_miss")
+                    with span("residual.plan"):
+                        cached = _timed_plan(lambda: _plan_partition(pg, pk, kw, gridder, want_idg, dev, rdt), dev)
+                    _plan_cache_put(key, cached)
+                else:
+                    _PLAN_CACHE.move_to_end(key)
+            with span("residual.launch"):
+                plan, wgt, mask, beam, is_idg = cached
+                xin = model_t if beam is None else model_t * beam
+                if is_idg:
+                    conv += hessian_vis_idg(plan, xin, wgt_g=wgt)
+                else:
+                    conv += vis2dirty(plan, dirty2vis(plan, xin), wgt=wgt, mask=mask)
+        # DIRTY is read while the card works through the queued round trips
+        with span("residual.dirty"):
+            resid = to_device_async(band_node.read("DIRTY", mmap=True), dev, rdt) - conv
+        return resid if as_device else to_host(resid).astype(np.float64)
 
 
 def residual_from_parts_multiband(dt: TreeStore, band_keys: list, model, epsilon: float = 1e-7,
@@ -609,17 +619,7 @@ def residual_from_parts_multiband(dt: TreeStore, band_keys: list, model, epsilon
         return None
     dev = resolve_device(device)
     nodes = [dt.group(k) for k in band_keys]
-    part_keys = nodes[0].groups()
-    if not part_keys or any(n.groups() != part_keys for n in nodes[1:]):
-        return None
     nband = len(nodes)
-    nx, ny = nodes[0].read("DIRTY", mmap=True).shape
-    pgs_of = {pk: [n.group(pk) for n in nodes] for pk in part_keys}
-    keys = {pk: ("multiband", tuple(str(pg.path) for pg in pgs), tuple(_part_stamp(pg) for pg in pgs), nx, ny,
-                 epsilon, do_wgridding, str(dev)) for pk, pgs in pgs_of.items()}
-    decline_key = ("multiband_declined",) + tuple(keys.values())
-    if decline_key in _PLAN_CACHE:
-        return None
 
     def build(pgs, uvw):
         freqs = [np.asarray(pg.read("FREQ")) for pg in pgs]
@@ -638,35 +638,52 @@ def residual_from_parts_multiband(dt: TreeStore, band_keys: list, model, epsilon
                 if all(pg.has("BEAM") for pg in pgs) else None)
         return mplan, wgt, None, beam, True
 
-    plans, built = {}, []  # built: made by this call, dropped again if a later partition declines
-    for pk, pgs in pgs_of.items():
-        if keys[pk] in _PLAN_CACHE:
-            _PLAN_CACHE.move_to_end(keys[pk])
-            plans[pk] = _PLAN_CACHE[keys[pk]]
-            continue
-        uvw = np.asarray(pgs[0].read("UVW"))
-        try:
-            if any(not np.array_equal(np.asarray(pg.read("UVW")), uvw) for pg in pgs[1:]):
-                raise ValueError("the bands do not share uvw")
-            cached = _timed_plan(lambda: build(pgs, uvw), dev)
-        except ValueError as e:
-            log.info("multiband partition %s: %s; the slice goes band by band", pk, e)
-            for k in built:
-                _plan_cache_drop(k)
-            _plan_cache_put(decline_key, None)
-            return None
-        _plan_cache_put(keys[pk], cached)
-        plans[pk] = cached
-        built.append(keys[pk])
+    with span("residual"):
+        with span("residual.lookup"):
+            part_keys = nodes[0].groups()
+            if not part_keys or any(n.groups() != part_keys for n in nodes[1:]):
+                return None
+            nx, ny = nodes[0].read("DIRTY", mmap=True).shape
+            pgs_of = {pk: [n.group(pk) for n in nodes] for pk in part_keys}
+            keys = {pk: ("multiband", tuple(str(pg.path) for pg in pgs), tuple(_part_stamp(pg) for pg in pgs), nx,
+                         ny, epsilon, do_wgridding, str(dev)) for pk, pgs in pgs_of.items()}
+            decline_key = ("multiband_declined",) + tuple(keys.values())
+            if decline_key in _PLAN_CACHE:
+                return None
+            plans, built = {}, []  # built: made by this call, dropped again if a later partition declines
+            for pk, pgs in pgs_of.items():
+                if keys[pk] in _PLAN_CACHE:
+                    _PLAN_CACHE.move_to_end(keys[pk])
+                    plans[pk] = _PLAN_CACHE[keys[pk]]
+                    continue
+                count("residual.plan_miss")
+                with span("residual.plan"):
+                    uvw = np.asarray(pgs[0].read("UVW"))
+                    try:
+                        if any(not np.array_equal(np.asarray(pg.read("UVW")), uvw) for pg in pgs[1:]):
+                            raise ValueError("the bands do not share uvw")
+                        cached = _timed_plan(lambda: build(pgs, uvw), dev)
+                    except ValueError as e:
+                        log.info("multiband partition %s: %s; the slice goes band by band", pk, e)
+                        for k in built:
+                            _plan_cache_drop(k)
+                        _plan_cache_put(decline_key, None)
+                        return None
+                _plan_cache_put(keys[pk], cached)
+                plans[pk] = cached
+                built.append(keys[pk])
 
-    xs = [to_device_async(model[b], dev, rdt) for b in range(nband)]
-    conv = torch.zeros((nband, nx, ny), dtype=rdt, device=dev)
-    for pk in part_keys:
-        mplan, wgt, _, beam, _ = plans[pk]
-        conv += multiband_hessian_vis_idg(mplan, xs if beam is None else [x * beam[b] for b, x in enumerate(xs)],
-                                          wgt)
-    RESIDUAL_DISPATCH_STATS["multiband_parts"] += len(part_keys)
-    # DIRTY is read while the card works through the queued round trips
-    for b, n in enumerate(nodes):
-        conv[b] = to_device_async(n.read("DIRTY", mmap=True), dev, rdt) - conv[b]
-    return conv if as_device else to_host(conv).astype(np.float64)
+        with span("residual.upload"):
+            xs = [to_device_async(model[b], dev, rdt) for b in range(nband)]
+        with span("residual.launch"):
+            conv = torch.zeros((nband, nx, ny), dtype=rdt, device=dev)
+            for pk in part_keys:
+                mplan, wgt, _, beam, _ = plans[pk]
+                conv += multiband_hessian_vis_idg(mplan, xs if beam is None else [x * beam[b] for b, x in
+                                                                                  enumerate(xs)], wgt)
+        RESIDUAL_DISPATCH_STATS["multiband_parts"] += len(part_keys)
+        # DIRTY is read while the card works through the queued round trips
+        with span("residual.dirty"):
+            for b, n in enumerate(nodes):
+                conv[b] = to_device_async(n.read("DIRTY", mmap=True), dev, rdt) - conv[b]
+        return conv if as_device else to_host(conv).astype(np.float64)

@@ -16,6 +16,7 @@ import torch
 from ..ops import LinearOperator, require_protocol
 from ..opt import BackwardSolver, ForwardSolver
 from ..opt.power_method import power_method
+from ..utils.profiling import span
 
 log = logging.getLogger("pfb_tpu.PFB")
 
@@ -103,16 +104,18 @@ class PFBSolver:
     def forward(self, residual):
         if self._residual is None:
             raise RuntimeError("residual not set; call first() before forward()")
-        x0 = self._update if bool(self._update.any()) else None
-        self._update = self.forward_alg.solve(self.hess, self._residual, x0=x0)
-        xtilde = self._model + self._gamma * self._update
-        self.backward_alg.set_grad(partial(_pfb_grad, self.hess.dot, xtilde, self._gamma))
+        with span("cg"):
+            x0 = self._update if bool(self._update.any()) else None
+            self._update = self.forward_alg.solve(self.hess, self._residual, x0=x0)
+            xtilde = self._model + self._gamma * self._update
+            self.backward_alg.set_grad(partial(_pfb_grad, self.hess.dot, xtilde, self._gamma))
         return self._update
 
     def backward(self, lam: float):
-        if self._reweight_cb is not None:
-            self._reweight_cb.reset()
-        self._model = self.backward_alg.solve(self._model, lam)
+        with span("pd"):
+            if self._reweight_cb is not None:
+                self._reweight_cb.reset()
+            self._model = self.backward_alg.solve(self._model, lam)
         self._iter += 1
         return self._model
 

@@ -60,6 +60,7 @@ import torch
 from .. import complex_dtype, real_dtype, to_device
 from ..constants import LIGHTSPEED
 from ..geometry import conventions_signs, good_size
+from ..utils.profiling import span
 from . import idg_fused
 from .gridder import _kernel_ft, _kernel_params, es_kernel
 
@@ -574,230 +575,236 @@ def plan_idg(uvw, freq, *, nx: int, ny: int, cellx: float, celly: float, l0: flo
     if eval_backend not in ("auto", "fused") or int(group_size) != G:
         raise ValueError(f"the IDG kernels take eval_backend 'auto' or 'fused' and group_size {G}; got "
                          f"{eval_backend!r}, {group_size}")
-    rdt = dtype or real_dtype(device)
-    uvw = np.asarray(uvw, np.float64)
-    freq = np.asarray(freq, np.float64)
-    nrow, nchan = uvw.shape[0], freq.shape[0]
-    su, sv, sw = conventions_signs(flip_u, flip_v, flip_w)
-    if hermitian:
-        # v < 0 rows mirror onto v >= 0; their values conjugate
-        v_row = sv * uvw[:, 1]
-        fold_row = (v_row < 0) | ((v_row == 0) & (su * uvw[:, 0] < 0))
-        uvw = np.where(fold_row[:, None], -uvw, uvw)
-    else:
-        fold_row = np.zeros(nrow, bool)
-    if epsilon < IDG_MIN_EPS:
-        raise ValueError(f"IDG accuracy envelope stops at epsilon={IDG_MIN_EPS}")
-    subgrid_auto = subgrid is None and half is None
-    if subgrid is None:
-        # epsilon-adaptive subgrid: S=16/half=8 down to 4e-6, S=32/half=16 below
-        subgrid = 16 if epsilon >= 4e-6 else 32
-        if half is None:
-            half = 8 if subgrid == 16 else 16
-    S = int(subgrid)
-    half = int(half) if half is not None else S // 2
-    if S not in idg_fused.SUPPORTED_S:
-        raise ValueError(f"the IDG kernels take subgrid in {idg_fused.SUPPORTED_S}; got {S}")
-    if S % half:
-        raise ValueError("subgrid must be a multiple of half")
-    if sigma is None:
-        sigma = 1.5 if S >= 32 else 1.75 if S == 24 else 1.5 if epsilon >= 2e-5 else 1.75
-    nbig_x, nbig_y = _lattice(nx, ny, S, half, sigma)
-    invlam = freq / LIGHTSPEED
-    nvis = nrow * nchan
-    if nvis:
-        wext = np.array([(sw * uvw[:, 2]).min(), (sw * uvw[:, 2]).max()])
-        wall = np.concatenate([wext * invlam.min(), wext * invlam.max()])
-        w_min_all, w_max_all = float(wall.min()), float(wall.max())
-    else:
-        w_min_all = w_max_all = 0.0
-    ell1 = -l0 + (np.arange(nx) - nx // 2) * cellx
-    emm1 = m0 + (np.arange(ny) - ny // 2) * celly
+    with span("plan.idg"):
+        with span("plan.idg.geometry"):
+            rdt = dtype or real_dtype(device)
+            uvw = np.asarray(uvw, np.float64)
+            freq = np.asarray(freq, np.float64)
+            nrow, nchan = uvw.shape[0], freq.shape[0]
+            su, sv, sw = conventions_signs(flip_u, flip_v, flip_w)
+            if hermitian:
+                # v < 0 rows mirror onto v >= 0; their values conjugate
+                v_row = sv * uvw[:, 1]
+                fold_row = (v_row < 0) | ((v_row == 0) & (su * uvw[:, 0] < 0))
+                uvw = np.where(fold_row[:, None], -uvw, uvw)
+            else:
+                fold_row = np.zeros(nrow, bool)
+            if epsilon < IDG_MIN_EPS:
+                raise ValueError(f"IDG accuracy envelope stops at epsilon={IDG_MIN_EPS}")
+            subgrid_auto = subgrid is None and half is None
+            if subgrid is None:
+                # epsilon-adaptive subgrid: S=16/half=8 down to 4e-6, S=32/half=16 below
+                subgrid = 16 if epsilon >= 4e-6 else 32
+                if half is None:
+                    half = 8 if subgrid == 16 else 16
+            S = int(subgrid)
+            half = int(half) if half is not None else S // 2
+            if S not in idg_fused.SUPPORTED_S:
+                raise ValueError(f"the IDG kernels take subgrid in {idg_fused.SUPPORTED_S}; got {S}")
+            if S % half:
+                raise ValueError("subgrid must be a multiple of half")
+            if sigma is None:
+                sigma = 1.5 if S >= 32 else 1.75 if S == 24 else 1.5 if epsilon >= 2e-5 else 1.75
+            nbig_x, nbig_y = _lattice(nx, ny, S, half, sigma)
+            invlam = freq / LIGHTSPEED
+            nvis = nrow * nchan
+            if nvis:
+                wext = np.array([(sw * uvw[:, 2]).min(), (sw * uvw[:, 2]).max()])
+                wall = np.concatenate([wext * invlam.min(), wext * invlam.max()])
+                w_min_all, w_max_all = float(wall.min()), float(wall.max())
+            else:
+                w_min_all = w_max_all = 0.0
+            ell1 = -l0 + (np.arange(nx) - nx // 2) * cellx
+            emm1 = m0 + (np.arange(ny) - ny // 2) * celly
 
-    # separable quadratic model of n-1 (IRLS toward minimax); the remainder
-    # bounds the chirp-mode w-bin width
-    do_w = bool(do_wgridding) and max(abs(w_min_all), abs(w_max_all)) > 0
-    ix = np.unique(np.append(np.arange(0, nx, max(1, nx // 256)), nx - 1))
-    iy = np.unique(np.append(np.arange(0, ny, max(1, ny // 256)), ny - 1))
-    JX = np.broadcast_to(((ix - nx // 2) * cellx)[:, None], (ix.size, iy.size)).ravel()
-    JY = np.broadcast_to(((iy - ny // 2) * celly)[None, :], (ix.size, iy.size)).ravel()
-    basis = np.stack([np.ones_like(JX), JX, JY, JX * JX, JY * JY], axis=-1)
-    target = (np.sqrt(np.maximum(1.0 - (ell1[ix][:, None] ** 2 + emm1[iy][None, :] ** 2), 0.0)) - 1.0).ravel()
-    wt = np.ones_like(target)
-    for _ in range(3):
-        coef, *_ = np.linalg.lstsq(basis * wt[:, None], target * wt, rcond=None)
-        r = target - basis @ coef
-        rmax = np.abs(r).max()
-        if rmax == 0.0:
-            break
-        wt = (0.1 + (np.abs(r) / rmax) ** 2) ** 2
-    alpha, bl, bm, gl, gm = (float(v) for v in coef)
-    resid_max = float(np.abs(target - basis @ coef).max())
-    if nx > 256 or ny > 256:
-        resid_max *= 1.1
+            # separable quadratic model of n-1 (IRLS toward minimax); the remainder
+            # bounds the chirp-mode w-bin width
+            do_w = bool(do_wgridding) and max(abs(w_min_all), abs(w_max_all)) > 0
+            ix = np.unique(np.append(np.arange(0, nx, max(1, nx // 256)), nx - 1))
+            iy = np.unique(np.append(np.arange(0, ny, max(1, ny // 256)), ny - 1))
+            JX = np.broadcast_to(((ix - nx // 2) * cellx)[:, None], (ix.size, iy.size)).ravel()
+            JY = np.broadcast_to(((iy - ny // 2) * celly)[None, :], (ix.size, iy.size)).ravel()
+            basis = np.stack([np.ones_like(JX), JX, JY, JX * JX, JY * JY], axis=-1)
+            target = (np.sqrt(np.maximum(1.0 - (ell1[ix][:, None] ** 2 + emm1[iy][None, :] ** 2), 0.0)) - 1.0).ravel()
+            wt = np.ones_like(target)
+            for _ in range(3):
+                coef, *_ = np.linalg.lstsq(basis * wt[:, None], target * wt, rcond=None)
+                r = target - basis @ coef
+                rmax = np.abs(r).max()
+                if rmax == 0.0:
+                    break
+                wt = (0.1 + (np.abs(r) / rmax) ** 2) ** 2
+            alpha, bl, bm, gl, gm = (float(v) for v in coef)
+            resid_max = float(np.abs(target - basis @ coef).max())
+            if nx > 256 or ny > 256:
+                resid_max *= 1.1
 
-    if force_w_range is not None:
-        do_w = True
-    w_support = 1
-    wk = None  # wplanes: the w kernel (plane spacing dw, first plane w0, recentring z0, ES beta)
-    edges = None
-    if do_w:
-        wmin, wmax = w_min_all, w_max_all
-        if force_w_range is not None:
-            fw0, fw1, _ = force_w_range
-            if nvis and (wmin < fw0 - 1e-9 or wmax > fw1 + 1e-9):
-                raise ValueError("force_w_range does not cover this layout's w range")
-            wmin, wmax = float(fw0), float(fw1)
-        ximax_x = nx / (2.0 * nbig_x) + 0.01
-        ximax_y = ny / (2.0 * nbig_y) + 0.01
-        tol_resid = max(epsilon * W_RESID_FRACTION, 1e-13)
-        c1 = tol_resid / (2.0 * np.pi * resid_max) if resid_max > 0 else np.inf
-        chirp_l = 2.0 * np.pi * abs(gl) * (nbig_x * cellx * ximax_x) ** 2
-        chirp_m = 2.0 * np.pi * abs(gm) * (nbig_y * celly * ximax_y) ** 2
-        delta = min(c1, CHIRP_BUDGET / max(chirp_l, chirp_m))
-        nbins_chirp = max(1, int(np.ceil((wmax - wmin) / (2.0 * delta)))) if wmax > wmin else 1
-        # wplanes: an ES kernel along w, one support point over the uv rule;
-        # the plane spacing is set by the n-1 halfrange alone
-        ws_cand, _ = _kernel_params(epsilon, W_SIGMA)
-        ws_cand += 1
-        r2_min = float((ell1**2).min() + (emm1**2).min())
-        r2_max = float((ell1**2).max() + (emm1**2).max())
-        z_lo = float(np.sqrt(max(1.0 - r2_max, 0.0)) - 1.0)
-        z_hi = float(np.sqrt(max(1.0 - r2_min, 0.0)) - 1.0)
-        dw = 1.0 / (2.0 * W_SIGMA * max(0.5 * (z_hi - z_lo), 1e-12))
-        shift = int(np.floor(-ws_cand / 2.0)) + 1
-        nplanes = int(np.floor((wmax - wmin) / dw - ws_cand / 2.0)) + 1 - shift + ws_cand
-        if w_mode == "auto":
-            # slot-unit cost model: per-vis slots + per-bin (big iFFT +
-            # assembly ~ lattice area / 4 slots)
-            fbin = nbig_x * nbig_y / 4.0
-            mode = "wplanes" if ws_cand * nvis + nplanes * fbin < nvis + nbins_chirp * fbin else "chirp"
-        else:
-            mode = w_mode
-        if mode == "wplanes":
-            if subgrid_auto and S != 32:  # the coarse-lattice tier: fewer, fuller (plane, bucket) groups
-                S, half, sigma = 32, 16, 1.5
-                nbig_x, nbig_y = _lattice(nx, ny, S, half, sigma)
-            w_support = ws_cand
-            nbins = nplanes
-            if force_w_range is not None and int(force_w_range[2]) != nbins:
-                raise ValueError(f"force_w_range nbins={int(force_w_range[2])} != derived wplane count {nbins}")
-            wk = dict(dw=dw, w0=wmin + shift * dw, z0=0.5 * (z_lo + z_hi), beta=2.30 * ws_cand)
-            wc = wk["w0"] + np.arange(nbins) * dw
-        else:
-            nbins = int(force_w_range[2]) if force_w_range is not None else nbins_chirp
-            if nbins > max_bins:
-                raise ValueError(f"IDG needs {nbins} w-bins (> {max_bins}); field too wide")
-            edges = np.linspace(wmin, wmax, nbins + 1)
-            wc = 0.5 * (edges[:-1] + edges[1:])
-    else:
-        wmin = wmax = 0.0
-        nbins = 1
-        wc = np.zeros(1)
-    wlo, whi = (w_min_all, w_max_all) if do_w else (0.0, 0.0)
-    if count_only == "w":
-        return nbins, None, (wlo, whi, w_support)
+            if force_w_range is not None:
+                do_w = True
+            w_support = 1
+            wk = None  # wplanes: the w kernel (plane spacing dw, first plane w0, recentring z0, ES beta)
+            edges = None
+            if do_w:
+                wmin, wmax = w_min_all, w_max_all
+                if force_w_range is not None:
+                    fw0, fw1, _ = force_w_range
+                    if nvis and (wmin < fw0 - 1e-9 or wmax > fw1 + 1e-9):
+                        raise ValueError("force_w_range does not cover this layout's w range")
+                    wmin, wmax = float(fw0), float(fw1)
+                ximax_x = nx / (2.0 * nbig_x) + 0.01
+                ximax_y = ny / (2.0 * nbig_y) + 0.01
+                tol_resid = max(epsilon * W_RESID_FRACTION, 1e-13)
+                c1 = tol_resid / (2.0 * np.pi * resid_max) if resid_max > 0 else np.inf
+                chirp_l = 2.0 * np.pi * abs(gl) * (nbig_x * cellx * ximax_x) ** 2
+                chirp_m = 2.0 * np.pi * abs(gm) * (nbig_y * celly * ximax_y) ** 2
+                delta = min(c1, CHIRP_BUDGET / max(chirp_l, chirp_m))
+                nbins_chirp = max(1, int(np.ceil((wmax - wmin) / (2.0 * delta)))) if wmax > wmin else 1
+                # wplanes: an ES kernel along w, one support point over the uv rule;
+                # the plane spacing is set by the n-1 halfrange alone
+                ws_cand, _ = _kernel_params(epsilon, W_SIGMA)
+                ws_cand += 1
+                r2_min = float((ell1**2).min() + (emm1**2).min())
+                r2_max = float((ell1**2).max() + (emm1**2).max())
+                z_lo = float(np.sqrt(max(1.0 - r2_max, 0.0)) - 1.0)
+                z_hi = float(np.sqrt(max(1.0 - r2_min, 0.0)) - 1.0)
+                dw = 1.0 / (2.0 * W_SIGMA * max(0.5 * (z_hi - z_lo), 1e-12))
+                shift = int(np.floor(-ws_cand / 2.0)) + 1
+                nplanes = int(np.floor((wmax - wmin) / dw - ws_cand / 2.0)) + 1 - shift + ws_cand
+                if w_mode == "auto":
+                    # slot-unit cost model: per-vis slots + per-bin (big iFFT +
+                    # assembly ~ lattice area / 4 slots)
+                    fbin = nbig_x * nbig_y / 4.0
+                    mode = "wplanes" if ws_cand * nvis + nplanes * fbin < nvis + nbins_chirp * fbin else "chirp"
+                else:
+                    mode = w_mode
+                if mode == "wplanes":
+                    if subgrid_auto and S != 32:  # the coarse-lattice tier: fewer, fuller (plane, bucket) groups
+                        S, half, sigma = 32, 16, 1.5
+                        nbig_x, nbig_y = _lattice(nx, ny, S, half, sigma)
+                    w_support = ws_cand
+                    nbins = nplanes
+                    if force_w_range is not None and int(force_w_range[2]) != nbins:
+                        raise ValueError(f"force_w_range nbins={int(force_w_range[2])} != derived wplane count {nbins}")
+                    wk = dict(dw=dw, w0=wmin + shift * dw, z0=0.5 * (z_lo + z_hi), beta=2.30 * ws_cand)
+                    wc = wk["w0"] + np.arange(nbins) * dw
+                else:
+                    nbins = int(force_w_range[2]) if force_w_range is not None else nbins_chirp
+                    if nbins > max_bins:
+                        raise ValueError(f"IDG needs {nbins} w-bins (> {max_bins}); field too wide")
+                    edges = np.linspace(wmin, wmax, nbins + 1)
+                    wc = 0.5 * (edges[:-1] + edges[1:])
+            else:
+                wmin = wmax = 0.0
+                nbins = 1
+                wc = np.zeros(1)
+            wlo, whi = (w_min_all, w_max_all) if do_w else (0.0, 0.0)
+            if count_only == "w":
+                return nbins, None, (wlo, whi, w_support)
 
-    k0_off = (S - half) // 2
-    nbu, nbv = nbig_x // half, nbig_y // half
-    cux, cvy = cellx * nbig_x, celly * nbig_y
-    sflat = np.ones(nvis + 1)
-    sflat[:nvis] = np.where(np.repeat(fold_row, nchan), -1.0, 1.0)
-    if w_support > 1:
-        lay = _windowed_layout(uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbig_x, nbig_y, half, nbu, nbv, k0_off,
-                               G, nbins, w_support, wk["w0"], wk["dw"], count_only)
-        bin_gcount = lay["bin_gcount"]
-        if count_only:
-            return nbins, tuple(int(x) for x in bin_gcount), (wlo, whi, w_support)
-        bin_gstart = np.concatenate([[0], np.cumsum(bin_gcount)])[:-1]
-        ng = int(bin_gcount.sum())
-        _check_slot_budget(ng, G, nvis * w_support, nbins, max_slot_factor)
-        if bin_gcap is not None:
-            keys = ("win_start", "win_off", "win_len", "plane_g", "bid_g")
-            bin_gstart, bin_gcount, padded = _pad_to_caps(bin_gstart, bin_gcount, bin_gcap,
-                                                          {k: (lay[k], 0) for k in keys})
-            lay.update(padded)
-            ng = int(bin_gcount.sum())
-        bid_g = lay["bid_g"]
-    else:
-        blsu = bl * nbig_x * cellx
-        bmsv = bm * nbig_y * celly
-        chiru = -2.0 * np.pi * gl * (nbig_x * cellx) ** 2 / S**2
-        chirv = -2.0 * np.pi * gm * (nbig_y * celly) ** 2 / S**2
-        binw = (wmax - wmin) / nbins if do_w else 0.0
+        with span("plan.idg.bucket"):
+            k0_off = (S - half) // 2
+            nbu, nbv = nbig_x // half, nbig_y // half
+            cux, cvy = cellx * nbig_x, celly * nbig_y
+            sflat = np.ones(nvis + 1)
+            sflat[:nvis] = np.where(np.repeat(fold_row, nchan), -1.0, 1.0)
+            if w_support > 1:
+                lay = _windowed_layout(uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbig_x, nbig_y, half, nbu, nbv,
+                                       k0_off, G, nbins, w_support, wk["w0"], wk["dw"], count_only)
+                bin_gcount = lay["bin_gcount"]
+                if count_only:
+                    return nbins, tuple(int(x) for x in bin_gcount), (wlo, whi, w_support)
+                bin_gstart = np.concatenate([[0], np.cumsum(bin_gcount)])[:-1]
+                ng = int(bin_gcount.sum())
+                _check_slot_budget(ng, G, nvis * w_support, nbins, max_slot_factor)
+                if bin_gcap is not None:
+                    keys = ("win_start", "win_off", "win_len", "plane_g", "bid_g")
+                    bin_gstart, bin_gcount, padded = _pad_to_caps(bin_gstart, bin_gcount, bin_gcap,
+                                                                  {k: (lay[k], 0) for k in keys})
+                    lay.update(padded)
+                    ng = int(bin_gcount.sum())
+                bid_g = lay["bid_g"]
+            else:
+                blsu = bl * nbig_x * cellx
+                bmsv = bm * nbig_y * celly
+                chiru = -2.0 * np.pi * gl * (nbig_x * cellx) ** 2 / S**2
+                chirv = -2.0 * np.pi * gm * (nbig_y * celly) ** 2 / S**2
+                binw = (wmax - wmin) / nbins if do_w else 0.0
 
-        # ── bucketing + grouping (numpy when the native library is missing) ──
-        from ..native import idg_bucket_group, idg_fill_groups
+                # ── bucketing + grouping (numpy when the native library is missing) ──
+                from ..native import idg_bucket_group, idg_fill_groups
 
-        nat = idg_bucket_group(
-            uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, float(wmin) if do_w else 0.0, float(binw),
-            float(alpha), float(blsu), float(bmsv), float(chiru), float(chirv), nbig_x, nbig_y, half, nbu, nbv,
-            k0_off, G,
-        )
-        if nat is None:
-            nat = _bucket_numpy(uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, edges, wc, do_w, alpha, blsu,
-                                bmsv, chiru, chirv, nbig_x, nbig_y, half, nbu, nbv, k0_off)
-            fill = _fill_numpy
-        else:
-            fill = idg_fill_groups
-        order, uniq, starts, counts, payload = nat
-        gper = -(-counts // G)
-        gbase = np.concatenate([[0], np.cumsum(gper)])
-        ng = int(gbase[-1])
-        bin_gcount = np.zeros(nbins, np.int64)
-        np.add.at(bin_gcount, uniq // (nbu * nbv), gper)
-        bin_gstart = np.concatenate([[0], np.cumsum(bin_gcount)])[:-1]
-        if count_only:
-            return nbins, tuple(int(x) for x in bin_gcount), (wlo, whi, 1)
-        _check_slot_budget(ng, G, nvis, nbins, max_slot_factor)
-        cg_idx, du_g, dv_g, phiu_g, phiv_g, phase_g, _ = fill(order, starts, counts, gbase[:-1], G, ng, nvis,
-                                                              payload)
-        bid_g = np.repeat(uniq % (nbu * nbv), gper)
-        if bin_gcap is not None:
-            arrays = dict(cg_idx=(cg_idx, nvis), du=(du_g, 0.0), dv=(dv_g, 0.0), phiu=(phiu_g, 0.0),
-                          phiv=(phiv_g, 0.0), phase=(phase_g, 0.0), bid=(bid_g, 0))
-            bin_gstart, bin_gcount, p = _pad_to_caps(bin_gstart, bin_gcount, bin_gcap, arrays)
-            cg_idx, du_g, dv_g, phiu_g, phiv_g, phase_g, bid_g = (p[k] for k in arrays)
-            ng = int(bin_gcount.sum())
+                nat = idg_bucket_group(
+                    uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, float(wmin) if do_w else 0.0, float(binw),
+                    float(alpha), float(blsu), float(bmsv), float(chiru), float(chirv), nbig_x, nbig_y, half, nbu, nbv,
+                    k0_off, G,
+                )
+                if nat is None:
+                    nat = _bucket_numpy(uvw, invlam, (su, sv, sw), cux, cvy, l0, m0, nbins, edges, wc, do_w, alpha,
+                                        blsu, bmsv, chiru, chirv, nbig_x, nbig_y, half, nbu, nbv, k0_off)
+                    fill = _fill_numpy
+                else:
+                    fill = idg_fill_groups
+                order, uniq, starts, counts, payload = nat
+                gper = -(-counts // G)
+                gbase = np.concatenate([[0], np.cumsum(gper)])
+                ng = int(gbase[-1])
+                bin_gcount = np.zeros(nbins, np.int64)
+                np.add.at(bin_gcount, uniq // (nbu * nbv), gper)
+                bin_gstart = np.concatenate([[0], np.cumsum(bin_gcount)])[:-1]
+                if count_only:
+                    return nbins, tuple(int(x) for x in bin_gcount), (wlo, whi, 1)
+                _check_slot_budget(ng, G, nvis, nbins, max_slot_factor)
+                cg_idx, du_g, dv_g, phiu_g, phiv_g, phase_g, _ = fill(order, starts, counts, gbase[:-1], G, ng, nvis,
+                                                                      payload)
+                bid_g = np.repeat(uniq % (nbu * nbv), gper)
+                if bin_gcap is not None:
+                    arrays = dict(cg_idx=(cg_idx, nvis), du=(du_g, 0.0), dv=(dv_g, 0.0), phiu=(phiu_g, 0.0),
+                                  phiv=(phiv_g, 0.0), phase=(phase_g, 0.0), bid=(bid_g, 0))
+                    bin_gstart, bin_gcount, p = _pad_to_caps(bin_gstart, bin_gcount, bin_gcap, arrays)
+                    cg_idx, du_g, dv_g, phiu_g, phiv_g, phase_g, bid_g = (p[k] for k in arrays)
+                    ng = int(bin_gcount.sum())
 
-    # ── taper fit, taper-DFT constants ───────────────────────────────
-    chirp = CHIRP_BUDGET if (do_w and w_support == 1) else 0.0
-    widen = rdt == torch.float32
-    cu, Tu_fn, _ = fit_taper(S, half, nx / (2.0 * nbig_x) + 0.01, chirp, tol=0.25 * epsilon, widen=widen)
-    cv, Tv_fn, _ = fit_taper(S, half, ny / (2.0 * nbig_y) + 0.01, chirp, tol=0.25 * epsilon, widen=widen)
-    W = np.exp(-2j * np.pi * np.outer(np.arange(S), np.arange(S)) / S)
+        # ── taper fit, taper-DFT constants ───────────────────────────
+        with span("plan.idg.taper"):
+            chirp = CHIRP_BUDGET if (do_w and w_support == 1) else 0.0
+            widen = rdt == torch.float32
+            cu, Tu_fn, _ = fit_taper(S, half, nx / (2.0 * nbig_x) + 0.01, chirp, tol=0.25 * epsilon, widen=widen)
+            cv, Tv_fn, _ = fit_taper(S, half, ny / (2.0 * nbig_y) + 0.01, chirp, tol=0.25 * epsilon, widen=widen)
+            W = np.exp(-2j * np.pi * np.outer(np.arange(S), np.arange(S)) / S)
 
-    # ── image arrays in f64: n-1, 1/(Tu Tv) [/ n] [x dw / khat_w(n-1 - z0)] ──
-    nn = np.sqrt(np.maximum(1.0 - ell1[:, None] ** 2 - emm1[None, :] ** 2, 0.0))
-    nm1 = nn - 1.0
-    corr = 1.0 / np.outer(Tu_fn((np.arange(nx) - nx // 2) / nbig_x), Tv_fn((np.arange(ny) - ny // 2) / nbig_y))
-    if divide_by_n:
-        corr = np.where(nn > 0, corr / np.where(nn > 0, nn, 1.0), 0.0)
-    if w_support > 1:
-        corr = corr * (wk["dw"] / _kernel_ft(nm1 - wk["z0"], w_support, wk["beta"], delta=wk["dw"]))
+            # ── image arrays in f64: n-1, 1/(Tu Tv) [/ n] [x dw / khat_w(n-1 - z0)] ──
+            nn = np.sqrt(np.maximum(1.0 - ell1[:, None] ** 2 - emm1[None, :] ** 2, 0.0))
+            nm1 = nn - 1.0
+            corr = 1.0 / np.outer(Tu_fn((np.arange(nx) - nx // 2) / nbig_x), Tv_fn((np.arange(ny) - ny // 2) / nbig_y))
+            if divide_by_n:
+                corr = np.where(nn > 0, corr / np.where(nn > 0, nn, 1.0), 0.0)
+            if w_support > 1:
+                corr = corr * (wk["dw"] / _kernel_ft(nm1 - wk["z0"], w_support, wk["beta"], delta=wk["dw"]))
 
-    dev = torch.device(device)
-    as_t = lambda a, t=rdt: to_device(a, dev, t)  # noqa: E731
-    rep_idx = None
-    if w_support > 1:
-        cg_idx_t, scal_t, phre_t, phim_t, sg_t, rep_idx = _window_constants(lay, nvis, G, w_support, S, wk, sflat,
-                                                                            dev, rdt)
-    else:
-        scal_t = as_t(np.stack([2.0 * np.pi / S * du_g, phiu_g, 2.0 * np.pi / S * dv_g, phiv_g]))
-        cg_idx_t, sg_t = as_t(cg_idx, torch.int64), as_t(sflat[cg_idx])
-        phre_t, phim_t = as_t(phase_g.real), as_t(phase_g.imag)
-    plan = IDGPlan(
-        nx=nx, ny=ny, nbig_x=nbig_x, nbig_y=nbig_y, S=S, half=half, G=G, ngroups=ng, nbu=nbu, nbv=nbv,
-        k0_off=k0_off, nrow=nrow, nchan=nchan, nbins=nbins,
-        bin_gstart=tuple(int(x) for x in bin_gstart), bin_gcount=tuple(int(x) for x in bin_gcount),
-        bin_wc=tuple(float(x) for x in wc), do_wgridding=do_w, hermitian=bool(hermitian), epsilon=float(epsilon),
-        scal=scal_t, wcu=as_t(np.stack([(W * cu).real, (W * cu).imag])),
-        wcv=as_t(np.stack([(W * cv).real, (W * cv).imag])), sg=sg_t, cg_idx=cg_idx_t,
-        bid=as_t(bid_g, torch.int64), phase_re=phre_t, phase_im=phim_t,
-        corr_re=as_t(corr.real), corr_im=as_t(corr.imag), nm1=as_t(nm1, torch.float64),
-        w_support=int(w_support), rep_idx=rep_idx,
-    )
-    return _with_screens(plan)
+        with span("plan.idg.upload"):
+            dev = torch.device(device)
+            as_t = lambda a, t=rdt: to_device(a, dev, t)  # noqa: E731
+            rep_idx = None
+            if w_support > 1:
+                cg_idx_t, scal_t, phre_t, phim_t, sg_t, rep_idx = _window_constants(lay, nvis, G, w_support, S, wk,
+                                                                                    sflat, dev, rdt)
+            else:
+                scal_t = as_t(np.stack([2.0 * np.pi / S * du_g, phiu_g, 2.0 * np.pi / S * dv_g, phiv_g]))
+                cg_idx_t, sg_t = as_t(cg_idx, torch.int64), as_t(sflat[cg_idx])
+                phre_t, phim_t = as_t(phase_g.real), as_t(phase_g.imag)
+            plan = IDGPlan(
+                nx=nx, ny=ny, nbig_x=nbig_x, nbig_y=nbig_y, S=S, half=half, G=G, ngroups=ng, nbu=nbu, nbv=nbv,
+                k0_off=k0_off, nrow=nrow, nchan=nchan, nbins=nbins,
+                bin_gstart=tuple(int(x) for x in bin_gstart), bin_gcount=tuple(int(x) for x in bin_gcount),
+                bin_wc=tuple(float(x) for x in wc), do_wgridding=do_w, hermitian=bool(hermitian),
+                epsilon=float(epsilon),
+                scal=scal_t, wcu=as_t(np.stack([(W * cu).real, (W * cu).imag])),
+                wcv=as_t(np.stack([(W * cv).real, (W * cv).imag])), sg=sg_t, cg_idx=cg_idx_t,
+                bid=as_t(bid_g, torch.int64), phase_re=phre_t, phase_im=phim_t,
+                corr_re=as_t(corr.real), corr_im=as_t(corr.imag), nm1=as_t(nm1, torch.float64),
+                w_support=int(w_support), rep_idx=rep_idx,
+            )
+            return _with_screens(plan)
 
 
 def idg_slot_factor(uvw, freq, **kw):

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel.mesh import band_sum
+from ..utils.profiling import span
 
 
 def _dot(a, b):
@@ -81,7 +82,8 @@ def pcg(aop, b, x0=None, precond=None, tol: float = 1e-5, maxit: int = 500, mini
         rnorm_next = red[0]
         p = (rnorm_next / rnorm) * p - y
         rnorm = rnorm_next
-        eps_n = float(torch.sqrt(red[1] / torch.clamp(red[2], min=1e-12)))
+        with span("cg.stop"):  # the host waits here for the iteration's norms
+            eps_n = float(torch.sqrt(red[1] / torch.clamp(red[2], min=1e-12)))
         stall += int(abs(eps - eps_n) < 1e-3 * tol)
         x, eps, k = xn, eps_n, k + 1
     if info is not None:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .pcg import band_dots
 
 
@@ -23,13 +24,14 @@ def power_method(aop, imsize, b0=None, tol: float = 1e-5, maxit: int = 250, *, g
         if generator is None:
             raise ValueError("power_method needs a start vector b0 or a torch.Generator")
         b0 = torch.randn(imsize, generator=generator, device=device, dtype=dtype)
-    b = b0 / torch.sqrt(band_dots(mesh, (b0, b0))[0])
-    beta = torch.ones((), dtype=b.dtype, device=b.device)
-    eps, k = 1.0, 0
-    while eps > tol and k < maxit:
-        bn = aop(b)
-        red = band_dots(mesh, (b, bn), (b, b), (bn, bn))
-        betan, b = red[0] / red[1], bn / torch.sqrt(red[2])
-        eps = float((betan - beta).abs() / torch.clamp(beta, min=1e-300))
-        beta, k = betan, k + 1
+    with span("power"):
+        b = b0 / torch.sqrt(band_dots(mesh, (b0, b0))[0])
+        beta = torch.ones((), dtype=b.dtype, device=b.device)
+        eps, k = 1.0, 0
+        while eps > tol and k < maxit:
+            bn = aop(b)
+            red = band_dots(mesh, (b, bn), (b, b), (bn, bn))
+            betan, b = red[0] / red[1], bn / torch.sqrt(red[2])
+            eps = float((betan - beta).abs() / torch.clamp(beta, min=1e-300))
+            beta, k = betan, k + 1
     return beta, b

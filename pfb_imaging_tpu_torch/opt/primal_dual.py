@@ -28,6 +28,7 @@ import torch
 
 from ..ops import PsiOperator, require_protocol
 from ..prox.prox_21m import dual_update as _dual_update_21m
+from ..utils.profiling import span
 from .pcg import stop_eps
 
 
@@ -42,7 +43,8 @@ def primal_dual_loop(x, v, lam, l1weight, sigma, tau, grad, *, psi_dot, psi_hdot
         xn = x - tau * (psi_hdot(2.0 * vn - v) + grad(x))
         if primal_prox is not None:
             xn = primal_prox(xn)
-        eps = stop_eps(xn, x, mesh)
+        with span("pd.stop"):  # the host waits here for the iteration's norms
+            eps = stop_eps(xn, x, mesh)
         x, v, k = xn, vn, k + 1
     return x, v, k, eps
 

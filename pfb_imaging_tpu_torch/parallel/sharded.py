@@ -38,6 +38,7 @@ from ..ops.dft import vis2dirty_dft
 from ..ops.gridder import plan_wgridder, vis2dirty
 from ..ops.gridder_idg import (IDGPlan, _idg_accumulate_bins, _idg_bins_to_grid_patches, _idg_finish, _idg_prepare,
                                _weighted_round_trip, dirty2vis_idg, plan_idg, to_group_layout, vis2dirty_idg)
+from ..utils.profiling import span
 
 __all__ = ["row_sharded_vis2dirty", "plan_wgridder_sharded", "sharded_vis2dirty", "plan_idg_sharded",
            "sharded_vis2dirty_idg", "sharded_dirty2vis_idg", "MultibandIDGPlan", "plan_idg_multiband",
@@ -186,27 +187,28 @@ def plan_idg_multiband_freqs(uvw, freqs, *, device="cuda", **kw):
     band's channel count with their last channel, which must carry zero
     weight. ``kw`` are :func:`plan_idg`'s. Returns (MultibandIDGPlan,
     nch_max)."""
-    uvw = np.asarray(uvw)
-    freqs = [np.asarray(f) for f in freqs]
-    nch_max = max(f.size for f in freqs)
-    nbins, _, (wlo, whi, ws) = plan_idg(uvw, np.unique(np.concatenate(freqs)), count_only="w", device=device, **kw)
-    kw = dict(kw, w_mode="wplanes" if ws > 1 else "chirp", force_w_range=(wlo, whi, nbins), device=device)
+    with span("plan.multiband"):
+        uvw = np.asarray(uvw)
+        freqs = [np.asarray(f) for f in freqs]
+        nch_max = max(f.size for f in freqs)
+        nbins, _, (wlo, whi, ws) = plan_idg(uvw, np.unique(np.concatenate(freqs)), count_only="w", device=device, **kw)
+        kw = dict(kw, w_mode="wplanes" if ws > 1 else "chirp", force_w_range=(wlo, whi, nbins), device=device)
 
-    def band_freq(fb):
-        return np.concatenate([fb, np.full(nch_max - fb.size, fb[-1])]) if fb.size < nch_max else fb
+        def band_freq(fb):
+            return np.concatenate([fb, np.full(nch_max - fb.size, fb[-1])]) if fb.size < nch_max else fb
 
-    plans: list[IDGPlan] = [plan_idg(uvw, band_freq(fb), **kw) for fb in freqs]
-    p0 = plans[0]
-    for p in plans[1:]:
-        if not (torch.equal(p.wcu, p0.wcu) and torch.equal(p.wcv, p0.wcv) and p.nbins == p0.nbins):
-            raise ValueError("multiband plans differ in their taper or bin grid")
-    gcap = tuple(max(1, max(p.bin_gcount[b] for p in plans)) for b in range(nbins))
-    ng = sum(gcap)
-    scal = p0.scal.new_zeros((4, len(plans) * ng, p0.G))
-    mplan = MultibandIDGPlan(plans=plans, scal=scal)
-    for b, p in enumerate(plans):
-        _pad_to_caps(p, gcap, scal[:, b * ng : (b + 1) * ng])
-    return mplan, nch_max
+        plans: list[IDGPlan] = [plan_idg(uvw, band_freq(fb), **kw) for fb in freqs]
+        p0 = plans[0]
+        for p in plans[1:]:
+            if not (torch.equal(p.wcu, p0.wcu) and torch.equal(p.wcv, p0.wcv) and p.nbins == p0.nbins):
+                raise ValueError("multiband plans differ in their taper or bin grid")
+        gcap = tuple(max(1, max(p.bin_gcount[b] for p in plans)) for b in range(nbins))
+        ng = sum(gcap)
+        scal = p0.scal.new_zeros((4, len(plans) * ng, p0.G))
+        mplan = MultibandIDGPlan(plans=plans, scal=scal)
+        for b, p in enumerate(plans):
+            _pad_to_caps(p, gcap, scal[:, b * ng : (b + 1) * ng])
+        return mplan, nch_max
 
 
 def plan_idg_multiband(uvw, freq, band_slices, **kw):

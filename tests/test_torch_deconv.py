@@ -145,6 +145,12 @@ def test_deconv_matches_jax(tree, tmp_path):
     # the residual shrinks from cycle 1 to cycle 2
     stats = tdeconv.CYCLE_STATS
     assert stats[-1]["rms"] < stats[0]["rms"]
+    # each cycle's parts in seconds, and the bytes of the arrays written to the band nodes
+    written = sum(np.asarray(TreeStore(pt).group(f"band{b:04d}_time0000").read(name)).nbytes for b in range(2)
+                  for name in ("MODEL", "UPDATE", "RESIDUAL", "MODEL_BEST", "DUAL"))
+    for s in stats:
+        assert s["write_bytes"] == written and s["write_seconds"] > 0
+        assert 0 <= s["fit_seconds"] and s["minor_seconds"] + s["fit_seconds"] + s["residual_seconds"] <= s["seconds"]
 
 
 def test_deconv_per_band_route_matches_jax(tree, tmp_path, monkeypatch):

@@ -17,7 +17,8 @@ import pfb_imaging_tpu
 
 torch.set_num_threads(1)
 
-# the JAX surface that exists only for the TPU runtime, with the reason
+# the JAX surface that exists only for the TPU runtime, or that the port
+# replaced, with the reason
 STAYS_OUT = {
     "ops.gridder.vis2dirty_hostloop": "TPU per-plane host loop for runtimes without a fused stack; the port's "
                                       "stack gridder and B3 serve it",
@@ -35,6 +36,8 @@ STAYS_OUT = {
     "parallel.multihost.global_band_array": "global JAX arrays; a torch rank holds its band slice "
                                             "(stream_band_stack)",
     "parallel.multihost.fetch_band_slices": "alias over global JAX arrays; owned_band_slices takes a rank's slice",
+    "utils.profiling.PhaseTimer": "the port's recorder (span, count, take) times the program's layers on the "
+                                  "profiler's clock",
 }
 
 # shared names whose positional parameters differ on purpose: the call then
