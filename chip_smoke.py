@@ -25,6 +25,14 @@ exits non-zero:
                (the same bits), against the plain versions (<= 1e-6 in f32
                and f64), K1 and its chunk sums against the gather-form plain
                version (its own chunks and order of sums: the same bits);
+               then P1 (psi_analysis) and P2 (psi_synthesis), Psi.dot/hdot at
+               4 x 2048^2 and 2 levels with the deconv's default bases (self,
+               db1, db2) and with the sara cell's nine (``phase_psi``): each
+               against the plain conv path in f64 on the card (rel Linf <=
+               2e-6), two calls the same bits, ms by CUDA events beside the
+               byte bound and the plain path's f32 ms; at the nine, 2 + 2
+               launches a primal-dual iteration, and no cuDNN or ``cat``
+               kernel in Psi's trace nor cuDNN in a PD iteration's;
   3. accuracy — the port's f32 ``vis2dirty_idg`` at 256^2, 100k vis and
                epsilon 1e-7 against a direct f64 DFT on the card, within the
                plan's ``delivered_accuracy`` budgets; and the f32
@@ -203,7 +211,11 @@ and ``launches_commands``, which must be positive for B1/B2, as must their
 ``launches_operators`` (the S = 24 plan),
 ``launches_operators_hessian_vis_beam`` and ``launches_parallel`` by part
 and rank, with
-B1/B2 at rank 0's shard plans under ``*_parallel_*`` keys), the
+B1/B2 at rank 0's shard plans under ``*_parallel_*`` keys; P1/P2 last, at
+the sara cell's shapes and under ``*_deconv_default`` keys at the deconv's
+default bases, with their launches a PD iteration there besides the main
+path's; their widefield, pipeline and parallel launches must be positive),
+the
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
@@ -243,7 +255,11 @@ REPLACES = {
     # the port's own kernels: the JAX functions were XLA ops, not Pallas kernels
     "idg_assemble": "pfb_imaging_tpu/ops/gridder_idg.py:2026 (_assemble_bin)",
     "idg_extract": "pfb_imaging_tpu/ops/gridder_idg.py:2482 (_extract_bin)",
+    "psi_analysis": "pfb_imaging_tpu/ops/wavelets.py:114 (conv_general_dilated, through ops/psi.py Psi.dot)",
+    "psi_synthesis": "pfb_imaging_tpu/ops/wavelets.py:139 (conv_general_dilated, through ops/psi.py Psi.hdot)",
 }
+SARA_BASES = ("self",) + tuple(f"db{p}" for p in range(1, 9))
+DECONV_BASES = ("self", "db1", "db2")  # the deconv's default (deconv/presets)
 # why library_ms is null for K1/K2
 ASSEMBLY_NO_LIBRARY = ("no one PyTorch call places patches periodically on a grid: the plain version is a lattice "
                        "index_add_, r^2 shifted adds and a fold (K1), or a periodic extension and a gather (K2)")
@@ -600,6 +616,99 @@ def dft_dirty(uvw, freq, vis, nx: int, cell: float, dev, chunk: int = 1024, sv: 
             vv = v[s : s + chunk, f]
             acc += vv.real @ torch.cos(ph) - vv.imag @ torch.sin(ph)
     return acc.reshape(nx, nx)
+
+
+def psi_bytes(psi, nband: int) -> int:
+    """Bytes a Psi analysis or synthesis of ``nband`` bands must move once:
+    the image cube and the packed cube's coefficients, at 4 bytes each (the
+    cube's zero margins and the kernels' scratch are not counted)."""
+    live = 0
+    for b in psi.bases:
+        if b == "self":
+            live += psi.nx * psi.ny
+            continue
+        bk = psi._books[b]
+        live += sum(3 * cx * cy for cx, cy in zip(bk.cx, bk.cy)) + bk.cx[-1] * bk.cy[-1]
+    return 4 * nband * (psi.nx * psi.ny + live)
+
+
+def psi_at(dev, bases, nband: int, nx: int, nlevel: int, reps: int, plain_reps: int, seed: int):
+    """P1 / P2 of a ``Psi(bases, nlevel)`` at ``nband`` x ``nx``^2 on the
+    card: the Psi, its x and cube, and their record (against the plain conv
+    path in f64 on the card, two calls the same bits, ms by CUDA events
+    beside the byte bound and the plain path's ms in f32, the path the card
+    took before the kernels)."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops import psi as PS
+
+    psi = PS.Psi(nband, nx, nx, bases=bases, nlevel=nlevel, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((nband, nx, nx), generator=g, device=dev)
+    v = torch.randn((nband, psi.nbasis, psi.nymax, psi.nxmax), generator=g, device=dev)
+    a, h = psi.dot(x), psi.hdot(v)
+    rel_dot = rel_linf(a.double(), psi.dot_plain(x.double()))
+    rel_hdot = rel_linf(h.double(), psi.hdot_plain(v.double()))
+    same = torch.equal(a, psi.dot(x)) and torch.equal(h, psi.hdot(v))
+    del a, h
+    torch.cuda.empty_cache()
+    nbytes = psi_bytes(psi, nband)
+    rec = dict(nband=nband, nx=nx, nlevel=nlevel, bases=list(bases), nymax=psi.nymax, nxmax=psi.nxmax,
+               rel_vs_f64_dot=rel_dot, rel_vs_f64_hdot=rel_hdot, two_calls_identical=same,
+               bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               dot_ms=cuda_ms(lambda: psi.dot(x), reps), hdot_ms=cuda_ms(lambda: psi.hdot(v), reps),
+               plain_dot_ms=cuda_ms(lambda: psi.dot_plain(x), plain_reps),
+               plain_hdot_ms=cuda_ms(lambda: psi.hdot_plain(v), plain_reps))
+    require(rel_dot <= 2e-6 and rel_hdot <= 2e-6,
+            f"P1/P2 within 2e-6 of the f64 plain path at {bases} ({rel_dot}, {rel_hdot})")
+    require(same, f"P1/P2: two calls give the same bits at {bases}")
+    return psi, x, v, rec
+
+
+def phase_psi(dev, nband: int = 4, nx: int = 2048, nlevel: int = 2, reps: int = 20, plain_reps: int = 3,
+              pd_iters: int = 3) -> dict:
+    """P1 / P2 (``Psi.dot`` / ``Psi.hdot`` on the card) at ``nband`` x
+    ``nx``^2 and ``nlevel`` levels (``psi_at``), with the deconv's default
+    bases (self, db1, db2: phase_main's and the pipeline's sara) and then
+    SARA's nine (the sara cell's); at the nine, launches over ``pd_iters``
+    primal-dual iterations (2 + 2 each at 2 levels), and the kernel names
+    of one Psi pair and of one PD iteration under ``torch.profiler``: no
+    cuDNN convolution and no ``cat`` in Psi's, no cuDNN in PD's (the stop
+    test's per-band ``stack``s stay)."""
+    import torch
+
+    from pfb_imaging_tpu_torch.ops import psi as PS
+    from pfb_imaging_tpu_torch.opt.primal_dual import primal_dual_loop
+    from pfb_imaging_tpu_torch.prox.prox_21m import dual_update
+
+    *_, default = psi_at(dev, DECONV_BASES, nband, nx, nlevel, reps, plain_reps, seed=16)
+    torch.cuda.empty_cache()
+    psi, x, v, rec = psi_at(dev, SARA_BASES, nband, nx, nlevel, reps, plain_reps, seed=17)
+    rec["deconv_default"] = default
+    l1w = torch.ones((psi.nbasis, psi.nymax, psi.nxmax), device=dev)
+
+    def pd(iters):
+        primal_dual_loop(x, torch.zeros_like(v), 1e-3, l1w, 1.0, 0.5, lambda z: 0.1 * z, psi_dot=psi.dot,
+                         psi_hdot=psi.hdot, dual_update=dual_update, tol=0.0, maxit=iters)
+
+    zero_counts()
+    pd(pd_iters)
+    torch.cuda.synchronize()
+    rec["launches_pd_iteration"] = {k: PS.LAUNCHES[k] / pd_iters for k in PS.LAUNCHES}
+    for what, fn in (("psi", lambda: (psi.dot(x), psi.hdot(v))), ("pd_iteration", lambda: pd(1))):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rec[f"kernels_{what}"] = sorted({e.name for e in prof.events()
+                                         if e.device_type == torch.autograd.DeviceType.CUDA})
+    emit({"phase": "psi", **rec})
+    require(rec["launches_pd_iteration"] == {"psi_analysis": nlevel, "psi_synthesis": nlevel},
+            "Psi's kernels launched nlevel + nlevel times a PD iteration")
+    require(not any("cudnn" in n.lower() or "CatArrayBatchedCopy" in n for n in rec["kernels_psi"]),
+            "no cuDNN convolution and no cat in Psi's trace")
+    require(not any("cudnn" in n.lower() for n in rec["kernels_pd_iteration"]),
+            "no cuDNN convolution in a PD iteration")
+    return rec
 
 
 def phase_accuracy(dev, nrow: int = 50_000, nchan: int = 2, nx: int = 256, eps: float = 1e-7):
@@ -1397,6 +1506,7 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     require(launches["patches_from_vals"] > 0 and launches["vals_from_patches"] > 0, "both kernels launched")
     require(launches["idg_assemble"] > 0 and launches["idg_extract"] > 0, "K1 and K2 launched")
     require(launches["idg_chunk_sums"] > 0, "K1's chunk sums launched")
+    require(launches["psi_analysis"] > 0 and launches["psi_synthesis"] > 0, "P1 and P2 launched")
     require(near <= 1, "brightest model pixel on a true source")
     require(cyc[-1]["residual_dispatch"]["multiband_parts"] == niter and
             cyc[-1]["residual_dispatch"]["fallback_bands"] == 0, "every residual took the multiband route")
@@ -1865,6 +1975,7 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
     emit({"phase": "widefield", "stage": "assembly_at_multiband_launch", **asm})
     require(launches["idg_assemble"] > 0 and launches["idg_extract"] > 0, "K1/K2 launched in deconv")
     require(launches["idg_chunk_sums"] > 0, "K1's chunk sums launched in deconv")
+    require(launches["psi_analysis"] > 0 and launches["psi_synthesis"] > 0, "P1/P2 launched in deconv")
 
     # the final model's residual by both routes (multiband plans cached)
     routes = residual_routes(dev, TreeStore(dt_path), keys, model, eps, residual, trace=True)
@@ -3262,8 +3373,9 @@ def zero_counts() -> None:
     from pfb_imaging_tpu_torch.ops import gridder_idg as GI
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
     from pfb_imaging_tpu_torch.ops import idg_fused as F
+    from pfb_imaging_tpu_torch.ops import psi as PS
 
-    for counts in (F.LAUNCHES, GP.LAUNCHES, GI.LAUNCHES):
+    for counts in (F.LAUNCHES, GP.LAUNCHES, GI.LAUNCHES, PS.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -3272,8 +3384,9 @@ def read_counts() -> dict:
     from pfb_imaging_tpu_torch.ops import gridder_idg as GI
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
     from pfb_imaging_tpu_torch.ops import idg_fused as F
+    from pfb_imaging_tpu_torch.ops import psi as PS
 
-    return {**F.LAUNCHES, **GP.LAUNCHES, **GI.LAUNCHES}
+    return {**F.LAUNCHES, **GP.LAUNCHES, **GI.LAUNCHES, **PS.LAUNCHES}
 
 
 def device_busy_ms(prof) -> float:
@@ -3436,6 +3549,7 @@ def main(argv=None) -> int:
 
     kern = phase_kernels(dev)
     phase_kernels_assembly(dev)
+    psi_rec = phase_psi(dev)
     scat, gath = phase_kernels_scatter(dev)
     phase_accuracy(dev)
     phase_accuracy_pallas(dev)
@@ -3581,6 +3695,28 @@ def main(argv=None) -> int:
         require(k["launches_operators_hessian_vis_beam"] > 0,
                 f"{k['name']} launched by hessian_vis_idg(beam, eta, wsum)")
         require(all(n > 0 for n in k["launches_parallel"].values()), f"{k['name']} launched by every rank of (a), (b)")
+    for name, tag in (("psi_analysis", "dot"), ("psi_synthesis", "hdot")):
+        # ms and errors at the sara cell's shapes, and at the deconv's default
+        # bases; launches on the main path's deconv as for the others, and a
+        # primal-dual iteration at the cell's shapes. None of the commands
+        # runs Psi (kclean, fluxtractor and hci have no dictionary; ista's is
+        # the identity), so their count stays 0 and is not required.
+        dflt = psi_rec["deconv_default"]
+        kernels.append(dict(
+            name=name, route="cuda", source="pfb_imaging_tpu_torch/csrc/psi_wavelets.cu", replaces=REPLACES[name],
+            launches=launches[name], launches_pd_iteration=psi_rec["launches_pd_iteration"][name],
+            ms=psi_rec[f"{tag}_ms"], plain_ms=psi_rec[f"plain_{tag}_ms"], bound_ms=psi_rec["bound_ms"],
+            bound_by="bytes", bound_share=psi_rec["bound_ms"] / psi_rec[f"{tag}_ms"], library_ms=None,
+            rel_vs_f64=psi_rec[f"rel_vs_f64_{tag}"], two_calls_identical=psi_rec["two_calls_identical"],
+            ms_deconv_default=dflt[f"{tag}_ms"], plain_ms_deconv_default=dflt[f"plain_{tag}_ms"],
+            bound_ms_deconv_default=dflt["bound_ms"], rel_vs_f64_deconv_default=dflt[f"rel_vs_f64_{tag}"],
+            launches_widefield_deconv=wf_launches[name], launches_pipeline=pipe_launches[name],
+            launches_commands=cmd_launches[name], launches_parallel={k: v[name] for k, v in par_launches.items()},
+        ))
+        k = kernels[-1]
+        require(k["launches_widefield_deconv"] > 0, f"{name} launched by the widefield deconv")
+        require(k["launches_pipeline"] > 0, f"{name} launched on the pipeline")
+        require(all(n > 0 for n in k["launches_parallel"].values()), f"{name} launched by every rank of (a), (b)")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

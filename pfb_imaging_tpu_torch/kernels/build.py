@@ -113,6 +113,12 @@ def _load():
     # grid, bid, patches, cstride, gc; S, half, k0_off, nbv, nbig_x, nbig_y, stream
     lib.pfb_idg_extract.argtypes = [vp, vp, vp, ll, ll] + [i] * 6 + [vp]
     lib.pfb_idg_extract.restype = i
+    # level (a PsiLevel, by address), nband, x, cube, img (or NULL), ll (or NULL), stream
+    lib.pfb_psi_analysis.argtypes = [vp, i, vp, vp, vp, vp, vp]
+    lib.pfb_psi_analysis.restype = i
+    # level, nband, cube, ll (or NULL), img (or NULL), x, stream
+    lib.pfb_psi_synthesis.argtypes = [vp, i, vp, vp, vp, vp, vp]
+    lib.pfb_psi_synthesis.restype = i
     lib.pfb_error_string.argtypes = [i]
     lib.pfb_error_string.restype = ctypes.c_char_p
     return lib

@@ -26,6 +26,7 @@ from pfb_imaging_tpu.prox.l21 import l1reweight_func as j_l1rw
 from pfb_imaging_tpu_torch.ops import hessian as thess
 from pfb_imaging_tpu_torch.ops import psf as tpsf
 from pfb_imaging_tpu_torch.ops import wavelets as twav
+from pfb_imaging_tpu_torch.ops import psi as tpsi
 from pfb_imaging_tpu_torch.ops.psi import Psi as TPsi
 from pfb_imaging_tpu_torch.prox import positivity as tpos
 from pfb_imaging_tpu_torch.prox import prox_21m as tp21
@@ -103,12 +104,16 @@ def test_dwt1d_idwt1d_match_jax(base, n):
     assert _rel(twav.idwt1d(ca_t, cd_t, rec)[..., :n], x) < 1e-10
 
 
-@pytest.mark.parametrize("bases,nlevel,shape", [
+PSI_CASES = [
     (("self", "db1", "db2"), 2, (32, 32)),
     (("self", "db1", "db2", "db3"), 2, (30, 36)),
     (("db4",), 2, (64, 48)),
     (("db1",), 4, (64, 64)),
-])
+]
+SARA_BASES = ("self",) + tuple(f"db{p}" for p in range(1, 9))
+
+
+@pytest.mark.parametrize("bases,nlevel,shape", PSI_CASES)
 def test_psi_dot_hdot_match_jax(bases, nlevel, shape):
     rng = np.random.default_rng(5)
     nband = 2
@@ -125,6 +130,131 @@ def test_psi_dot_hdot_match_jax(bases, nlevel, shape):
     lhs = float((a_t * _t(alpha)).sum())
     rhs = float((_t(x) * h_t).sum())
     assert abs(lhs - rhs) / abs(lhs) < 1e-10
+
+
+def _quadrants(lv, m):
+    """The packed cells (rows, columns) that level ``lv``'s member ``m``
+    writes as coefficients: its LL only at the deepest level."""
+    e = lv.m[m]
+    if e.k == 0:
+        return [(slice(0, lv.nx), slice(0, lv.ny))]
+    rows = (slice(e.s, e.s + e.cx), slice(e.s + e.cx, e.s + 2 * e.cx))
+    cols = (slice(e.t, e.t + e.cy), slice(e.t + e.cy, e.t + 2 * e.cy))
+    return [(rows[a], cols[b]) for a in (0, 1) for b in (0, 1) if a or b or lv.last]
+
+
+def _zero_strips(lv, m):
+    """The cells the kernels' zero blocks write for level ``lv``'s member
+    ``m`` (csrc/psi_wavelets.cu, zero_margins)."""
+    e = lv.m[m]
+    if e.k == 0:
+        return [(slice(lv.nx, lv.nymax), slice(0, lv.nxmax)), (slice(0, lv.nx), slice(lv.ny, lv.nxmax))]
+    out = [(slice(0, e.s), slice(e.t + e.cy, e.t + 2 * e.cy)), (slice(e.s + e.cx, e.s + 2 * e.cx), slice(0, e.t))]
+    if lv.first:
+        out += [(slice(e.s + 2 * e.cx, lv.nymax), slice(0, lv.nxmax)),
+                (slice(0, e.s + 2 * e.cx), slice(e.t + 2 * e.cy, lv.nxmax))]
+    return out
+
+
+@pytest.mark.parametrize("bases,nlevel,shape", PSI_CASES + [(SARA_BASES, 2, (2048, 2048))])
+def test_psi_kernel_tables(bases, nlevel, shape):
+    """The tables the card's kernels take by value (``kernel_levels``),
+    against ``_WaveletBook``: each basis's taps (dec_hi the quadrature mirror
+    of dec_lo, which the kernels rely on), level sizes and slot; the scratch
+    sizes cover every basis; and over the levels every cell of each
+    basis's plane is written once, as a coefficient of the plain path's
+    layout or as a zero."""
+    pt = TPsi(2, *shape, bases=bases, nlevel=nlevel, device=CPU)
+    levels = tpsi.kernel_levels(pt)
+    wav = [b for b in bases if b != "self"]
+    assert len(levels) == nlevel
+    planes = {bi: np.zeros((pt.nymax, pt.nxmax), np.int8) for bi in range(len(bases))}
+    coeff = {bi: np.zeros((pt.nymax, pt.nxmax), bool) for bi in range(len(bases))}
+    for i, lv in enumerate(levels):
+        mem = [(bi, b) for bi, b in enumerate(bases) if i == 0 or b != "self"]
+        assert (lv.nmem, lv.nbasis, lv.nx, lv.ny, lv.nymax, lv.nxmax, lv.first, lv.last) == (
+            len(mem), len(bases), *shape, pt.nymax, pt.nxmax, i == 0, i == nlevel - 1)
+        assert lv.kmax == max([2] + [pt._books[b].k for b in wav])
+        for m, (bi, b) in enumerate(mem):
+            e = lv.m[m]
+            if b == "self":
+                assert (e.k, e.plane, e.nin_x, e.nin_y) == (0, bi, *shape)
+            else:
+                bk = pt._books[b]
+                sx, sy = bk.slot(i)
+                assert (e.k, e.plane, e.scr) == (bk.k, bi, wav.index(b))
+                assert (e.nin_x, e.nin_y, e.cx, e.cy) == (bk.insx[i], bk.insy[i], bk.cx[i], bk.cy[i])
+                assert (e.s, e.s + 2 * e.cx, e.t, e.t + 2 * e.cy) == (sx.start, sx.stop, sy.start, sy.stop)
+                dec_lo, dec_hi = twav.filter_bank(b)[:2]
+                taps = np.array(e.lo[:], np.float32)
+                assert np.array_equal(taps[: bk.k], dec_lo.astype(np.float32)) and not taps[bk.k :].any()
+                assert np.array_equal((-1.0) ** (np.arange(bk.k) + 1) * dec_lo[::-1], dec_hi)
+                if i < nlevel - 1:  # the LL goes to scratch, which the level below reads
+                    assert e.cx <= lv.ll_x and e.cy <= lv.ll_y and lv.ll_y % 4 == 0
+                    assert (levels[i + 1].img_x, levels[i + 1].img_y) == (lv.ll_x, lv.ll_y)
+            for sl in _quadrants(lv, m):
+                planes[bi][sl] += 1
+                coeff[bi][sl] = True
+            for sl in _zero_strips(lv, m):
+                planes[bi][sl] += 1
+    assert all((c == 1).all() for c in planes.values())
+    if shape[0] <= 64:  # the coefficients are the plain path's nonzero cells
+        a = pt.dot(_t(np.random.default_rng(8).standard_normal((2,) + shape))).numpy()
+        for bi in planes:
+            assert np.array_equal(a[0, bi] != 0, coeff[bi]) and np.array_equal(a[1, bi] != 0, coeff[bi])
+
+
+@pytest.mark.parametrize("bases,nlevel,shape", PSI_CASES)
+def test_psi_on_cpu_takes_the_plain_path(bases, nlevel, shape):
+    """CPU tensors launch no kernel and give the bits of the plain level loop
+    (dwt2d_level / idwt2d_level, each basis's slots written shallow first)."""
+    rng = np.random.default_rng(9)
+    pt = TPsi(2, *shape, bases=bases, nlevel=nlevel, device=CPU)
+    before = dict(tpsi.LAUNCHES)
+    x = _t(rng.standard_normal((2,) + shape))
+    a = pt.dot(x)
+    alpha = _t(rng.standard_normal(tuple(a.shape)))
+    h = pt.hdot(alpha)
+    assert tpsi.LAUNCHES == before
+    ref_a = torch.zeros_like(a)
+    ref_h = torch.zeros_like(x)
+    for bi, b in enumerate(bases):
+        if b == "self":
+            ref_a[:, bi, : shape[0], : shape[1]] = x
+            ref_h = ref_h + alpha[:, bi, : shape[0], : shape[1]]
+            continue
+        bk = pt._books[b]
+        dec, rec = twav.conv_weights(b, CPU, torch.float64)
+        approx, blocks = x, []
+        for i in range(nlevel):
+            blocks.append(twav.dwt2d_level(approx, dec))
+            approx = blocks[-1][..., : bk.cx[i], : bk.cy[i]]
+        for i in range(nlevel):
+            ref_a[(slice(None), bi) + bk.slot(i)] = blocks[i]
+        y = twav.idwt2d_level(alpha[(slice(None), bi) + bk.slot(nlevel - 1)], rec, bk.insx[-1], bk.insy[-1])
+        for i in reversed(range(nlevel - 1)):
+            blk = alpha[(slice(None), bi) + bk.slot(i)].clone()
+            blk[..., : bk.cx[i], : bk.cy[i]] = y
+            y = twav.idwt2d_level(blk, rec, bk.insx[i], bk.insy[i])
+        ref_h = ref_h + y
+    assert torch.equal(a, ref_a) and torch.equal(h, ref_h)
+
+
+def test_psi_card_limits_raise_at_construction():
+    """A Psi for the card takes filters of up to KMAX taps and up to MAXB
+    bases, and says so when it is built (no card needed: only the tables are
+    made); the CPU path has neither limit."""
+    assert len(twav.filter_bank("db16")[0]) == tpsi.KMAX
+    TPsi(1, 256, 256, bases=("self", "db16"), nlevel=1, device="cuda")
+    with pytest.raises(ValueError, match="db17 has 34 taps"):
+        TPsi(1, 256, 256, bases=("self", "db17"), nlevel=1, device="cuda")
+    many = ("self",) + tuple(f"db{p}" for p in range(1, tpsi.MAXB + 1))
+    with pytest.raises(ValueError, match=f"{tpsi.MAXB + 1} bases"):
+        TPsi(1, 256, 256, bases=many, nlevel=1, device="cuda")
+    pt = TPsi(1, 256, 256, bases=many[:2] + ("db17",), nlevel=1, device=CPU)
+    assert pt.dot(torch.ones((1, 256, 256), dtype=torch.float64)).shape[1] == 3
+    with pytest.raises(ValueError, match="built for cpu"):
+        pt._dot_cuda(torch.ones((1, 256, 256)))
 
 
 def test_psi_hdot_left_inverse():

@@ -1,0 +1,116 @@
+"""Psi's CUDA kernels P1 ``psi_analysis`` and P2 ``psi_synthesis``
+(csrc/psi_wavelets.cu, through ``Psi.dot`` / ``Psi.hdot`` on CUDA tensors),
+on a CUDA card only (``gpu``; each test skips without one: the kernels have
+no CPU mode, and ``tests/test_torch_ops.py`` checks their tables on the CPU).
+
+Against the plain path (``Psi.dot_plain`` / ``hdot_plain``, the conv chain
+CPU tensors take) run in f64 on the same card from the same f32 input, at
+odd and non-square shapes, 1-4 levels, with and without "self", db1-db8 and
+db12 (the kernels' loop for filters past 16 taps), nband 1 and 4 and a basis
+order other than the default. Tolerance 2e-6 relative L-inf: the kernels
+round the taps to f32 (~6e-8 relative each) and sum at most 2 k <= 32
+products a pass in f32, two passes a level, ~1e-7 relative each, which
+grows with the levels; the f64 plain path's own rounding is ~1e-15. The
+adjoint identity and the frame identity hdot(dot(x)) = nbasis x in f32
+(sums in f64) to 1e-5; the cube's cells that no slot covers exactly 0 from
+an allocation left full of NaN; two calls the same bits; ``LAUNCHES`` up by
+nlevel a call; f64 and non-contiguous input refused.
+
+This file imports no JAX, so it runs where only PyTorch is installed:
+``python -m pytest --noconftest -m gpu tests/test_torch_psi_kernel.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pfb_imaging_tpu_torch.ops import psi as P
+
+torch.set_num_threads(1)
+SARA = ("self",) + tuple(f"db{p}" for p in range(1, 9))
+# (bases, nlevel, (nx, ny), nband)
+CASES = {
+    "sara_odd_nonsquare": (SARA, 2, (131, 97), 4),
+    "order_one_level": (("db8", "self", "db3"), 1, (64, 80), 1),
+    "db1_four_levels": (("db1",), 4, (128, 120), 1),
+    "no_self_three_levels": (("db2", "db6", "db4"), 3, (150, 94), 4),
+    "db12_loop": (("db12", "self", "db5"), 2, (210, 203), 1),
+    "sara_default_order_square": (SARA, 2, (256, 256), 4),
+}
+REL = 2e-6
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def _setup(case, dev):
+    bases, nlevel, shape, nband = CASES[case]
+    psi = P.Psi(nband, *shape, bases=bases, nlevel=nlevel, device=dev)
+    rng = np.random.default_rng(len(case))
+    x = torch.as_tensor(rng.standard_normal((nband,) + shape), dtype=torch.float32, device=dev)
+    alpha = torch.as_tensor(rng.standard_normal((nband, psi.nbasis, psi.nymax, psi.nxmax)), dtype=torch.float32,
+                            device=dev)
+    return psi, x, alpha
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernels_match_plain_f64(case):
+    dev = _cuda()
+    psi, x, alpha = _setup(case, dev)
+    a, h = psi.dot(x), psi.hdot(alpha)
+    torch.cuda.synchronize()
+    assert _rel(a, psi.dot_plain(x.double())) < REL
+    assert _rel(h, psi.hdot_plain(alpha.double())) < REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_adjoint_frame_margins_bits_launches(case):
+    dev = _cuda()
+    psi, x, alpha = _setup(case, dev)
+    nlevel = psi.nlevel if any(b != "self" for b in psi.bases) else 1
+    # leave the allocator's next block of the cube's size full of NaN
+    junk = torch.full((x.shape[0], psi.nbasis, psi.nymax, psi.nxmax), float("nan"), device=dev)
+    del junk
+    before = dict(P.LAUNCHES)
+    a1 = psi.dot(x)
+    assert P.LAUNCHES["psi_analysis"] == before["psi_analysis"] + nlevel
+    h1 = psi.hdot(alpha)
+    assert P.LAUNCHES["psi_synthesis"] == before["psi_synthesis"] + nlevel
+    a2, h2 = psi.dot(x), psi.hdot(alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(a1, a2) and torch.equal(h1, h2)
+    assert not a1.isnan().any() and not h1.isnan().any()
+    # cells no slot covers: exactly 0 (the plain path's zeros)
+    structural = psi.dot_plain(torch.ones_like(x.double()) + x.double().abs()) == 0
+    assert structural.any()
+    assert (a1[structural] == 0).all()
+    # <Psi x, alpha> = <x, Psi^H alpha>, and hdot(dot(x)) = nbasis x
+    lhs = float((a1.double() * alpha.double()).sum())
+    rhs = float((x.double() * h1.double()).sum())
+    assert abs(lhs - rhs) / abs(lhs) < 1e-5
+    assert _rel(psi.hdot(a1), psi.nbasis * x) < 1e-5
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_f64_and_non_contiguous():
+    dev = _cuda()
+    psi, x, alpha = _setup("order_one_level", dev)
+    with pytest.raises(TypeError, match="float32"):
+        psi.dot(x.double())
+    with pytest.raises(TypeError, match="float32"):
+        psi.hdot(alpha.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        psi.dot(x.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        psi.hdot(alpha[..., :].transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="shape"):
+        psi.dot(x[:, :-1].contiguous())
