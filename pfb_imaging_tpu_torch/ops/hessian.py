@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from .. import as_device, real_dtype, to_device
+from ..utils.profiling import count
 from .gridder import WGridderPlan, dirty2vis, vis2dirty
 from .psf import psf_convolve
 
@@ -145,14 +146,33 @@ class HessianCube:
 
 
 def hess_cube_dot(h: HessianCube, x: torch.Tensor) -> torch.Tensor:
-    """(nband, nx, ny) -> (nband, nx, ny): per-band sum over partitions."""
+    """(nband, nx, ny) -> (nband, nx, ny): per-band sum over partitions; a
+    band's transforms are counted as ``hess.band``. On the card every band
+    goes through one batched FFT pair (:func:`_hess_cube_batched`), so a
+    cube of many small bands takes the launches of one of a few large ones.
+    On the CPU the bands go one at a time: there the FFT library's inverse
+    of a single transform has other bits than the same transform in a
+    batch, and every band split must give the same bits."""
     if h.mesh is not None:
         return _hess_cube_dot_rowsharded(h, x)
+    count("hess.band", x.shape[0])
+    if x.is_cuda:
+        return _hess_cube_batched(h, x)
     out = torch.empty_like(x)
     for b in range(x.shape[0]):
         bm = None if h.beam is None else h.beam[b]
         out[b] = hessian_tree_dot(x[b], h.abspsfhat[b], bm, h.wsum_tot, h.nx_psf, h.ny_psf)
     return out + h.eta_b[:, None, None] * x
+
+
+def _hess_cube_batched(h: HessianCube, x: torch.Tensor) -> torch.Tensor:
+    """``hess_cube_dot`` with every band's and partition's FFT pair in one
+    batched call."""
+    xin = x[:, None] if h.beam is None else x[:, None] * h.beam
+    terms = psf_convolve(xin, h.abspsfhat, h.nx_psf, h.ny_psf)
+    if h.beam is not None:
+        terms = terms * h.beam
+    return terms.sum(1) / h.wsum_tot + h.eta_b[:, None, None] * x
 
 
 def _hess_cube_dot_rowsharded(h: HessianCube, x: torch.Tensor) -> torch.Tensor:

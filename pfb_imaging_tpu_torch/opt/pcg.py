@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel.mesh import band_sum
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 
 def _dot(a, b):
@@ -29,7 +29,9 @@ def band_dots(mesh, *terms) -> torch.Tensor:
     pair (a, b) gives <a, b>, a single cube the number of bands in which it
     has a nonzero. Axis 0 is the band axis of a cube of three or more axes
     (an image of two is one band); each band's values are computed alone
-    and the bands added in order (``parallel.mesh.band_sum``)."""
+    (a pair's dot band by band, a cube's nonzero flags for every band in
+    one call) and the bands added in order (``parallel.mesh.band_sum``).
+    Counts its per-band reductions (terms x bands) as ``band.dots``."""
 
     def bands(t):
         return t if t.ndim >= 3 else t[None]
@@ -37,9 +39,11 @@ def band_dots(mesh, *terms) -> torch.Tensor:
     terms = [tuple(bands(a) for a in t) if isinstance(t, tuple) else bands(t) for t in terms]
     first = terms[0][0] if isinstance(terms[0], tuple) else terms[0]
     dtype = first.real.dtype if first.is_complex() else first.dtype
-    rows = [torch.stack([_dot(t[0][i], t[1][i]) if isinstance(t, tuple) else (t[i] != 0).any().to(dtype)
-                         for t in terms]) for i in range(first.shape[0])]
-    return band_sum(torch.stack(rows), mesh)
+    nb = first.shape[0]
+    count("band.dots", len(terms) * nb)
+    cols = [torch.stack([_dot(t[0][i], t[1][i]) for i in range(nb)]) if isinstance(t, tuple)
+            else (t.reshape(nb, -1) != 0).any(1).to(dtype) for t in terms]
+    return band_sum(torch.stack(cols, 1), mesh)
 
 
 def stop_eps(xn, x, mesh=None) -> float:

@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from .. import real_dtype, resolve_device, to_device
+from ..utils.profiling import count
 from . import multihost
 
 __all__ = ["Mesh", "make_mesh", "band_sharding", "band_sum", "shard_cube", "stream_band_stack",
@@ -207,9 +208,10 @@ def band_sum(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     sum over ranks would add the bands in another order for every band
     split, and the solvers turn such last-bit differences into visible
     ones; this way every rank and every split, one rank included, gets the
-    same bits."""
+    same bits. Counts the bands it adds up as ``band.sum``."""
     if mesh is not None and mesh.band_size > 1:
         t = mesh.band_all_gather(t)
+    count("band.sum", t.shape[0])
     out = t[0]
     for i in range(1, t.shape[0]):
         out = out + t[i]
