@@ -27,12 +27,17 @@ exits non-zero:
                version (its own chunks and order of sums: the same bits);
                then P1 (psi_analysis) and P2 (psi_synthesis), Psi.dot/hdot at
                4 x 2048^2 and 2 levels with the deconv's default bases (self,
-               db1, db2) and with the sara cell's nine (``phase_psi``): each
-               against the plain conv path in f64 on the card (rel Linf <=
-               2e-6), two calls the same bits, ms by CUDA events beside the
-               byte bound and the plain path's f32 ms; at the nine, 2 + 2
-               launches a primal-dual iteration, and no cuDNN or ``cat``
-               kernel in Psi's trace nor cuDNN in a PD iteration's;
+               db1, db2) and with the sara cells' nine at 4 x 2048^2 and 16 x
+               1024^2 (``phase_psi``): each against the plain conv path in f64
+               on the card (rel Linf <= 2e-6), two calls the same bits, ms by
+               CUDA events beside the byte bound and the plain path's f32 ms;
+               P2 on two cubes (``hdot_extrapolated(vn, v)``, PD's 2 vn - v
+               formed as it stages) likewise, the same bits as P2 on torch's
+               2.0 * vn - v, timed beside that (two torch passes and P2) and
+               its bound (2 cubes, x, the scratch written and read); at the
+               nine, 2 + 2 launches a primal-dual iteration (P2 on two cubes),
+               and no cuDNN or ``cat`` kernel in Psi's trace nor cuDNN in a PD
+               iteration's;
   3. accuracy — the port's f32 ``vis2dirty_idg`` at 256^2, 100k vis and
                epsilon 1e-7 against a direct f64 DFT on the card, within the
                plan's ``delivered_accuracy`` budgets; and the f32
@@ -176,9 +181,11 @@ exits non-zero:
                (``hessian_vis_idg(beam, eta, wsum)``, ``vis2dirty_idg(mask)``
                and ``dirty2vis_idg`` at band 0's plan, the multiband Hessian
                at the deconv and widefield launches, fluxtractor's classic
-               ``hessian_vis``) and ``sara --niter 2 --pd-maxit 20`` run
-               twice on copies of the imaged tree (MODEL and the MFS
-               residual) must give the same bits;
+               ``hessian_vis``), five PD iterations at the sara cell's shapes
+               with P2 on two cubes against P2 on torch's 2.0 * vn - v, and
+               ``sara --niter 2 --pd-maxit 20`` run twice on copies of the
+               imaged tree (MODEL and the MFS residual) must give the same
+               bits;
  14. parallel — ``parallel/`` on the one card, each part's ranks started
                as child processes (``torch.multiprocessing.spawn``; a rank
                that fails or outlives its timeout fails the smoke): (a) one
@@ -257,6 +264,8 @@ REPLACES = {
     "idg_extract": "pfb_imaging_tpu/ops/gridder_idg.py:2482 (_extract_bin)",
     "psi_analysis": "pfb_imaging_tpu/ops/wavelets.py:114 (conv_general_dilated, through ops/psi.py Psi.dot)",
     "psi_synthesis": "pfb_imaging_tpu/ops/wavelets.py:139 (conv_general_dilated, through ops/psi.py Psi.hdot)",
+    "psi_synthesis_ext": "pfb_imaging_tpu/ops/wavelets.py:139 (conv_general_dilated, through ops/psi.py Psi.hdot of "
+                         "opt/primal_dual.py's 2.0 * vn - v)",
 }
 SARA_BASES = ("self",) + tuple(f"db{p}" for p in range(1, 9))
 DECONV_BASES = ("self", "db1", "db2")  # the deconv's default (deconv/presets)
@@ -618,10 +627,11 @@ def dft_dirty(uvw, freq, vis, nx: int, cell: float, dev, chunk: int = 1024, sv: 
     return acc.reshape(nx, nx)
 
 
-def psi_bytes(psi, nband: int) -> int:
+def psi_bytes(psi, nband: int, cubes: int = 1, scratch: bool = False) -> int:
     """Bytes a Psi analysis or synthesis of ``nband`` bands must move once:
-    the image cube and the packed cube's coefficients, at 4 bytes each (the
-    cube's zero margins and the kernels' scratch are not counted)."""
+    the image cube and ``cubes`` packed cubes' coefficients, at 4 bytes each
+    (the cube's zero margins are not counted); with ``scratch``, the
+    kernels' level scratch written and read once."""
     live = 0
     for b in psi.bases:
         if b == "self":
@@ -629,7 +639,12 @@ def psi_bytes(psi, nband: int) -> int:
             continue
         bk = psi._books[b]
         live += sum(3 * cx * cy for cx, cy in zip(bk.cx, bk.cy)) + bk.cx[-1] * bk.cy[-1]
-    return 4 * nband * (psi.nx * psi.ny + live)
+    scr = 0
+    if scratch:  # each level's LL but the deepest's, a wavelet basis and band
+        from pfb_imaging_tpu_torch.ops.psi import kernel_levels
+
+        scr = sum(lv.ll_x * lv.ll_y for lv in kernel_levels(psi)[:-1]) * sum(b != "self" for b in psi.bases)
+    return 4 * nband * (psi.nx * psi.ny + cubes * live + 2 * scr)
 
 
 def psi_at(dev, bases, nband: int, nx: int, nlevel: int, reps: int, plain_reps: int, seed: int):
@@ -637,7 +652,10 @@ def psi_at(dev, bases, nband: int, nx: int, nlevel: int, reps: int, plain_reps: 
     card: the Psi, its x and cube, and their record (against the plain conv
     path in f64 on the card, two calls the same bits, ms by CUDA events
     beside the byte bound and the plain path's ms in f32, the path the card
-    took before the kernels)."""
+    took before the kernels); P2 on two cubes (``hdot_extrapolated(v, v0)``)
+    the same, bit for bit P2 on torch's ``2.0 * v - v0``, and timed beside
+    that (``passes_hdot_ms``: the two torch passes and P2, as PD ran it
+    before)."""
     import torch
 
     from pfb_imaging_tpu_torch.ops import psi as PS
@@ -646,35 +664,47 @@ def psi_at(dev, bases, nband: int, nx: int, nlevel: int, reps: int, plain_reps: 
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((nband, nx, nx), generator=g, device=dev)
     v = torch.randn((nband, psi.nbasis, psi.nymax, psi.nxmax), generator=g, device=dev)
-    a, h = psi.dot(x), psi.hdot(v)
+    v0 = torch.randn(v.shape, generator=g, device=dev)
+    a, h, e = psi.dot(x), psi.hdot(v), psi.hdot_extrapolated(v, v0)
     rel_dot = rel_linf(a.double(), psi.dot_plain(x.double()))
     rel_hdot = rel_linf(h.double(), psi.hdot_plain(v.double()))
+    rel_ext = rel_linf(e.double(), psi.hdot_plain(2.0 * v.double() - v0.double()))
     same = torch.equal(a, psi.dot(x)) and torch.equal(h, psi.hdot(v))
-    del a, h
+    same_ext = torch.equal(e, psi.hdot_extrapolated(v, v0))
+    ext_as_one = torch.equal(e, psi.hdot(2.0 * v - v0))
+    del a, h, e
     torch.cuda.empty_cache()
-    nbytes = psi_bytes(psi, nband)
+    nbytes, ext_bytes = psi_bytes(psi, nband), psi_bytes(psi, nband, cubes=2, scratch=True)
     rec = dict(nband=nband, nx=nx, nlevel=nlevel, bases=list(bases), nymax=psi.nymax, nxmax=psi.nxmax,
-               rel_vs_f64_dot=rel_dot, rel_vs_f64_hdot=rel_hdot, two_calls_identical=same,
+               rel_vs_f64_dot=rel_dot, rel_vs_f64_hdot=rel_hdot, rel_vs_f64_hdot_ext=rel_ext,
+               two_calls_identical=same, two_calls_identical_ext=same_ext, ext_same_bits_as_passes=ext_as_one,
                bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               bytes_ext=ext_bytes, bound_ms_ext=ext_bytes / HBM_BYTES_PER_S * 1e3,
                dot_ms=cuda_ms(lambda: psi.dot(x), reps), hdot_ms=cuda_ms(lambda: psi.hdot(v), reps),
+               hdot_ext_ms=cuda_ms(lambda: psi.hdot_extrapolated(v, v0), reps),
+               passes_hdot_ms=cuda_ms(lambda: psi.hdot(2.0 * v - v0), reps),
                plain_dot_ms=cuda_ms(lambda: psi.dot_plain(x), plain_reps),
                plain_hdot_ms=cuda_ms(lambda: psi.hdot_plain(v), plain_reps))
-    require(rel_dot <= 2e-6 and rel_hdot <= 2e-6,
-            f"P1/P2 within 2e-6 of the f64 plain path at {bases} ({rel_dot}, {rel_hdot})")
-    require(same, f"P1/P2: two calls give the same bits at {bases}")
+    require(rel_dot <= 2e-6 and rel_hdot <= 2e-6 and rel_ext <= 2e-6,
+            f"P1/P2 within 2e-6 of the f64 plain path at {bases} ({rel_dot}, {rel_hdot}, {rel_ext})")
+    require(same and same_ext, f"P1/P2: two calls give the same bits at {bases}")
+    require(ext_as_one, f"P2 on two cubes: the bits of P2 on 2.0 * vn - v at {bases}")
+    del v0
     return psi, x, v, rec
 
 
 def phase_psi(dev, nband: int = 4, nx: int = 2048, nlevel: int = 2, reps: int = 20, plain_reps: int = 3,
-              pd_iters: int = 3) -> dict:
+              pd_iters: int = 3, nband_16: int = 16, nx_16: int = 1024) -> dict:
     """P1 / P2 (``Psi.dot`` / ``Psi.hdot`` on the card) at ``nband`` x
     ``nx``^2 and ``nlevel`` levels (``psi_at``), with the deconv's default
     bases (self, db1, db2: phase_main's and the pipeline's sara) and then
-    SARA's nine (the sara cell's); at the nine, launches over ``pd_iters``
-    primal-dual iterations (2 + 2 each at 2 levels), and the kernel names
-    of one Psi pair and of one PD iteration under ``torch.profiler``: no
-    cuDNN convolution and no ``cat`` in Psi's, no cuDNN in PD's (the stop
-    test's per-band ``stack``s stay)."""
+    SARA's nine (the 2k sara cell's), and the nine at ``nband_16`` x
+    ``nx_16``^2 (the 1k16 cell's; ``cell_1k16`` in the record); at the
+    nine, launches over ``pd_iters`` primal-dual iterations (2 + 2 each at
+    2 levels, P2 on two cubes), and the kernel names of one Psi pair and of
+    one PD iteration under ``torch.profiler``: no cuDNN convolution and no
+    ``cat`` in Psi's, no cuDNN in PD's (the stop test's per-band ``stack``s
+    stay)."""
     import torch
 
     from pfb_imaging_tpu_torch.ops import psi as PS
@@ -683,13 +713,21 @@ def phase_psi(dev, nband: int = 4, nx: int = 2048, nlevel: int = 2, reps: int = 
 
     *_, default = psi_at(dev, DECONV_BASES, nband, nx, nlevel, reps, plain_reps, seed=16)
     torch.cuda.empty_cache()
+    *_, cell_1k16 = psi_at(dev, SARA_BASES, nband_16, nx_16, nlevel, reps, plain_reps, seed=18)
+    torch.cuda.empty_cache()
     psi, x, v, rec = psi_at(dev, SARA_BASES, nband, nx, nlevel, reps, plain_reps, seed=17)
     rec["deconv_default"] = default
+    rec["cell_1k16"] = cell_1k16
     l1w = torch.ones((psi.nbasis, psi.nymax, psi.nxmax), device=dev)
 
-    def pd(iters):
-        primal_dual_loop(x, torch.zeros_like(v), 1e-3, l1w, 1.0, 0.5, lambda z: 0.1 * z, psi_dot=psi.dot,
-                         psi_hdot=psi.hdot, dual_update=dual_update, tol=0.0, maxit=iters)
+    def pd(iters, ext=psi.hdot_extrapolated):
+        return primal_dual_loop(x, torch.zeros_like(v), 1e-3, l1w, 1.0, 0.5, lambda z: 0.1 * z, psi_dot=psi.dot,
+                                psi_hdot=psi.hdot, dual_update=dual_update, tol=0.0, maxit=iters, psi_hdot_ext=ext)
+
+    # five iterations with P2 on two cubes and with torch's 2.0 * vn - v through P2: the same bits
+    fused, unfused = pd(5), pd(5, None)
+    rec["pd_fused_same_bits"] = bool(torch.equal(fused[0], unfused[0]) and torch.equal(fused[1], unfused[1]))
+    del fused, unfused
 
     zero_counts()
     pd(pd_iters)
@@ -702,12 +740,14 @@ def phase_psi(dev, nband: int = 4, nx: int = 2048, nlevel: int = 2, reps: int = 
         rec[f"kernels_{what}"] = sorted({e.name for e in prof.events()
                                          if e.device_type == torch.autograd.DeviceType.CUDA})
     emit({"phase": "psi", **rec})
-    require(rec["launches_pd_iteration"] == {"psi_analysis": nlevel, "psi_synthesis": nlevel},
-            "Psi's kernels launched nlevel + nlevel times a PD iteration")
+    require(rec["launches_pd_iteration"] == {"psi_analysis": nlevel, "psi_synthesis": 0,
+                                             "psi_synthesis_ext": nlevel},
+            "Psi's kernels launched nlevel + nlevel times a PD iteration, P2 on two cubes")
     require(not any("cudnn" in n.lower() or "CatArrayBatchedCopy" in n for n in rec["kernels_psi"]),
             "no cuDNN convolution and no cat in Psi's trace")
     require(not any("cudnn" in n.lower() for n in rec["kernels_pd_iteration"]),
             "no cuDNN convolution in a PD iteration")
+    require(rec["pd_fused_same_bits"], "PD with P2 on two cubes: the bits of PD on torch's 2.0 * vn - v")
     return rec
 
 
@@ -1506,7 +1546,7 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     require(launches["patches_from_vals"] > 0 and launches["vals_from_patches"] > 0, "both kernels launched")
     require(launches["idg_assemble"] > 0 and launches["idg_extract"] > 0, "K1 and K2 launched")
     require(launches["idg_chunk_sums"] > 0, "K1's chunk sums launched")
-    require(launches["psi_analysis"] > 0 and launches["psi_synthesis"] > 0, "P1 and P2 launched")
+    require(launches["psi_analysis"] > 0 and launches["psi_synthesis_ext"] > 0, "P1 and P2 (two cubes) launched")
     require(near <= 1, "brightest model pixel on a true source")
     require(cyc[-1]["residual_dispatch"]["multiband_parts"] == niter and
             cyc[-1]["residual_dispatch"]["fallback_bands"] == 0, "every residual took the multiband route")
@@ -1975,7 +2015,7 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
     emit({"phase": "widefield", "stage": "assembly_at_multiband_launch", **asm})
     require(launches["idg_assemble"] > 0 and launches["idg_extract"] > 0, "K1/K2 launched in deconv")
     require(launches["idg_chunk_sums"] > 0, "K1's chunk sums launched in deconv")
-    require(launches["psi_analysis"] > 0 and launches["psi_synthesis"] > 0, "P1/P2 launched in deconv")
+    require(launches["psi_analysis"] > 0 and launches["psi_synthesis_ext"] > 0, "P1/P2 launched in deconv")
 
     # the final model's residual by both routes (multiband plans cached)
     routes = residual_routes(dev, TreeStore(dt_path), keys, model, eps, residual, trace=True)
@@ -2947,7 +2987,9 @@ def phase_same_bits(dev, workdir: Path, imaged: Path, calls: dict, niter: int = 
     (``hessian_vis_idg(beam, eta, wsum)``, ``vis2dirty_idg(mask)`` and
     ``dirty2vis_idg`` at band 0's residual plan of the imaged tree, the
     multiband Hessian at the deconv and widefield launches, fluxtractor's
-    classic ``hessian_vis``) to whether the two gave the same bits; then
+    classic ``hessian_vis``; five PD iterations at the sara cell's shapes
+    with P2 on two cubes and on torch's ``2.0 * vn - v``, from ``phase_psi``)
+    to whether the two gave the same bits; then
     ``pfb-torch sara --niter 2 --pd-maxit 20`` runs twice, each on its own
     copy of the imaged tree, and its MODEL and MFS residual are compared bit
     for bit. Every one must give the same bits."""
@@ -3574,6 +3616,7 @@ def main(argv=None) -> int:
         "multiband_hessian_deconv_launch_identical": main_asm["hessian_two_runs_identical"],
         "multiband_hessian_widefield_launch_identical": wide_asm["hessian_two_runs_identical"],
         "fluxtractor_hessian_vis_identical": cmd_steps["fluxtractor"]["hessian_vis_two_runs_identical"],
+        "pd_fused_extrapolation_identical": psi_rec["pd_fused_same_bits"],
     })
     par_launches, par_kern, _ = phase_parallel(dev, ROOT / "build" / "chip_smoke_parallel", imaged, store,
                                                sky["cell_rad"] * 180.0 / np.pi * 3600.0)
@@ -3695,25 +3738,32 @@ def main(argv=None) -> int:
         require(k["launches_operators_hessian_vis_beam"] > 0,
                 f"{k['name']} launched by hessian_vis_idg(beam, eta, wsum)")
         require(all(n > 0 for n in k["launches_parallel"].values()), f"{k['name']} launched by every rank of (a), (b)")
-    for name, tag in (("psi_analysis", "dot"), ("psi_synthesis", "hdot")):
-        # ms and errors at the sara cell's shapes, and at the deconv's default
+    for name, tag, bound in (("psi_analysis", "dot", "bound_ms"), ("psi_synthesis", "hdot", "bound_ms"),
+                             ("psi_synthesis_ext", "hdot_ext", "bound_ms_ext")):
+        # ms and errors at the sara cells' shapes, and at the deconv's default
         # bases; launches on the main path's deconv as for the others, and a
         # primal-dual iteration at the cell's shapes. None of the commands
         # runs Psi (kclean, fluxtractor and hci have no dictionary; ista's is
-        # the identity), so their count stays 0 and is not required.
-        dflt = psi_rec["deconv_default"]
+        # the identity), so their count stays 0 and is not required; PD runs
+        # P2 on two cubes, so the one-cube P2 (forward-backward's) runs on
+        # none of the paths and its count is not required either.
+        dflt, c16 = psi_rec["deconv_default"], psi_rec["cell_1k16"]
         kernels.append(dict(
             name=name, route="cuda", source="pfb_imaging_tpu_torch/csrc/psi_wavelets.cu", replaces=REPLACES[name],
             launches=launches[name], launches_pd_iteration=psi_rec["launches_pd_iteration"][name],
-            ms=psi_rec[f"{tag}_ms"], plain_ms=psi_rec[f"plain_{tag}_ms"], bound_ms=psi_rec["bound_ms"],
-            bound_by="bytes", bound_share=psi_rec["bound_ms"] / psi_rec[f"{tag}_ms"], library_ms=None,
-            rel_vs_f64=psi_rec[f"rel_vs_f64_{tag}"], two_calls_identical=psi_rec["two_calls_identical"],
-            ms_deconv_default=dflt[f"{tag}_ms"], plain_ms_deconv_default=dflt[f"plain_{tag}_ms"],
-            bound_ms_deconv_default=dflt["bound_ms"], rel_vs_f64_deconv_default=dflt[f"rel_vs_f64_{tag}"],
+            ms=psi_rec[f"{tag}_ms"], plain_ms=psi_rec[f"plain_{tag}_ms" if tag != "hdot_ext" else "passes_hdot_ms"],
+            bound_ms=psi_rec[bound], bound_by="bytes", bound_share=psi_rec[bound] / psi_rec[f"{tag}_ms"],
+            library_ms=None, rel_vs_f64=psi_rec[f"rel_vs_f64_{tag}"],
+            two_calls_identical=psi_rec["two_calls_identical_ext" if tag == "hdot_ext" else "two_calls_identical"],
+            ms_deconv_default=dflt[f"{tag}_ms"], bound_ms_deconv_default=dflt[bound],
+            rel_vs_f64_deconv_default=dflt[f"rel_vs_f64_{tag}"], ms_1k16=c16[f"{tag}_ms"], bound_ms_1k16=c16[bound],
+            rel_vs_f64_1k16=c16[f"rel_vs_f64_{tag}"],
             launches_widefield_deconv=wf_launches[name], launches_pipeline=pipe_launches[name],
             launches_commands=cmd_launches[name], launches_parallel={k: v[name] for k, v in par_launches.items()},
         ))
         k = kernels[-1]
+        if name == "psi_synthesis":
+            continue
         require(k["launches_widefield_deconv"] > 0, f"{name} launched by the widefield deconv")
         require(k["launches_pipeline"] > 0, f"{name} launched on the pipeline")
         require(all(n > 0 for n in k["launches_parallel"].values()), f"{name} launched by every rank of (a), (b)")

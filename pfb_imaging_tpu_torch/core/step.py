@@ -30,7 +30,7 @@ def pfb_major_step(hess, residual, model, update, dual, l1weight, lam, *, psi, g
         model, dual, lam, l1weight, sigma, tau, grad, psi_dot=psi.dot, psi_hdot=psi.hdot,
         primal_prox=positivity if pos else None,
         dual_update=dual_update_21m if mesh is None else partial(dual_update_21m, mesh=mesh), tol=pd_tol,
-        maxit=pd_maxit, mesh=mesh,
+        maxit=pd_maxit, mesh=mesh, psi_hdot_ext=getattr(psi, "hdot_extrapolated", None),
     )
     return model, update, dual
 

@@ -31,15 +31,17 @@
 // allocates (136 MB at that shape), since the deeper slot overwrites the LL
 // in the cube. The arithmetic is ~2k multiply-adds a coefficient (36 at
 // db8), far below the card's f32 rate if shared memory is read sparingly.
+// In a primal-dual iteration the synthesis takes 2 vn - v of the two dual
+// cubes: reading both and the scratch, 1.58 GB, >= 0.47 ms.
 //
 // The design:
 //   * one launch a level for every basis and band; both separable passes
 //     run in shared memory inside a block: the tile and the filter's halo are
-//     loaded once (16-byte loads where the rows allow it; the packed cube's
-//     rows are nxmax floats, which at SARA's shapes is odd, so its loads are
-//     4-byte, still neighbouring threads on neighbouring addresses), the row
-//     pass writes a staging tile, the column pass reads it, and each result
-//     is stored once, neighbouring threads on neighbouring columns;
+//     loaded once (the analysis's 16-byte loads where the rows are aligned
+//     to them, else 4-byte; the synthesis's below; neighbouring threads on
+//     neighbouring addresses), the row pass writes a staging tile, the
+//     column pass reads it, and each result is stored once, neighbouring
+//     threads on neighbouring columns;
 //   * analysis, level 0: a block is a (band, tile) and runs every basis on
 //     its one x tile (loaded with the longest filter's halo; "self" copies
 //     it), so x is read from memory once; deeper levels: a block a (band,
@@ -48,14 +50,26 @@
 //     level 0 the plane outside a basis's slots (and "self" beyond (nx,
 //     ny)), at every level the two strips beside its quadrants that no slot
 //     covers; so the cube comes from torch.empty;
-//   * synthesis, deepest level first: a block a (band, tile, basis) writes
-//     the level's image to scratch; level 0: a block a (band, tile) loops
-//     over the bases in their order, adds each basis's contribution in
+//   * synthesis, deepest level first: a block a (band, 64 x 64 image tile)
+//     loops over the level's bases in their order; deeper levels write each
+//     basis's image to scratch, level 0 adds each basis's contribution in
 //     registers and writes x once: a gather, no atomic, f32 sums in a fixed
 //     order, so two runs give the same bits. A basis's four quadrant windows
-//     are copied with cp.async (4-byte, zero-filled outside the quadrant)
-//     into one of two buffers, so the next basis's copies are in flight
-//     while this one computes;
+//     are copied with cp.async into a stage of a ring of RING, so the next
+//     basis's copies are in flight while this one computes. The packed
+//     cube's rows are nxmax floats, at SARA's shapes odd, so no row is
+//     16-byte aligned: each window row is copied in 16-byte pieces from its
+//     address rounded down to 16 bytes (zero-filled past the quadrant), and
+//     the row pass reads it at its 0-3-float offset. (Chosen by timing in
+//     turns on an H100: 32- and 48-row tiles, a block a basis at the deeper
+//     levels and rings of 3 and 4 were slower, 96-row tiles slower on two
+//     cubes.)
+//   * the synthesis on two cubes (PD's vn and v; the same layout, at the
+//     same address modulo 16 bytes) copies the same pieces of both, and each
+//     thread turns the pieces it copied into 2 vn - v once they land (one
+//     rounding, as torch's 2.0 * vn - v: 2 vn is exact), so every pixel's
+//     sums are those of the one-cube synthesis on torch's extrapolation, bit
+//     for bit; the row pass's staging tile is then the stage's v half;
 //   * in the passes a thread makes two (analysis columns) or four
 //     (synthesis) neighbouring outputs from one run of shared-memory reads;
 //   * the filters and the slot and level sizes come by value
@@ -92,9 +106,11 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int TI = 16, TJ = 32;  // analysis: a block's coefficient tile (rows x columns)
-constexpr int TS = 32, TR = 64;  // synthesis: a block's image tile
+constexpr int TS = 64, TR = 64;  // synthesis: a block's image tile
 constexpr int SROWS = 4;  // synthesis: pixel rows an item
 constexpr int SITEMS = TS / SROWS * TR / THREADS;  // synthesis: items a thread
+constexpr int RING = 2;   // synthesis: stages of members' windows
+constexpr int SBLOCKS = 2;  // synthesis: blocks an SM asked of the register allocator
 constexpr int ZERO_BLOCKS = 2;   // analysis: blocks a (band, member) writing its zeros
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
@@ -104,7 +120,6 @@ __host__ __device__ constexpr int a_width(int kmax) { return round4(2 * TJ + kma
 __host__ __device__ constexpr int a_floats(int kmax) { return a_rows(kmax) * (a_width(kmax) + 2 * TJ); }
 __host__ __device__ constexpr int s_rows(int kmax) { return TS / 2 + kmax / 2 - 1; }
 __host__ __device__ constexpr int s_width(int kmax) { return round4(TR / 2 + kmax / 2 + 2); }
-__host__ __device__ constexpr int s_floats(int kmax) { return s_rows(kmax) * (8 * s_width(kmax) + 2 * TR); }
 
 // Rows [r0, r0 + nr) and columns [c0, c0 + nc) (c0 a multiple of 4) of a
 // row-major array with row stride ld into a shared tile of row stride w,
@@ -317,37 +332,76 @@ __global__ void __launch_bounds__(THREADS) psi_analysis_kernel(const __grid_cons
   }
 }
 
-// 4-byte asynchronous copies to shared memory, zero-filled where !ok
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+// 16-byte asynchronous copy to shared memory: the first `bytes` (0, 4, 8, 12
+// or 16) of the 16 at src, the rest zero-filled; src and dst 16-byte aligned
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+// Quadrant q (rows a = q >> 1, columns b = q & 1) of member M as image tile
+// (s0, r0) of its level reads it: p, the window's first coefficient (row
+// s0 / 2, column r0 / 2 of the quadrant), the row stride ld, and the rows and
+// columns from p to the quadrant's end (the window reads zeros past them).
+// The LL comes from ll, the level below's output, unless the level is the
+// deepest.
+struct Quad {
+  const float* p;
+  int ld, rows, cols;
+  bool from_ll;
+};
+
+__device__ __forceinline__ Quad quad_of(const PsiLevel& P, const PsiMember& M, int band, int nband, int s0, int r0,
+                                        int q, const float* __restrict__ cube, const float* __restrict__ ll) {
+  const int a = q >> 1, b = q & 1;
+  Quad Q;
+  Q.from_ll = q == 0 && !P.last;
+  const int orr = Q.from_ll ? 0 : M.s + a * M.cx, orc = Q.from_ll ? 0 : M.t + b * M.cy;
+  const float* src = Q.from_ll ? ll + ((long long)M.scr * nband + band) * P.ll_x * P.ll_y
+                               : cube + ((long long)band * P.nbasis + M.plane) * P.nymax * P.nxmax;
+  Q.ld = Q.from_ll ? P.ll_y : P.nxmax;
+  Q.p = src + (long long)(orr + s0 / 2) * Q.ld + orc + r0 / 2;
+  Q.rows = M.cx - s0 / 2;
+  Q.cols = M.cy - r0 / 2;
+  return Q;
+}
+
+// Where row i of a window starting at p lands in its shared tile: 0-3
+// floats in, the row's address modulo 16 bytes.
+__device__ __forceinline__ int row_offset(const float* p, int ld, int i) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) + (unsigned)(i * (ld & 3))) & 3;
 }
 
 // Member M's four quadrant windows for image tile (s0, r0) of its level into
-// buf (quadrant q: rows a = q >> 1, columns b = q & 1; column offset
-// (origin + r0 / 2) & 3), copied asynchronously as one commit group.
-__device__ void issue_quads(const PsiLevel& P, const PsiMember& M, int band, int nband, int s0, int r0,
-                            const float* __restrict__ cube, const float* __restrict__ ll, float* buf) {
+// stage buf: quadrant q's row i in 16-byte pieces from its address rounded
+// down to 16 bytes, at row i of tile q (row stride s_width), so the row's
+// first coefficient sits row_offset(i) floats in; zero-filled past the
+// quadrant. With a second cube (two), the same pieces of it to tiles 4-7
+// (the LL from ll has one). One commit group.
+template <bool TWO>
+__device__ __forceinline__ void copy_quads(const PsiLevel& P, const PsiMember& M, int band, int nband, int s0,
+                                            int r0, const float* __restrict__ cube, const float* __restrict__ two,
+                                            const float* __restrict__ ll, float* buf) {
   const int ci = TS / 2 + M.k / 2 - 1, cj = TR / 2 + M.k / 2 - 1;
-  const int w = s_width(P.kmax), nrow = s_rows(P.kmax);
-  const float* plane = cube + ((long long)band * P.nbasis + M.plane) * P.nymax * P.nxmax;
+  const int w = s_width(P.kmax), nq = s_rows(P.kmax) * w, npc = (cj + 6) >> 2;
+#pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const int a = q >> 1, b = q & 1;
-    const bool from_ll = q == 0 && !P.last;
-    const int orr = from_ll ? 0 : M.s + a * M.cx, orc = from_ll ? 0 : M.t + b * M.cy;
-    const float* src = from_ll ? ll + ((long long)M.scr * nband + band) * P.ll_x * P.ll_y : plane;
-    const long long ld = from_ll ? P.ll_y : P.nxmax;
-    const int gr0 = orr + s0 / 2, gc0 = ((orc + r0 / 2) & ~3), nc = ((orc + r0 / 2) & 3) + cj;
-    float* tile = buf + q * nrow * w;
-    const int dr = THREADS / nc, dc = THREADS - dr * nc;
-    for (int r = threadIdx.x / nc, c = threadIdx.x - (threadIdx.x / nc) * nc; r < ci;) {
-      const int gr = gr0 + r, gc = gc0 + c;
-      const bool ok = gr < orr + M.cx && gc >= orc && gc < orc + M.cy;
-      cp_async4(tile + r * w + c, ok ? src + gr * ld + gc : src, ok);
-      c += dc;
+    const Quad Q = quad_of(P, M, band, nband, s0, r0, q, cube, ll);
+    const int nr = min(Q.rows, ci), nc = min(Q.cols, cj);
+    const float* safe = Q.p - row_offset(Q.p, Q.ld, 0);  // an aligned address for the pieces that read nothing
+    float* tile = buf + q * nq;
+    const int dr = THREADS / npc, du = THREADS - dr * npc;
+    for (int r = threadIdx.x / npc, u = threadIdx.x - (threadIdx.x / npc) * npc; r < ci;) {
+      const float* row = Q.p + (long long)r * Q.ld;
+      const int o = row_offset(Q.p, Q.ld, r);
+      const int n = r < nr ? min(max(o + nc - 4 * u, 0), 4) : 0;
+      const float* piece = n ? row - o + 4 * u : safe;
+      cp_async16(tile + r * w + 4 * u, piece, 4 * n);
+      if (TWO && !Q.from_ll) cp_async16(tile + 4 * nq + r * w + 4 * u, piece + (two - cube), 4 * n);
+      u += du;
       r += dr;
-      if (c >= nc) {
-        c -= nc;
+      if (u >= npc) {
+        u -= npc;
         ++r;
       }
     }
@@ -355,22 +409,58 @@ __device__ void issue_quads(const PsiLevel& P, const PsiMember& M, int band, int
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// With two cubes (vn, v): each piece this thread copied of the cube's
+// quadrants becomes 2 vn - v in place, one rounding as torch's 2.0 * vn - v
+// (2 vn is exact). After this thread's copies have landed.
+__device__ __forceinline__ void extrapolate_quads(const PsiLevel& P, const PsiMember& M, float* buf) {
+  const int ci = TS / 2 + M.k / 2 - 1, cj = TR / 2 + M.k / 2 - 1;
+  const int w = s_width(P.kmax), nq = s_rows(P.kmax) * w, npc = (cj + 6) >> 2;
+  const int dr = THREADS / npc, du = THREADS - dr * npc;
+  for (int q = P.last ? 0 : 1; q < 4; ++q) {
+    float* tile = buf + q * nq;
+    for (int r = threadIdx.x / npc, u = threadIdx.x - (threadIdx.x / npc) * npc; r < ci;) {
+      float4* a = reinterpret_cast<float4*>(tile + r * w + 4 * u);
+      const float4 b = *reinterpret_cast<const float4*>(tile + 4 * nq + r * w + 4 * u);
+      float4 c = *a;
+      c.x = fmaf(2.f, c.x, -b.x);
+      c.y = fmaf(2.f, c.y, -b.y);
+      c.z = fmaf(2.f, c.z, -b.z);
+      c.w = fmaf(2.f, c.w, -b.w);
+      *a = c;
+      u += du;
+      r += dr;
+      if (u >= npc) {
+        u -= npc;
+        ++r;
+      }
+    }
+  }
+}
+
 // One member's synthesis of image tile (s0, r0) of its level from its
 // quadrant windows in buf, added to acc (pixel rows SROWS sp .. SROWS sp +
 // SROWS - 1 of column R, sp and R from the thread and item). Starts with
 // the staging tile free.
 template <int K>
-__device__ __forceinline__ void synthesis_member(const PsiLevel& P, const PsiMember& M, int s0, int r0,
+__device__ __forceinline__ void synthesis_member(const PsiLevel& P, const PsiMember& M, int band, int nband, int s0,
+                                                 int r0, const float* __restrict__ cube, const float* __restrict__ ll,
                                                  const float* buf, float* mid, float (&acc)[SITEMS][SROWS]) {
   const int k = K ? K : M.k;
   const int ci = TS / 2 + k / 2 - 1;
   const int w = s_width(P.kmax), nrow = s_rows(P.kmax);
-  const int j_lo = r0 / 2;
+  // each quadrant's window: its first row's offset in the tile, and its row stride modulo 4
+  int o0[4], ldm[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const Quad Q = quad_of(P, M, band, nband, s0, r0, q, cube, ll);
+    o0[q] = row_offset(Q.p, Q.ld, 0);
+    ldm[q] = Q.ld & 3;
+  }
   // row pass: columns 4 u2 .. 4 u2 + 3 of coefficient row i of the row filter a
   for (int e = threadIdx.x; e < 2 * ci * (TR / 4); e += THREADS) {
     const int u2 = e % (TR / 4), i = (e / (TR / 4)) % ci, a = e / (TR / 4 * ci);
-    const bool ll_q = a == 0 && !P.last;
-    const int cl = ((ll_q ? 0 : M.t) + j_lo) & 3, ch = (M.t + M.cy + j_lo) & 3;
+    const int cl = (a ? o0[2] + i * ldm[2] : o0[0] + i * ldm[0]) & 3;
+    const int ch = (a ? o0[3] + i * ldm[3] : o0[1] + i * ldm[1]) & 3;
     const float* ql = buf + (2 * a) * nrow * w + i * w + cl + 2 * u2;
     const float* qh = buf + (2 * a + 1) * nrow * w + i * w + ch + 2 * u2;
     float y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f;
@@ -423,68 +513,21 @@ __device__ __forceinline__ void synthesis_member(const PsiLevel& P, const PsiMem
   }
 }
 
-__global__ void __launch_bounds__(THREADS) psi_synthesis_kernel(const __grid_constant__ PsiLevel P, int nband,
-                                                                const float* __restrict__ cube,
-                                                                const float* __restrict__ ll,
-                                                                float* __restrict__ img, float* __restrict__ x,
-                                                                int tiles_x, int tiles_y) {
-  extern __shared__ float4 smem4[];
-  float* sh = reinterpret_cast<float*>(smem4);
-  long long b = blockIdx.x;
-  int m0 = 0, m1 = P.nmem;
-  if (!P.first) {
-    m0 = b % P.nmem;
-    m1 = m0 + 1;
-    b /= P.nmem;
-  }
-  const int s0 = (b % (tiles_x * tiles_y)) / tiles_y * TS, r0 = (b % tiles_y) * TR;
-  const int band = b / (tiles_x * tiles_y);
-  const int nout_x = P.first ? P.nx : P.m[m0].nin_x, nout_y = P.first ? P.ny : P.m[m0].nin_y;
-  if (s0 >= nout_x || r0 >= nout_y) return;
-  const int nq = 4 * s_rows(P.kmax) * s_width(P.kmax);
-  float* const bufs[2] = {sh, sh + nq};
-  float* const mid = sh + 2 * nq;
-  float acc[SITEMS][SROWS];
-#pragma unroll
-  for (int it = 0; it < SITEMS; ++it)
-#pragma unroll
-    for (int h = 0; h < SROWS; ++h) acc[it][h] = 0.f;
-  // the wavelet members' quadrants stream through two buffers: the next
-  // member's copies are in flight while this one computes
-  int nxt = m0;
-  while (nxt < m1 && P.m[nxt].k == 0) ++nxt;
-  if (nxt < m1) issue_quads(P, P.m[nxt], band, nband, s0, r0, cube, ll, bufs[0]);
-  int cur = 0;
-  for (int m = m0; m < m1; ++m) {
-    const PsiMember& M = P.m[m];
-    if (M.k == 0) {  // "self": its plane's own pixels
-      const float* plane = cube + ((long long)band * P.nbasis + M.plane) * P.nymax * P.nxmax;
-#pragma unroll
-      for (int it = 0; it < SITEMS; ++it) {
-        const int e = threadIdx.x + it * THREADS, R = r0 + e % TR, S = s0 + SROWS * (e / TR);
-        if (R >= P.ny) continue;
-#pragma unroll
-        for (int h = 0; h < SROWS; ++h)
-          if (S + h < P.nx) acc[it][h] += plane[(long long)(S + h) * P.nxmax + R];
-      }
-      continue;
-    }
-    nxt = m + 1;
-    while (nxt < m1 && P.m[nxt].k == 0) ++nxt;
-    if (nxt < m1) {
-      issue_quads(P, P.m[nxt], band, nband, s0, r0, cube, ll, bufs[cur ^ 1]);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();  // this member's windows are in; the last member is done with mid
-#define PSI_SYNTHESIS(KK) synthesis_member<KK>(P, M, s0, r0, bufs[cur], mid, acc)
-    PSI_BY_K(PSI_SYNTHESIS)
-    cur ^= 1;
-  }
-  float* dst = P.first ? x + (long long)band * P.nx * P.ny
-                       : img + ((long long)P.m[m0].scr * nband + band) * P.img_x * P.img_y;
-  const int ld = P.first ? P.ny : P.img_y;
+// whether image tile (s0, r0) of its level has work for member m: a wavelet
+// basis (k > 0) whose level image the tile meets
+__device__ __forceinline__ bool tile_wavelet(const PsiLevel& P, int m, int s0, int r0) {
+  return P.m[m].k > 0 && s0 < P.m[m].nin_x && r0 < P.m[m].nin_y;
+}
+
+// the next member from m on with work for tile (s0, r0), m1 if none
+__device__ __forceinline__ int next_wavelet(const PsiLevel& P, int m, int m1, int s0, int r0) {
+  while (m < m1 && !tile_wavelet(P, m, s0, r0)) ++m;
+  return m;
+}
+
+// image tile (s0, r0) from acc into dst (row stride ld), inside (nout_x, nout_y)
+__device__ __forceinline__ void store_tile(float* __restrict__ dst, int ld, int nout_x, int nout_y, int s0, int r0,
+                                           const float (&acc)[SITEMS][SROWS]) {
 #pragma unroll
   for (int it = 0; it < SITEMS; ++it) {
     const int e = threadIdx.x + it * THREADS, R = r0 + e % TR, S = s0 + SROWS * (e / TR);
@@ -493,6 +536,85 @@ __global__ void __launch_bounds__(THREADS) psi_synthesis_kernel(const __grid_con
     for (int h = 0; h < SROWS; ++h)
       if (S + h < nout_x) dst[(long long)(S + h) * ld + R] = acc[it][h];
   }
+}
+
+// P2 of one level from one cube, or (TWO) from 2 vn - v of two: a block a
+// (band, tile) loops over the level's members in their order, at level 0
+// summing them into x, deeper writing each basis's image to scratch. The
+// wavelet members' windows stream through a ring of RING stages (the launch
+// gives it `stages`, at most the block's wavelet members), RING - 1
+// members' copies in flight while one computes. The row pass's staging tile
+// (mid) is the current stage's second-cube half with two cubes, else past
+// the ring.
+template <bool TWO>
+__global__ void __launch_bounds__(THREADS, SBLOCKS)
+    psi_synthesis_kernel(const __grid_constant__ PsiLevel P, int nband, const float* __restrict__ cube,
+                         const float* __restrict__ two, const float* __restrict__ ll, float* __restrict__ img,
+                         float* __restrict__ x, int tiles_x, int tiles_y, int stages) {
+  static_assert(RING >= 2, "a ring of at least two stages");
+  extern __shared__ float4 smem4[];
+  float* sh = reinterpret_cast<float*>(smem4);
+  const int m1 = P.nmem;
+  const int s0 = (blockIdx.x % (tiles_x * tiles_y)) / tiles_y * TS, r0 = (blockIdx.x % tiles_y) * TR;
+  const int band = blockIdx.x / (tiles_x * tiles_y);
+  if (P.first && (s0 >= P.nx || r0 >= P.ny)) return;
+  const int nq = s_rows(P.kmax) * s_width(P.kmax), nstage = (TWO ? 8 : 4) * nq;
+  float acc[SITEMS][SROWS];
+#pragma unroll
+  for (int it = 0; it < SITEMS; ++it)
+#pragma unroll
+    for (int h = 0; h < SROWS; ++h) acc[it][h] = 0.f;
+  // RING - 1 wavelet members copied ahead; an empty group where none is left
+  // keeps a member's copies RING - 2 groups behind the newest
+  int nxt = next_wavelet(P, 0, m1, s0, r0), slot_in = 0, slot = 0;
+  auto copy_next = [&]() {
+    if (nxt < m1) {
+      copy_quads<TWO>(P, P.m[nxt], band, nband, s0, r0, cube, two, ll, sh + slot_in * nstage);
+      nxt = next_wavelet(P, nxt + 1, m1, s0, r0);
+      slot_in = slot_in + 1 == RING ? 0 : slot_in + 1;
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) copy_next();
+  for (int m = 0; m < m1; ++m) {
+    const PsiMember& M = P.m[m];
+    if (M.k == 0) {  // "self": its plane's own pixels
+      const long long po = ((long long)band * P.nbasis + M.plane) * P.nymax * P.nxmax;
+#pragma unroll
+      for (int it = 0; it < SITEMS; ++it) {
+        const int e = threadIdx.x + it * THREADS, R = r0 + e % TR, S = s0 + SROWS * (e / TR);
+        if (R >= P.ny) continue;
+#pragma unroll
+        for (int h = 0; h < SROWS; ++h) {
+          if (S + h >= P.nx) continue;
+          const long long i = po + (long long)(S + h) * P.nxmax + R;
+          acc[it][h] += TWO ? fmaf(2.f, cube[i], -two[i]) : cube[i];
+        }
+      }
+      continue;
+    }
+    if (!tile_wavelet(P, m, s0, r0)) continue;
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(RING - 2));
+    float* buf = sh + slot * nstage;
+    if (TWO) extrapolate_quads(P, M, buf);
+    __syncthreads();  // this member's windows are in; the last member is done with its stage and mid
+    copy_next();     // into the last member's stage
+    float* mid = TWO ? buf + 4 * nq : sh + stages * nstage;
+#define PSI_SYNTHESIS(KK) synthesis_member<KK>(P, M, band, nband, s0, r0, cube, ll, buf, mid, acc)
+    PSI_BY_K(PSI_SYNTHESIS)
+    slot = slot + 1 == RING ? 0 : slot + 1;
+    if (!P.first) {  // this basis's level image to scratch
+      store_tile(img + ((long long)M.scr * nband + band) * P.img_x * P.img_y, P.img_y, M.nin_x, M.nin_y, s0, r0,
+                 acc);
+#pragma unroll
+      for (int it = 0; it < SITEMS; ++it)
+#pragma unroll
+        for (int h = 0; h < SROWS; ++h) acc[it][h] = 0.f;
+    }
+  }
+  if (P.first) store_tile(x + (long long)band * P.nx * P.ny, P.ny, P.nx, P.ny, s0, r0, acc);
 }
 
 bool level_ok(const PsiLevel& P, int nband) {
@@ -521,6 +643,29 @@ void plane_tiles(const PsiLevel& P, bool analysis, int& tiles_x, int& tiles_y) {
   tiles_y = (ey + ty - 1) / ty;
 }
 
+// Shared memory of a synthesis launch: `stages` stages of one or two cubes'
+// four quadrant tiles, and the row pass's staging tile past them (one cube;
+// with two it is the current stage's second half).
+int synthesis_smem(int kmax, bool two, int stages) {
+  const int nq = s_rows(kmax) * s_width(kmax);
+  return (int)sizeof(float) * (two ? stages * 8 * nq : stages * 4 * nq + 2 * s_rows(kmax) * TR);
+}
+
+template <bool TWO>
+int launch_synthesis(const PsiLevel& P, int nband, const float* cube, const float* two, const float* ll, float* img,
+                     float* x, int tx, int ty, int nwav, long long blocks, void* stream) {
+  const int stages = nwav < RING ? (nwav > 0 ? nwav : 1) : RING;
+  const int smem = synthesis_smem(P.kmax, TWO, stages);
+  if (smem > 48 * 1024) {  // past the default: opt in
+    const cudaError_t e =
+        cudaFuncSetAttribute(psi_synthesis_kernel<TWO>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  psi_synthesis_kernel<TWO><<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      P, nband, cube, two, ll, img, x, tx, ty, stages);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -545,24 +690,23 @@ int pfb_psi_analysis(const PsiLevel* lvl, int nband, const float* x, float* cube
 
 // One synthesis level (the deepest first): the cube's quadrants (the LL from
 // ll, the level below's output, unless the level is the deepest) to img, the
-// level above's scratch, or at level 0 the bases summed into x.
-int pfb_psi_synthesis(const PsiLevel* lvl, int nband, const float* cube, const float* ll, float* img, float* x,
-                      void* stream) {
+// level above's scratch, or at level 0 the bases summed into x. With a second
+// cube (two, not null: PD's v beside vn in cube), the quadrants of 2 cube -
+// two; both cubes must lie at the same address modulo 16 bytes.
+int pfb_psi_synthesis(const PsiLevel* lvl, int nband, const float* cube, const float* two, const float* ll,
+                      float* img, float* x, void* stream) {
   const PsiLevel& P = *lvl;
   if (!level_ok(P, nband)) return -1;
+  if (two && ((reinterpret_cast<uintptr_t>(cube) ^ reinterpret_cast<uintptr_t>(two)) & 15)) return -1;
   int tx, ty;
   plane_tiles(P, false, tx, ty);
   if (tx < 1 || ty < 1) return -1;
-  const long long blocks = (long long)nband * tx * ty * (P.first ? 1 : P.nmem);
+  const long long blocks = (long long)nband * tx * ty;
   if (blocks > 0x7fffffffLL) return -1;
-  const int smem = s_floats(P.kmax) * sizeof(float);
-  if (smem > 48 * 1024) {  // past the default: opt in (filters longer than 20 taps)
-    const cudaError_t e = cudaFuncSetAttribute(psi_synthesis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  psi_synthesis_kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(P, nband, cube, ll, img, x, tx,
-                                                                                  ty);
-  return (int)cudaGetLastError();
+  int nwav = 0;
+  for (int m = 0; m < P.nmem; ++m) nwav += P.m[m].k > 0;
+  return two ? launch_synthesis<true>(P, nband, cube, two, ll, img, x, tx, ty, nwav, blocks, stream)
+             : launch_synthesis<false>(P, nband, cube, two, ll, img, x, tx, ty, nwav, blocks, stream);
 }
 
 }  // extern "C"

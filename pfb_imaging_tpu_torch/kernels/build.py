@@ -117,7 +117,7 @@ def _load():
     lib.pfb_psi_analysis.argtypes = [vp, i, vp, vp, vp, vp, vp]
     lib.pfb_psi_analysis.restype = i
     # level, nband, cube, ll (or NULL), img (or NULL), x, stream
-    lib.pfb_psi_synthesis.argtypes = [vp, i, vp, vp, vp, vp, vp]
+    lib.pfb_psi_synthesis.argtypes = [vp, i, vp, vp, vp, vp, vp, vp]
     lib.pfb_psi_synthesis.restype = i
     lib.pfb_error_string.argtypes = [i]
     lib.pfb_error_string.restype = ctypes.c_char_p

@@ -14,6 +14,13 @@ launch a level for every basis and band, reading and writing the packed
 layout directly, f32 only, no fallback. Their per-level tables
 (:func:`kernel_levels`) go to each launch by value; ``LAUNCHES`` counts the
 launches, and so does the tracer's ``psi.launch`` counter.
+
+``hdot_extrapolated(vn, v)`` is ``hdot(2 vn - v)``, the synthesis a
+primal-dual iteration asks for: on the card P2 reads both cubes and forms
+``2 vn - v`` as it stages them (the same bits as torch's ``2.0 * vn - v``
+through P2), so the extrapolated cube is never written; its launches count
+under ``psi_synthesis_ext``, and each call once in the counter
+``psi.extrap``.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from .wavelets import coeff_size, conv_weights, dwt2d_level, dwt_max_level, filt
 KMAX = 32
 MAXB = 16
 
-LAUNCHES = {"psi_analysis": 0, "psi_synthesis": 0}
+LAUNCHES = {"psi_analysis": 0, "psi_synthesis": 0, "psi_synthesis_ext": 0}
 
 
 class PsiMember(ctypes.Structure):
@@ -122,6 +129,15 @@ class Psi:
         the plain path for CPU tensors, else the kernels (f32)."""
         return self.hdot_plain(alpha) if alpha.device.type == "cpu" else self._hdot_cuda(alpha)
 
+    def hdot_extrapolated(self, vn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """``hdot(2 vn - v)``: the plain path on ``2.0 * vn - v`` for CPU
+        tensors, else P2 forming ``2 vn - v`` from both cubes as it stages
+        them (f32; both cubes at the same address modulo 16 bytes)."""
+        profiling.count("psi.extrap", 1)
+        if vn.device.type == "cpu":
+            return self.hdot_plain(2.0 * vn - v)
+        return self._hdot_cuda(vn, v)
+
     def dot_plain(self, x: torch.Tensor) -> torch.Tensor:
         """:meth:`dot` by the plain conv chain, on ``x``'s device and dtype."""
         out = x.new_zeros((x.shape[0], self.nbasis, self.nymax, self.nxmax))
@@ -198,21 +214,33 @@ class Psi:
         profiling.count("psi.launch", len(self._levels))
         return out
 
-    def _hdot_cuda(self, alpha: torch.Tensor) -> torch.Tensor:
+    def _hdot_cuda(self, alpha: torch.Tensor, v: torch.Tensor | None = None) -> torch.Tensor:
+        """P2 on ``alpha``, or with ``v`` on ``2 alpha - v``."""
         from ..kernels.build import check, load
         from .idg_fused import _stream
 
-        self._check_cuda(alpha, "alpha", (self.nbasis, self.nymax, self.nxmax))
+        tail = (self.nbasis, self.nymax, self.nxmax)
+        self._check_cuda(alpha, "alpha", tail)
+        key = "psi_synthesis"
+        if v is not None:
+            self._check_cuda(v, "v", tail)
+            if v.shape != alpha.shape or v.device != alpha.device:
+                raise ValueError(f"v: {tuple(v.shape)} on {v.device} is not vn's {tuple(alpha.shape)} on "
+                                 f"{alpha.device}")
+            if (v.data_ptr() - alpha.data_ptr()) % 16:
+                raise ValueError("vn and v must lie at the same address modulo 16 bytes")
+            key = "psi_synthesis_ext"
         nband = alpha.shape[0]
         out = torch.empty((nband, self.nx, self.ny), dtype=torch.float32, device=alpha.device)
         scr = self._scratch(nband, alpha.device)
         lib, stream = load(), _stream(alpha.device)
         for i in reversed(range(len(self._levels))):
             code = lib.pfb_psi_synthesis(ctypes.addressof(self._levels[i]), nband, alpha.data_ptr(),
+                                         None if v is None else v.data_ptr(),
                                          scr[i].data_ptr() if i < len(scr) else None,
                                          scr[i - 1].data_ptr() if i else None, out.data_ptr(), stream)
-            check(code, "psi_synthesis")
-            LAUNCHES["psi_synthesis"] += 1
+            check(code, key)
+            LAUNCHES[key] += 1
         profiling.count("psi.launch", len(self._levels))
         return out
 

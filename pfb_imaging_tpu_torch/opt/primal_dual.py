@@ -5,6 +5,7 @@ Per iteration:
     v     = dual_update(vp, v_a, lam, sigma)
     v_ext = 2 v - vp
     x     = xp - tau * (psi_hdot(v_ext) + grad(xp))
+          (psi_hdot_ext(v, vp) where given: the same, without v_ext)
     x     = primal_prox(x)
     eps   = ||x - xp|| / ||x||
 
@@ -34,13 +35,14 @@ from .pcg import stop_eps
 
 def primal_dual_loop(x, v, lam, l1weight, sigma, tau, grad, *, psi_dot, psi_hdot, primal_prox=None,
                      dual_update=_dual_update_21m, tol: float = 1e-5, maxit: int = 1000, minit: int = 1,
-                     it_cap: int | None = None, mesh=None):
-    """One PDHG run to tolerance. Returns (x, v, niter, eps)."""
+                     it_cap: int | None = None, mesh=None, psi_hdot_ext=None):
+    """One PDHG run to tolerance. Returns (x, v, niter, eps). ``psi_hdot_ext(vn,
+    v)``, where given, stands for ``psi_hdot(2.0 * vn - v)`` (``Psi.hdot_extrapolated``)."""
     cap = maxit if it_cap is None else min(int(it_cap), maxit)
     k, eps = 0, 1.0
     while (eps > tol or k < minit) and k < cap:
         vn = dual_update(v, psi_dot(x), lam, sigma=sigma, weight=l1weight)
-        xn = x - tau * (psi_hdot(2.0 * vn - v) + grad(x))
+        xn = x - tau * ((psi_hdot(2.0 * vn - v) if psi_hdot_ext is None else psi_hdot_ext(vn, v)) + grad(x))
         if primal_prox is not None:
             xn = primal_prox(xn)
         with span("pd.stop"):  # the host waits here for the iteration's norms
@@ -113,6 +115,7 @@ class PrimalDual:
                 x, v, lam, getattr(reg, "l1weight", None), self.sigma, self.tau, self._grad,
                 psi_dot=reg.psi.dot, psi_hdot=reg.psi.hdot, primal_prox=self.primal_prox,
                 dual_update=self._dual_fn, tol=self.tol, maxit=self.maxit, it_cap=budget, mesh=self.mesh,
+                psi_hdot_ext=getattr(reg.psi, "hdot_extrapolated", None),
             )
             k_total += k
             budget -= k

@@ -110,8 +110,9 @@ def test_the_band_loops_count_their_bands():
         profiling.disable()
     assert solver.backward_alg.niter_last == 1
     # the dual update's band sum and the stop test's (its three terms'
-    # per-band reductions, then their band sum); the gradient's Hessian
-    assert pd == {"band.sum": 2 * 16, "band.dots": 3 * 16, "hess.band": 16}
+    # per-band reductions, then their band sum); the gradient's Hessian;
+    # Psi's synthesis of the iteration's 2 vn - v
+    assert pd == {"band.sum": 2 * 16, "band.dots": 3 * 16, "hess.band": 16, "psi.extrap": 1}
     assert hess == {"hess.band": 16}
     assert torch.equal(on, off) and bool(on.abs().sum() > 0)
     assert profiling.take()["counters"] == {}

@@ -16,6 +16,15 @@ adjoint identity and the frame identity hdot(dot(x)) = nbasis x in f32
 an allocation left full of NaN; two calls the same bits; ``LAUNCHES`` up by
 nlevel a call; f64 and non-contiguous input refused.
 
+The two-cube P2 (``Psi.hdot_extrapolated(vn, v)``, PD's ``hdot(2 vn - v)``)
+at every case above and at the sara cells' shapes (4 x 2048^2 and 16 x
+1024^2, nine bases): within 2e-6 of the f64 plain path on ``2 vn - v``, the
+same bits as the one-cube P2 on torch's ``2.0 * vn - v`` and from call to
+call, its output and scratch from allocations left full of NaN,
+``LAUNCHES["psi_synthesis_ext"]`` up by nlevel a call (the one-cube key
+unchanged); and five PD iterations at the 2k cell's shape the same bits
+with and without it.
+
 This file imports no JAX, so it runs where only PyTorch is installed:
 ``python -m pytest --noconftest -m gpu tests/test_torch_psi_kernel.py``.
 """
@@ -38,6 +47,8 @@ CASES = {
     "sara_default_order_square": (SARA, 2, (256, 256), 4),
 }
 REL = 2e-6
+# the sara cells' shapes
+EXT_CASES = {**CASES, "sara_2k_cell": (SARA, 2, (2048, 2048), 4), "sara_1k16_cell": (SARA, 2, (1024, 1024), 16)}
 
 
 def _cuda():
@@ -51,7 +62,7 @@ def _rel(a, b) -> float:
 
 
 def _setup(case, dev):
-    bases, nlevel, shape, nband = CASES[case]
+    bases, nlevel, shape, nband = EXT_CASES[case]
     psi = P.Psi(nband, *shape, bases=bases, nlevel=nlevel, device=dev)
     rng = np.random.default_rng(len(case))
     x = torch.as_tensor(rng.standard_normal((nband,) + shape), dtype=torch.float32, device=dev)
@@ -114,3 +125,52 @@ def test_kernels_refuse_f64_and_non_contiguous():
         psi.hdot(alpha[..., :].transpose(2, 3).contiguous().transpose(2, 3))
     with pytest.raises(ValueError, match="shape"):
         psi.dot(x[:, :-1].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(EXT_CASES))
+def test_extrapolated_synthesis(case):
+    dev = _cuda()
+    psi, _, vn = _setup(case, dev)
+    g = torch.Generator(device=dev).manual_seed(len(case) + 1)
+    v = torch.randn(vn.shape, generator=g, device=dev)
+    nband = vn.shape[0]
+    nlevel = psi.nlevel if any(b != "self" for b in psi.bases) else 1
+    # leave the allocator's next blocks of the output's and the scratch's sizes full of NaN
+    junk = [torch.full((nband, psi.nx, psi.ny), float("nan"), device=dev)]
+    junk += [torch.full_like(t, float("nan")) for t in psi._scratch(nband, dev)]
+    del junk
+    before = dict(P.LAUNCHES)
+    h1 = psi.hdot_extrapolated(vn, v)
+    assert P.LAUNCHES["psi_synthesis_ext"] == before["psi_synthesis_ext"] + nlevel
+    assert P.LAUNCHES["psi_synthesis"] == before["psi_synthesis"]
+    h2 = psi.hdot_extrapolated(vn, v)
+    h_one = psi.hdot(2.0 * vn - v)
+    torch.cuda.synchronize()
+    assert not h1.isnan().any()
+    assert torch.equal(h1, h2) and torch.equal(h1, h_one)
+    assert _rel(h1, psi.hdot_plain(2.0 * vn.double() - v.double())) < REL
+
+
+@pytest.mark.gpu
+def test_pd_iterations_same_bits_with_and_without_the_fused_synthesis():
+    from pfb_imaging_tpu_torch.opt.primal_dual import primal_dual_loop
+    from pfb_imaging_tpu_torch.prox.positivity import positivity
+    from pfb_imaging_tpu_torch.prox.prox_21m import dual_update
+
+    dev = _cuda()
+    psi, x, _ = _setup("sara_2k_cell", dev)
+    b = x.abs()
+    l1w = torch.ones((psi.nbasis, psi.nymax, psi.nxmax), device=dev)
+    v0 = torch.zeros((x.shape[0], psi.nbasis, psi.nymax, psi.nxmax), device=dev)
+    before = P.LAUNCHES["psi_synthesis_ext"]
+    runs = [primal_dual_loop(torch.zeros_like(b), v0, 1e-3, l1w, 0.1, 0.5, lambda z: z - b, psi_dot=psi.dot,
+                             psi_hdot=psi.hdot, primal_prox=positivity, dual_update=dual_update, tol=0.0, maxit=5,
+                             psi_hdot_ext=ext)
+            for ext in (None, psi.hdot_extrapolated)]
+    torch.cuda.synchronize()
+    assert P.LAUNCHES["psi_synthesis_ext"] == before + 5 * psi.nlevel
+    (xa, va, ka, _), (xb, vb, kb, _) = runs
+    assert ka == kb == 5
+    assert torch.equal(xa, xb) and torch.equal(va, vb)
+    assert bool((xa != 0).any())
