@@ -230,7 +230,9 @@ beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import logging
 import shutil
 import subprocess
 import sys
@@ -239,8 +241,11 @@ from pathlib import Path
 
 import numpy as np
 
+from portbench.data import LIGHTSPEED, channels, point_sum_vis, sky_vis, synth_array
+
 ROOT = Path(__file__).resolve().parent
-LIGHTSPEED = 299792458.0
+# MeerKAT's L band (Hz), the smoke's channels
+L_BAND = (856e6, 1712e6)
 # published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3
 # bandwidth and f32 outside the tensor cores; the bounds in the kernel line
 HBM_BYTES_PER_S = 3.35e12
@@ -707,7 +712,6 @@ def phase_psi(dev, nband: int = 4, nx: int = 2048, nlevel: int = 2, reps: int = 
     stay)."""
     import torch
 
-    from pfb_imaging_tpu_torch.ops import psi as PS
     from pfb_imaging_tpu_torch.opt.primal_dual import primal_dual_loop
     from pfb_imaging_tpu_torch.prox.prox_21m import dual_update
 
@@ -732,7 +736,9 @@ def phase_psi(dev, nband: int = 4, nx: int = 2048, nlevel: int = 2, reps: int = 
     zero_counts()
     pd(pd_iters)
     torch.cuda.synchronize()
-    rec["launches_pd_iteration"] = {k: PS.LAUNCHES[k] / pd_iters for k in PS.LAUNCHES}
+    launches = read_counts()["launches"]
+    rec["launches_pd_iteration"] = {k: launches[k] / pd_iters for k in ("psi_analysis", "psi_synthesis",
+                                                                       "psi_synthesis_ext")}
     for what, fn in (("psi", lambda: (psi.dot(x), psi.hdot(v))), ("pd_iteration", lambda: pd(1))):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
@@ -803,68 +809,12 @@ def phase_accuracy_pallas(dev, nrow: int = 50_000, nchan: int = 2, nx: int = 256
     return rec
 
 
-def synth_array(nant: int, ntime: int, seed: int, wscale: float = 0.01):
-    """uvw (ntime*nbl, 3) of a random array: antennas uniform in an 8 km
-    disc (baselines within 16 km), hour angles over 8 h at dec -30 deg,
-    w scaled by ``wscale`` (0.01: the near-coplanar layout of the TPU
-    bench; 1: the array's own w)."""
-    rng = np.random.default_rng(seed)
-    r = 8000.0 * np.sqrt(rng.random(nant))
-    th = 2 * np.pi * rng.random(nant)
-    xy = np.stack([r * np.cos(th), r * np.sin(th)], -1)
-    a1, a2 = np.triu_indices(nant, 1)
-    bx, by = (xy[a1] - xy[a2]).T
-    h = np.linspace(-np.pi / 3, np.pi / 3, ntime)[:, None]
-    sd, cd = np.sin(np.deg2rad(-30.0)), np.cos(np.deg2rad(-30.0))
-    u = np.sin(h) * bx + np.cos(h) * by
-    v = -sd * np.cos(h) * bx + sd * np.sin(h) * by
-    w = wscale * (cd * np.cos(h) * bx - cd * np.sin(h) * by)
-    return np.stack([u.ravel(), v.ravel(), w.ravel()], -1)
-
-
-def channels(nchan: int) -> np.ndarray:
-    """Centres of ``nchan`` equal channels over 856-1712 MHz (MeerKAT L band)."""
-    edges = np.linspace(856e6, 1712e6, nchan + 1)
-    return 0.5 * (edges[:-1] + edges[1:])
-
-
 def point_sources(nx: int, nsrc: int, seed: int) -> list:
     """``nsrc`` seeded (pixel x, pixel y, flux) sources in the inner half of
     an nx^2 image, fluxes uniform in [0.1, 1)."""
     rng = np.random.default_rng(seed)
     return [(int(p), int(q), float(f)) for p, q, f in zip(
         rng.integers(nx // 4, 3 * nx // 4, nsrc), rng.integers(nx // 4, 3 * nx // 4, nsrc), rng.uniform(0.1, 1.0, nsrc))]
-
-
-def sky_vis(uvw_d, freq, srcs, cell: float, nx: int, noise: float, gen):
-    """Visibilities of flat-spectrum point sources (``point_sum_vis``) plus
-    complex Gaussian noise; returned as (re, im) f32 tensors (nrow, nchan)."""
-    import torch
-
-    dev = uvw_d.device
-    comps = [((p - nx // 2) * cell, (q - nx // 2) * cell, np.full(len(freq), flux)) for p, q, flux in srcs]
-    vis = point_sum_vis(uvw_d, freq, comps)
-    re, im = vis.real.clone(), vis.imag.clone()
-    re += noise * torch.randn(re.shape, generator=gen, device=dev, dtype=torch.float64)
-    im += noise * torch.randn(im.shape, generator=gen, device=dev, dtype=torch.float64)
-    return re.float(), im.float()
-
-
-def point_sum_vis(uvw_d, freq, comps):
-    """Noise-free visibilities (nrow, nchan) complex128 of point components
-    ``comps`` = [(l, m, flux per channel)], summed directly on the card in
-    f64 from the pinned convention (geometry.py, no 1/n):
-    V = sum_k I_k exp(-2 pi i (u l - v m - w (n - 1)) f / c)."""
-    import torch
-
-    dev = uvw_d.device
-    nu = torch.as_tensor(freq, device=dev, dtype=torch.float64) / LIGHTSPEED
-    acc = torch.zeros((uvw_d.shape[0], len(freq)), dtype=torch.complex128, device=dev)
-    for l, m, flux in comps:
-        geo = uvw_d @ torch.tensor([l, -m, -(np.sqrt(1.0 - l * l - m * m) - 1.0)], dtype=torch.float64, device=dev)
-        ph = -2.0 * np.pi * geo[:, None] * nu[None, :]
-        acc += torch.as_tensor(flux, device=dev)[None, :] * torch.complex(torch.cos(ph), torch.sin(ph))
-    return acc
 
 
 def build_idg_library(src: Path):
@@ -1346,12 +1296,32 @@ def phase_kernels_assembly(dev, nrow: int = 20_000, nx: int = 512) -> list:
     return out
 
 
+@contextlib.contextmanager
+def plans_made(module):
+    """The IDG plans ``module`` (``core.imager`` or ``core.degrid``) makes
+    inside the block, in the order they were made: one dict (nx, freq,
+    nbins, w_support, ngroups) a plan."""
+    made, plan_idg = [], module.plan_idg
+
+    def planned(uvw, freq, **kw):
+        p = plan_idg(uvw, freq, **kw)
+        made.append(dict(nx=kw["nx"], freq=np.asarray(freq), nbins=p.nbins, w_support=p.w_support,
+                         ngroups=p.ngroups))
+        return p
+
+    module.plan_idg = planned
+    try:
+        yield made
+    finally:
+        module.plan_idg = plan_idg
+
+
 def imager_plan_kernels(dev, dt_path: str, plans: list, band: int = 0, eps: float = 1e-7, f64_groups: int = 65536):
     """B1 at the imager's own launch shapes for ``band``: its image plan and
     its PSF plan, planned again from the partition the imager wrote to the
     tree with the imager's arguments (epsilon ``eps``, w-gridding, no slot
     budget, the device's type) and required equal to the imager's plans
-    (``plans``, from ``IMAGER_STATS``) in bins, w-support and groups, on the
+    (``plans``, from ``plans_made``) in bins, w-support and groups, on the
     group values the imager's B1 launch takes (weighted visibilities; unit
     ones for the PSF); B2 on B1's patches at the same plan. Each checked
     and timed by :func:`idg_kernels_at_plan` (f64 on ``f64_groups`` middle
@@ -1373,12 +1343,12 @@ def imager_plan_kernels(dev, dt_path: str, plans: list, band: int = 0, eps: floa
     wm = to_device(np.asarray(pg.read("WEIGHT")) * np.asarray(pg.read("MASK")), dev, rdt)
     kw = dict(cellx=a["cell_rad"], celly=a["cell_rad"], l0=l0, m0=m0, epsilon=eps, do_wgridding=True,
               divide_by_n=False, dtype=rdt, device=dev)
-    info = next(q for q in plans if q["band"] == band)
     out = {}
     for kind, n, vis in (("image", a["nx"], np.asarray(pg.read("VIS"))), ("psf", a["nx_psf"], _psf_vis(uvw, f, l0, m0))):
         p = plan_idg(uvw, f, nx=n, ny=n, **kw)
         shape = dict(nbins=p.nbins, w_support=p.w_support, ngroups=p.ngroups)
-        require(shape == info[kind], f"band {band}'s {kind} plan planned again equals the imager's")
+        info = [{k: q[k] for k in shape} for q in plans if q["nx"] == n and np.array_equal(q["freq"], f)]
+        require(info == [shape], f"band {band}'s {kind} plan planned again equals the imager's")
         vals = _idg_prepare(p, to_device(vis.real, dev, rdt), to_device(vis.imag, dev, rdt), wm)
         rec, _ = idg_kernels_at_plan(p, vals, f64_groups=f64_groups)
         rec.update(nx=n, **shape)
@@ -1453,7 +1423,7 @@ def residual_routes(dev, dt, keys, model, eps: float, residual, trace: bool):
                 fn()
                 torch.cuda.synchronize()
                 wall_prof = (time.perf_counter() - t0) * 1e3
-            busy = device_busy_ms(prof)
+            busy = busy_ms(prof)
             rec["traced"][name] = dict(profiled_wall_ms=wall_prof, device_busy_ms=busy,
                                        idle_share=max(0.0, 1.0 - busy / wall_prof), top_kernels=top_device_ops(prof, 8))
     pb = [v for k, v in TI._PLAN_CACHE.items() if k[0] not in ("multiband", "multiband_declined")]
@@ -1479,14 +1449,13 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
 
     from pfb_imaging_tpu_torch.core import deconv as tdeconv
     from pfb_imaging_tpu_torch.core import imager as TI
-    from pfb_imaging_tpu_torch.core.imager import PLAN_STATS
     from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_prepare, hessian_vis_idg, to_group_layout, vis2dirty_idg
     from pfb_imaging_tpu_torch.utils.store import TreeStore
 
     nx_psf = 2 * nx
     cell = 8e-6 * 1024 / nx
-    uvw = synth_array(nant, ntime, seed)
-    chans = channels(nband * nchan_band)
+    uvw = synth_array(nant, ntime, seed, wscale=0.01)
+    chans = channels(nband * nchan_band, *L_BAND)
     srcs = point_sources(nx, nsrc, seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     nvis = uvw.shape[0] * chans.size
@@ -1525,15 +1494,15 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     model, residual = tdeconv.deconv(str(dt_path), niter=niter, epsilon=eps, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
-    for s in tdeconv.CYCLE_STATS:
+    got = read_counts()
+    launches, cyc = got["launches"], got["cycles"]
+    for s in cyc:
         emit({"phase": "main_path", "stage": "cycle", **s})
-    cyc = tdeconv.CYCLE_STATS
     mfs = model.sum(0)
     peak = np.unravel_index(np.argmax(mfs), mfs.shape)
     near = min(abs(int(peak[0]) - p_) + abs(int(peak[1]) - q_) for p_, q_, _ in srcs)
     summary = dict(
-        deconv_seconds=wall, plan_seconds_smoke=plan_s, plan_seconds_deconv=PLAN_STATS["seconds"],
+        deconv_seconds=wall, plan_seconds_smoke=plan_s, plan_seconds_deconv=got["spans"].get("residual.plan", 0.0),
         gridding_seconds=grid_s, gridding_mvis_per_s=mvis_s, max_memory_allocated=torch.cuda.max_memory_allocated(dev),
         launches=launches, model_shape=list(model.shape), model_peak_offset_px=near,
     )
@@ -1548,8 +1517,8 @@ def phase_main(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int = 
     require(launches["idg_chunk_sums"] > 0, "K1's chunk sums launched")
     require(launches["psi_analysis"] > 0 and launches["psi_synthesis_ext"] > 0, "P1 and P2 (two cubes) launched")
     require(near <= 1, "brightest model pixel on a true source")
-    require(cyc[-1]["residual_dispatch"]["multiband_parts"] == niter and
-            cyc[-1]["residual_dispatch"]["fallback_bands"] == 0, "every residual took the multiband route")
+    require(got["counters"].get("residual.multiband_parts", 0) == niter and
+            got["counters"].get("residual.fallback_bands", 0) == 0, "every residual took the multiband route")
 
     # B1/B2 at the launch shape deconv ran (all bands' groups), f64 on all
     mb_kern, _ = multiband_kernels(model)
@@ -1601,15 +1570,13 @@ def phase_imager(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int 
     import torch
 
     from pfb_imaging_tpu_torch.core import imager as TI
-    from pfb_imaging_tpu_torch.native import PLAN_STATS as NATIVE_STATS
     from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
     from pfb_imaging_tpu_torch.ops.gridder import _vis2dirty_prepare, plan_wgridder, vis2dirty_plain
-    from pfb_imaging_tpu_torch.utils.store import TreeStore
 
     cell_arcsec = 0.8251
     cell = cell_arcsec * np.pi / 180 / 3600
     uvw = synth_array(nant, ntime, seed, wscale=1.0)
-    chans = channels(nchan)
+    chans = channels(nchan, *L_BAND)
     srcs = point_sources(nx, nsrc, seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if workdir.exists():
@@ -1631,15 +1598,13 @@ def phase_imager(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: int 
                     double_precision=False, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
-    stats = dict(TI.IMAGER_STATS)
-    summary = dict(imager_seconds=wall, counts_seconds=stats["counts_seconds"], plan_seconds=stats["plan_seconds"],
-                   wait_seconds=stats["wait_seconds"], grid_seconds=stats["grid_seconds"],
-                   write_seconds=stats["write_seconds"], finish_seconds=stats["finish_seconds"], route=stats["route"],
-                   gridded_mvis_per_s=3 * stats["nvis"] / stats["grid_seconds"] / 1e6,
-                   nw=[[p["image"]["nw"], p["psf"]["nw"]] for p in stats["plans"]],
+    got = read_counts()
+    launches, c = got["launches"], got["counters"]
+    summary = dict(imager_seconds=wall, **command_stats(got, "imager"),
+                   gridded_mvis_per_s=3 * c["imager.nvis"] / got["spans"]["imager.grid"] / 1e6,
+                   plans=c["imager.plans"], plans_wstack=c.get("imager.plans.wstack", 0),
                    max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches,
-                   host_planner_calls=dict(NATIVE_STATS))
+                   host_planner_calls={k: c.get(f"plan.{k}", 0) for k in ("native", "numpy")})
     emit({"phase": "imager", "stage": "imager", **summary})
     require(launches["scatter_grid_wstack"] > 0, "B3 launched during imager")
     require(out.attrs["complete"] is True and out.attrs["nx_psf"] == 2 * nx, "tree complete at the PSF size")
@@ -1775,10 +1740,9 @@ def phase_degrid(dev, ctx: dict, eps_pallas: float = 1e-5, eps_auto: float = 1e-
     TD.degrid(str(workdir / "smoke.mds"), str(xds), cell, gridder="pallas", epsilon=eps_pallas, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
-    stats = {k: v for k, v in TD.DEGRID_STATS.items() if k != "bins"}
-    rec = dict(route="pallas", degrid_seconds=wall, model2comps_seconds=m2c_s, **stats,
-               nw=[b["nw"] for b in TD.DEGRID_STATS["bins"]], routes=[b["route"] for b in TD.DEGRID_STATS["bins"]],
+    got = read_counts()
+    launches = got["launches"]
+    rec = dict(route="pallas", degrid_seconds=wall, model2comps_seconds=m2c_s, **degrid_stats(got),
                max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches,
                vs_sky=model_data_error(xds, srcs, cell, nx, dev))
     emit({"phase": "degrid", "stage": "pallas", **rec})
@@ -1817,8 +1781,8 @@ def phase_degrid(dev, ctx: dict, eps_pallas: float = 1e-5, eps_auto: float = 1e-
 
     # (b) the auto route on the main phase's array
     workdir.mkdir(parents=True)
-    uvw = synth_array(nant, ntime, main_seed)
-    chans = channels(len(ctx["chans"]))
+    uvw = synth_array(nant, ntime, main_seed, wscale=0.01)
+    chans = channels(len(ctx["chans"]), *L_BAND)
     cell_m = 8e-6 * 1024 / nx
     srcs_m = point_sources(nx, nsrc, main_seed)
     zeros = torch.zeros((uvw.shape[0], chans.size), device=dev)
@@ -1833,14 +1797,14 @@ def phase_degrid(dev, ctx: dict, eps_pallas: float = 1e-5, eps_auto: float = 1e-
     TD.degrid(mds_m, str(workdir / "main.xds"), cell_m, gridder="auto", epsilon=eps_auto, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches_auto = read_counts()
-    stats = {k: v for k, v in TD.DEGRID_STATS.items() if k != "bins"}
-    rec_auto = dict(route="auto", degrid_seconds=wall, **stats, bins=TD.DEGRID_STATS["bins"],
+    got = read_counts()
+    launches_auto = got["launches"]
+    rec_auto = dict(route="auto", degrid_seconds=wall, **degrid_stats(got),
                     max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches_auto,
                     vs_sky=model_data_error(workdir / "main.xds", srcs_m, cell_m, nx, dev))
     emit({"phase": "degrid", "stage": "auto", **rec_auto})
     require(launches_auto["vals_from_patches"] > 0, "B2 launched during degrid(gridder='auto')")
-    require(all(b["route"] == "idg" for b in rec_auto["bins"]), "auto routed every bin to IDG")
+    require(set(rec_auto["routes"]) == {"idg"}, "auto routed every bin to IDG")
     require(rec_auto["vs_sky"]["rel_linf"] <= 1e-5, "auto (IDG) MODEL_DATA within 1e-5 of the sky")
     shutil.rmtree(workdir)
     return b4, launches, dict(pallas=rec, checks=checks, auto=rec_auto)
@@ -1944,7 +1908,7 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
 
     cell = 8e-6 * 1024 / nx
     uvw = synth_array(nant, ntime, seed, wscale=1.0)
-    chans = channels(nband * nchan_band)
+    chans = channels(nband * nchan_band, *L_BAND)
     srcs = point_sources(nx, nsrc, seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     emit({"phase": "widefield", "stage": "layout", "nx": nx, "nband": nband, "nrow": uvw.shape[0],
@@ -1975,26 +1939,24 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
     # deconv with its default routing: counts zeroed right before it
     keys = [f"band{b:04d}_time0000" for b in range(nband)]
     torch.cuda.reset_peak_memory_stats(dev)
-    for k in TI.RESIDUAL_DISPATCH_STATS:
-        TI.RESIDUAL_DISPATCH_STATS[k] = 0
-    plan0 = TI.PLAN_STATS["seconds"]
     zero_counts()
     t0 = time.perf_counter()
     model, residual = tdeconv.deconv(str(dt_path), niter=niter, epsilon=eps, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
-    cyc = tdeconv.CYCLE_STATS
+    got = read_counts()
+    launches, cyc = got["launches"], got["cycles"]
     for s in cyc:
         emit({"phase": "widefield", "stage": "cycle", **s})
-    summary = dict(deconv_seconds=wall, plan_seconds=TI.PLAN_STATS["seconds"] - plan0,
+    dispatch = dispatch_of(got["counters"])
+    summary = dict(deconv_seconds=wall, plan_seconds=got["spans"].get("residual.plan", 0.0),
                    max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches,
-                   residual_dispatch=dict(TI.RESIDUAL_DISPATCH_STATS))
+                   residual_dispatch=dispatch)
     emit({"phase": "widefield", "stage": "deconv", **summary})
     require(len(cyc) == niter and all(np.isfinite([s["rms"], s["rmax"]]).all() for s in cyc), "cycles ran, finite")
     require(cyc[-1]["rms"] < cyc[0]["rms"], "widefield rms falls")
     require(np.isfinite(model).all() and np.isfinite(residual).all(), "widefield model and residual finite")
-    require(TI.RESIDUAL_DISPATCH_STATS["multiband_parts"] == niter and TI.RESIDUAL_DISPATCH_STATS["fallback_bands"] == 0,
+    require(dispatch == {"multiband_parts": niter, "fallback_bands": 0},
             "every widefield residual took the multiband route")
     require(launches["patches_from_vals"] > 0 and launches["vals_from_patches"] > 0, "B1/B2 launched in deconv")
 
@@ -2040,14 +2002,15 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
                     cell_size=cell * 180 / np.pi * 3600, psf_oversize=2.0, epsilon=eps, gridder="auto",
                     double_precision=False, fits_out=False, device=dev)
     torch.cuda.synchronize()
-    stats = dict(TI.IMAGER_STATS)
-    rec_im = dict(imager_seconds=time.perf_counter() - t0, route=stats["route"], plan_seconds=stats["plan_seconds"],
-                  wait_seconds=stats["wait_seconds"], grid_seconds=stats["grid_seconds"], plans=stats["plans"],
-                  launches=read_counts(), max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    c = got["counters"]
+    rec_im = dict(imager_seconds=wall, **command_stats(got, "imager"),
+                  plans=c.get("imager.plans", 0), plans_wplanes=c.get("imager.plans.wplanes", 0),
+                  launches=got["launches"], max_memory_allocated=torch.cuda.max_memory_allocated(dev))
     emit({"phase": "widefield", "stage": "imager", **rec_im})
-    require(rec_im["route"] == "idg" and rec_im["launches"]["patches_from_vals"] > 0, "imager(auto) on IDG (B1)")
-    require(len(stats["plans"]) == nband and
-            all(q[k]["w_support"] > 1 for q in stats["plans"] for k in ("image", "psf")),
+    require(rec_im["routes"] == {"idg": 1} and rec_im["launches"]["patches_from_vals"] > 0, "imager(auto) on IDG (B1)")
+    require(rec_im["plans"] == 2 * nband and rec_im["plans_wplanes"] == rec_im["plans"],
             "imager(auto): every image and PSF plan a wplanes plan")
     d0 = np.asarray(out.group("band0000_time0000").read("DIRTY"))
     require(np.isfinite(d0).all(), "imager(auto) DIRTY finite")
@@ -2062,13 +2025,14 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
     TD.degrid(mds, str(xds), cell, gridder="auto", epsilon=eps, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    dg_launches = read_counts()
-    stats = {k: v for k, v in TD.DEGRID_STATS.items() if k != "bins"}
-    rec_dg = dict(degrid_seconds=wall, **stats, bins=TD.DEGRID_STATS["bins"], launches=dg_launches,
+    got = read_counts()
+    dg_launches = got["launches"]
+    rec_dg = dict(degrid_seconds=wall, **degrid_stats(got), launches=dg_launches,
                   max_memory_allocated=torch.cuda.max_memory_allocated(dev),
                   vs_sky=model_data_error(xds, srcs, cell, nx, dev))
     emit({"phase": "widefield", "stage": "degrid", **rec_dg})
-    require(all(b["route"] == "idg" and b["w_support"] > 1 for b in rec_dg["bins"]), "degrid: every bin on wplanes IDG")
+    require(set(rec_dg["routes"]) == {"idg"} and rec_dg["bins_wplanes"] == rec_dg["routes"]["idg"],
+            "degrid: every bin on wplanes IDG")
     require(dg_launches["vals_from_patches"] > 0, "B2 launched during the widefield degrid")
     require(rec_dg["vs_sky"]["rel_linf"] <= 1e-5, "widefield MODEL_DATA within 1e-5 of the sky")
     shutil.rmtree(workdir)
@@ -2077,8 +2041,9 @@ def phase_widefield(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: i
 
 
 def cli_step(name: str, fn, dev, steps: dict, phase: str = "pipeline"):
-    """Run one step of ``phase`` with the launch counts zeroed right before
-    it; record its seconds, launches and peak device memory, and print them."""
+    """Run one step of ``phase`` with the counts zeroed right before it;
+    record its seconds, launches, counters, spans' seconds, cycles and peak
+    device memory, and print them."""
     import torch
 
     torch.cuda.synchronize()
@@ -2087,8 +2052,10 @@ def cli_step(name: str, fn, dev, steps: dict, phase: str = "pipeline"):
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    steps[name] = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
-                       max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    seconds = time.perf_counter() - t0
+    got = read_counts()
+    steps[name] = dict(seconds=seconds, launches=got["launches"], counters=got["counters"], spans=got["spans"],
+                       cycles=got["cycles"], max_memory_allocated=torch.cuda.max_memory_allocated(dev))
     emit({"phase": phase, "stage": name, **steps[name]})
     return out
 
@@ -2128,7 +2095,6 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
     import torch
 
     from pfb_imaging_tpu_torch.cli import main as cli_main
-    from pfb_imaging_tpu_torch.core import deconv as tdeconv
     from pfb_imaging_tpu_torch.core import degrid as TD
     from pfb_imaging_tpu_torch.core import imager as TI
     from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store
@@ -2189,14 +2155,13 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
     del xx, yy, vis_i, vis_raw
 
     cell_arcsec = cell * 180.0 / np.pi * 3600.0
-    cli_step("imager", lambda: cli_main(["imager", xds, dt, "--nband", str(nband), "--nx", str(nx),
-                                         "--psf-oversize", "2", "--cell-size", repr(cell_arcsec), *on]), dev, steps)
-    stats = dict(TI.IMAGER_STATS)
-    steps["imager"].update(route=stats["route"], plan_seconds=stats["plan_seconds"], grid_seconds=stats["grid_seconds"],
-                           w_support=[[q["image"]["w_support"], q["psf"]["w_support"]] for q in stats["plans"]])
-    require(stats["route"] == "idg" and steps["imager"]["launches"]["patches_from_vals"] > 0, "imager on IDG (B1)")
-    require(len(stats["plans"]) == nband and
-            all(q[k]["w_support"] > 1 for q in stats["plans"] for k in ("image", "psf")),
+    with plans_made(TI) as plans:
+        cli_step("imager", lambda: cli_main(["imager", xds, dt, "--nband", str(nband), "--nx", str(nx),
+                                             "--psf-oversize", "2", "--cell-size", repr(cell_arcsec), *on]), dev, steps)
+    st = steps["imager"]
+    st.update(**command_stats(st, "imager"), plans_wplanes=st["counters"].get("imager.plans.wplanes", 0))
+    require(st["routes"] == {"idg": 1} and st["launches"]["patches_from_vals"] > 0, "imager on IDG (B1)")
+    require(st["counters"]["imager.plans"] == 2 * nband == st["plans_wplanes"],
             "imager: every image and PSF plan a wplanes plan")
     tree = TreeStore(dt)
     bands = []
@@ -2210,20 +2175,18 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
                           dirty_peak_offset_px=min(abs(int(peak[0]) - p) + abs(int(peak[1]) - q) for p, q, _ in pix)))
         require(abs(bands[-1]["psf_peak_over_wsum"] - 1.0) <= 1e-4, f"band {b} PSF peak / WSUM = 1")
     emit({"phase": "pipeline", "stage": "imager_checks", "cell_rad": float(tree.attrs["cell_rad"]), "bands": bands,
-          **{k: steps["imager"][k] for k in ("route", "plan_seconds", "grid_seconds", "w_support")}})
+          **{k: steps["imager"][k] for k in ("routes", "plan_seconds", "grid_seconds", "plans_wplanes")}})
     require(bands[0]["dirty_peak_offset_px"] <= 1, "band 0's brightest DIRTY pixel on a true source")
     if keep_imaged is not None:
         shutil.rmtree(keep_imaged, ignore_errors=True)
         shutil.copytree(dt, keep_imaged)
-    kern = {f"{k}_plan": r for k, r in imager_plan_kernels(dev, dt, stats["plans"]).items()}
+    kern = {f"{k}_plan": r for k, r in imager_plan_kernels(dev, dt, plans).items()}
     for k, r in kern.items():
         emit({"phase": "pipeline", "stage": f"kernels_at_imager_{k}", **r})
 
-    for k in TI.RESIDUAL_DISPATCH_STATS:
-        TI.RESIDUAL_DISPATCH_STATS[k] = 0
     cli_step("sara", lambda: cli_main(["sara", dt, "--niter", str(niter), *on]), dev, steps)
-    cyc = list(tdeconv.CYCLE_STATS)
-    steps["sara"].update(rms=[c["rms"] for c in cyc], residual_dispatch=dict(TI.RESIDUAL_DISPATCH_STATS))
+    cyc = steps["sara"]["cycles"]
+    steps["sara"].update(rms=[c["rms"] for c in cyc], residual_dispatch=dispatch_of(steps["sara"]["counters"]))
     emit({"phase": "pipeline", "stage": "sara_checks", "rms": steps["sara"]["rms"],
           "residual_dispatch": steps["sara"]["residual_dispatch"]})
     require(len(cyc) == niter and all(np.isfinite([c["rms"], c["rmax"]]).all() for c in cyc), "sara cycles finite")
@@ -2250,10 +2213,10 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
 
     cli_step("model2comps", lambda: cli_main(["model2comps", dt, "--mds", mds, *on]), dev, steps)
     cell_dt = float(tree.attrs["cell_rad"])
-    cli_step("degrid", lambda: cli_main(["degrid", mds, xds, "--cell-rad", repr(cell_dt), *on]), dev, steps)
-    bins = TD.DEGRID_STATS["bins"]
-    steps["degrid"].update(plan_seconds=TD.DEGRID_STATS["plan_seconds"],
-                           bins=[dict(route=b["route"], w_support=b["w_support"], ngroups=b["ngroups"]) for b in bins])
+    with plans_made(TD) as bins:
+        cli_step("degrid", lambda: cli_main(["degrid", mds, xds, "--cell-rad", repr(cell_dt), *on]), dev, steps)
+    st = steps["degrid"]
+    st.update(**degrid_stats(st), bins=[dict(w_support=b["w_support"], ngroups=b["ngroups"]) for b in bins])
     gd = TreeStore(xds).group("scan0000")
     vis = torch.as_tensor(np.asarray(gd.read("VIS")), device=dev)
     md = torch.as_tensor(np.asarray(gd.read("MODEL_DATA")), device=dev)
@@ -2265,8 +2228,9 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
     dg["bin0_plan_is_band0_image_plan"] = (bins[0]["nbins"], bins[0]["w_support"], bins[0]["ngroups"]) == \
         (im0["nbins"], im0["w_support"], im0["ngroups"])
     emit({"phase": "pipeline", "stage": "degrid_checks", **dg,
-          **{k: steps["degrid"][k] for k in ("plan_seconds", "bins")}})
-    require(all(b["route"] == "idg" and b["w_support"] > 1 for b in bins), "degrid: every bin on wplanes IDG")
+          **{k: st[k] for k in ("plan_seconds", "routes", "bins")}})
+    require(set(st["routes"]) == {"idg"} and st["bins_wplanes"] == st["routes"]["idg"] == len(bins),
+            "degrid: every bin on wplanes IDG")
     require(steps["degrid"]["launches"]["vals_from_patches"] > 0, "B2 launched in degrid")
     require(dg["model_data_finite"] and dg["rms_vis_minus_model"] < dg["rms_vis"], "MODEL_DATA finite, reduces the rms")
     del vis, md
@@ -2274,28 +2238,25 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
     # the imager at its own default cell (the bands' plans mix chirp and
     # wplanes), then one sara cycle on that tree
     dt_def = str(workdir / "sim_I_default.dt")
-    cli_step("imager_default_cell", lambda: cli_main(["imager", xds, dt_def, "--nband", str(nband), "--nx", str(nx),
-                                                      "--psf-oversize", "2", *on]), dev, steps)
-    stats = dict(TI.IMAGER_STATS)
-    steps["imager_default_cell"].update(
-        route=stats["route"], plan_seconds=stats["plan_seconds"], grid_seconds=stats["grid_seconds"],
-        cell_rad=float(TreeStore(dt_def).attrs["cell_rad"]),
-        w_support=[[q["image"]["w_support"], q["psf"]["w_support"]] for q in stats["plans"]])
+    with plans_made(TI) as plans:
+        cli_step("imager_default_cell", lambda: cli_main(["imager", xds, dt_def, "--nband", str(nband), "--nx",
+                                                          str(nx), "--psf-oversize", "2", *on]), dev, steps)
+    st = steps["imager_default_cell"]
+    st.update(**command_stats(st, "imager"), cell_rad=float(TreeStore(dt_def).attrs["cell_rad"]),
+              plans=st["counters"]["imager.plans"], plans_wplanes=st["counters"].get("imager.plans.wplanes", 0))
     emit({"phase": "pipeline", "stage": "imager_default_cell_checks",
-          **{k: steps["imager_default_cell"][k] for k in ("route", "cell_rad", "plan_seconds", "w_support")}})
-    require(stats["route"] == "idg" and steps["imager_default_cell"]["launches"]["patches_from_vals"] > 0,
+          **{k: st[k] for k in ("routes", "cell_rad", "plan_seconds", "plans", "plans_wplanes")}})
+    require(st["routes"] == {"idg": 1} and st["launches"]["patches_from_vals"] > 0,
             "imager at the default cell on IDG (B1)")
     for b in range(nband):
         d = np.asarray(TreeStore(dt_def).group(f"band{b:04d}_time0000").read("DIRTY"))
         require(np.isfinite(d).all(), f"default cell: band {b} DIRTY finite")
-    for k, r in imager_plan_kernels(dev, dt_def, stats["plans"]).items():
+    for k, r in imager_plan_kernels(dev, dt_def, plans).items():
         kern[f"default_cell_{k}_plan"] = r
         emit({"phase": "pipeline", "stage": f"kernels_at_default_cell_imager_{k}_plan", **r})
-    for k in TI.RESIDUAL_DISPATCH_STATS:
-        TI.RESIDUAL_DISPATCH_STATS[k] = 0
     cli_step("sara_default_cell", lambda: cli_main(["sara", dt_def, "--niter", "1", *on]), dev, steps)
-    cyc = list(tdeconv.CYCLE_STATS)
-    disp = dict(TI.RESIDUAL_DISPATCH_STATS)
+    cyc = steps["sara_default_cell"]["cycles"]
+    disp = dispatch_of(steps["sara_default_cell"]["counters"])
     steps["sara_default_cell"].update(rms=[c["rms"] for c in cyc], residual_dispatch=disp)
     emit({"phase": "pipeline", "stage": "sara_default_cell_checks", "rms": steps["sara_default_cell"]["rms"],
           "residual_dispatch": disp})
@@ -2306,7 +2267,7 @@ def phase_pipeline(dev, workdir: Path, nx: int = 2048, nant: int = 64, ntime: in
     kern["default_cell_multiband"] = pipeline_multiband_kernels(dt_def, nband)
     emit({"phase": "pipeline", "stage": "kernels_at_default_cell_sara_multiband_launch",
           **kern["default_cell_multiband"]})
-    total = {name: sum(st["launches"][name] for st in steps.values()) for name in read_counts()}
+    total = {name: sum(st["launches"][name] for st in steps.values()) for name in KERNELS}
     emit({"phase": "pipeline", "stage": "summary", "seconds": sum(st["seconds"] for st in steps.values()),
           "launches": total, "max_memory_allocated": max(st["max_memory_allocated"] for st in steps.values())})
     torch.cuda.empty_cache()
@@ -2389,10 +2350,8 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
 
     from pfb_imaging_tpu_torch import real_dtype, to_device
     from pfb_imaging_tpu_torch.cli import main as cli_main
-    from pfb_imaging_tpu_torch.core import deconv as tdeconv
     from pfb_imaging_tpu_torch.core import hci as THCI
     from pfb_imaging_tpu_torch.core import imager as TI
-    from pfb_imaging_tpu_torch.core import kclean as TK
     from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store
     from pfb_imaging_tpu_torch.ops.gridder import plan_wgridder
     from pfb_imaging_tpu_torch.ops.gridder_idg import _idg_prepare, plan_idg
@@ -2423,7 +2382,7 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
 
     k_clark = copy("kclean_clark.dt")
     cli_step("kclean", lambda: cli_main(["kclean", k_clark, "--niter", "2", *on]), dev, steps, "commands")
-    majors = list(TK.KCLEAN_STATS)
+    majors = steps["kclean"]["cycles"]
     model_off = peak_offset_px(mfs_image(k_clark, "MODEL"), pix)
     steps["kclean"].update(majors=majors, model_mfs_peak_offset_px=model_off)
     emit({"phase": "commands", "stage": "kclean_checks", "rmax0": rmax0, "majors": majors,
@@ -2438,7 +2397,7 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
     k_hog = copy("kclean_hogbom.dt")
     cli_step("kclean_hogbom", lambda: cli_main(["kclean", k_hog, "--niter", "1", "--minor", "hogbom", *on]), dev,
              steps, "commands")
-    majors = list(TK.KCLEAN_STATS)
+    majors = steps["kclean_hogbom"]["cycles"]
     steps["kclean_hogbom"].update(majors=majors)
     emit({"phase": "commands", "stage": "kclean_hogbom_checks", "majors": majors})
     launched("kclean_hogbom")
@@ -2463,7 +2422,7 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
     zero_counts()
     h1 = hessian_vis(plan, x, wgt=w, mask=m)
     torch.cuda.synchronize()
-    h_launches = read_counts()
+    h_launches = read_counts()["launches"]
     h_same = bool(torch.equal(h1, hessian_vis(plan, x, wgt=w, mask=m)))
     require(h_launches["scatter_grid_wstack"] > 0 and h_launches["gather_grid_wstack"] == 0,
             "the classic hessian_vis scatters through B3")
@@ -2488,12 +2447,10 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
     shutil.rmtree(k_clark)
 
     ista = copy("ista.dt")
-    for k in TI.RESIDUAL_DISPATCH_STATS:
-        TI.RESIDUAL_DISPATCH_STATS[k] = 0
     cli_step("deconv_ista", lambda: cli_main(["deconv", ista, "--preset", "ista", "--niter", "1", *on]), dev, steps,
              "commands")
-    cyc = list(tdeconv.CYCLE_STATS)
-    steps["deconv_ista"].update(rms0=rms0, cycles=cyc)
+    cyc = steps["deconv_ista"]["cycles"]
+    steps["deconv_ista"].update(rms0=rms0)
     emit({"phase": "commands", "stage": "deconv_ista_checks", "rms0": rms0, "cycles": cyc})
     launched("deconv_ista")
     require(len(cyc) == 1 and cyc[0]["rms"] < rms0, "deconv --preset ista: the rms falls")
@@ -2509,7 +2466,8 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
     cli_step("hci_init", lambda: cli_main(["init", ms, xds, *on]), dev, steps, "commands")
     cli_step("hci", lambda: cli_main(["hci", xds, cube, "--nx", str(hci_nx), "--freq-chunks", str(hci_chunks), *on]),
              dev, steps, "commands")
-    stats = dict(THCI.HCI_STATS)
+    c = steps["hci"]["counters"]
+    stats = dict(command_stats(steps["hci"], "hci"), tasks=c["hci.tasks"])
     frames = TreeStore(cube).read("CUBE")
     mean_img = frames.mean(axis=(0, 1))
     finite = bool(np.isfinite(mean_img).all())
@@ -2517,7 +2475,7 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
     steps["hci"].update(**stats, cube_shape=list(frames.shape), mean_peak_offset_px=off)
     emit({"phase": "commands", "stage": "hci_checks", **stats, "cube_shape": list(frames.shape), "finite": finite,
           "mean_peak_offset_px": off})
-    require(stats["route"] == "idg" and steps["hci"]["launches"]["patches_from_vals"] == stats["tasks"],
+    require(stats["routes"] == {"idg": 1} and steps["hci"]["launches"]["patches_from_vals"] == stats["tasks"],
             "hci: IDG, one B1 launch a snapshot")
     require(tuple(frames.shape) == (hci_ntime, hci_chunks, hci_nx, hci_nx) and finite, "hci: CUBE finite")
     require(off <= 1, "hci: the time-mean's brightest pixel on a true source")
@@ -2566,7 +2524,7 @@ def phase_commands(dev, workdir: Path, imaged: Path, sky: dict, nant: int = 64, 
     require(rec["b1_rel_vs_f64"] <= 2e-6 and rec["b2_rel_vs_f64"] <= 2e-6, "B1/B2 vs f64 plain at an hci snapshot plan")
     del plan, vals
 
-    total = {name: sum(st["launches"][name] for st in steps.values()) for name in read_counts()}
+    total = {name: sum(st["launches"][name] for st in steps.values()) for name in KERNELS}
     emit({"phase": "commands", "stage": "summary", "seconds": sum(st["seconds"] for st in steps.values()),
           "launches": total, "max_memory_allocated": max(st["max_memory_allocated"] for st in steps.values())})
     TI._PLAN_CACHE.clear()
@@ -2679,12 +2637,12 @@ def idg_runtime_args(dev, imaged: Path, eta: float = 1e-3, seed: int = 47) -> di
     zero_counts()
     hess()
     torch.cuda.synchronize()
-    h_launches = read_counts()
+    h_launches = read_counts()["launches"]
     zero_counts()
     vis2dirty_idg(plan, vc, wm, mask)
     vis2dirty_idg(plan, vc, wm, mask=mask)
     torch.cuda.synchronize()
-    mask_launches = read_counts()
+    mask_launches = read_counts()["launches"]
     h, h2 = hess(), hess()
     comp = hessian_vis_idg(plan, x * beam, wgt_g) / wsum * beam + eta * x
     d_pos, d_kw = vis2dirty_idg(plan, vc, wm, mask), vis2dirty_idg(plan, vc, wm, mask=mask)
@@ -2913,7 +2871,7 @@ def phase_operators(dev, imaged: Path, sky: dict, eta: float = 1e-2, cg_tol: flo
     d24 = vis2dirty_idg(p24, vr, wgt=wm, vis_im=vi)
     m24 = dirty2vis_idg(p24, y[0])
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches = read_counts()["launches"]
     srec = dict(plan_seconds=plan_s, ngroups=p24.ngroups, nbins=p24.nbins, w_support=p24.w_support, nbig=p24.nbig_x,
                 nvis=int(vis.size), launches=launches,
                 dirty_vs_imager_rel=rel_linf_np(d24.double().cpu().numpy(), dirty[0]),
@@ -3101,24 +3059,49 @@ def _tree_cube(dt, name: str = "MODEL") -> np.ndarray:
 
 
 def _sara(dt, dev_s: str, flags: list) -> dict:
-    """``pfb-torch sara --niter 1`` on ``dt`` with launch counts zeroed right
-    before it: seconds, launches, and its cycle's record."""
+    """``pfb-torch sara --niter 1`` on ``dt`` with the counts zeroed right
+    before it: seconds, launches, its cycle's record, and its collectives
+    (count and bytes by kind): the whole run's, and those inside the
+    solver's forward (CG) and backward (PD) calls, the recorder taken
+    around each call."""
+    from collections import Counter
+
     import torch
 
     from pfb_imaging_tpu_torch.cli import main as cli_main
-    from pfb_imaging_tpu_torch.core import deconv as D
+    from pfb_imaging_tpu_torch.deconv.pfb import PFBSolver
+    from pfb_imaging_tpu_torch.utils import profiling
+
+    methods = {name: getattr(PFBSolver, name) for name in ("forward", "backward")}
+    taken = {None: Counter(), "forward": Counter(), "backward": Counter()}  # outside and inside the calls
+
+    def around(name):
+        def call(self, *args):
+            taken[None].update(profiling.take()["counters"])
+            out = methods[name](self, *args)
+            taken[name].update(profiling.take()["counters"])
+            return out
+        return call
 
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    cli_main(["sara", str(dt), "--niter", "1", "--pd-maxit", str(PAR_PD_MAXIT), *flags, "--device", dev_s])
+    for name in methods:
+        setattr(PFBSolver, name, around(name))
+    try:
+        cli_main(["sara", str(dt), "--niter", "1", "--pd-maxit", str(PAR_PD_MAXIT), *flags, "--device", dev_s])
+    finally:
+        for name, method in methods.items():
+            setattr(PFBSolver, name, method)
     torch.cuda.synchronize()
-    cyc = D.CYCLE_STATS[-1]
-    return dict(seconds=time.perf_counter() - t0, launches=read_counts(), rms=cyc["rms"], rmax=cyc["rmax"],
-                model_abs_sum=cyc["model_abs_sum"], cg_iters=cyc["cg_iters"], pd_iters=cyc["pd_iters"],
-                minor_seconds=cyc["minor_seconds"],
-                residual_seconds=cyc["residual_seconds"], mesh=cyc["mesh"], collectives=cyc["collectives"],
-                collectives_cg=cyc["collectives_cg"], collectives_pd=cyc["collectives_pd"])
+    seconds = time.perf_counter() - t0
+    got = read_counts()
+    total = taken[None] + taken["forward"] + taken["backward"] + Counter(got["counters"])
+    (cyc,) = got["cycles"]
+    return dict(seconds=seconds, launches={k: total["launch." + k] for k in KERNELS},
+                **{k: cyc[k] for k in ("rms", "rmax", "cg_iters", "pd_iters", "mesh")},
+                residual_seconds=got["spans"].get("deconv.residual", 0.0), collectives=collectives_of(total),
+                collectives_cg=collectives_of(taken["forward"]), collectives_pd=collectives_of(taken["backward"]))
 
 
 def _par_world1_nccl(rank: int, world: int, workdir: Path, dev_s: str, imaged: str) -> dict:
@@ -3187,11 +3170,11 @@ def _par_two_ranks(rank: int, world: int, workdir: Path, dev_s: str, store: str,
     cli_main(["imager", store, str(dt), "--nband", str(nband), "--nx", str(nx), "--psf-oversize", "2",
               "--cell-size", repr(float(cell_arcsec)), "--device", dev_s])
     torch.cuda.synchronize()
-    st = dict(TI.IMAGER_STATS)
-    img = dict(seconds=time.perf_counter() - t0, launches=read_counts(), route=st["route"],
-               mesh_row_size=st["mesh_row_size"], bands=st["bands"], plan_seconds=st["plan_seconds"],
-               grid_seconds=st["grid_seconds"], wait_seconds=st["wait_seconds"])
-    require(img["route"] == "idg" and img["mesh_row_size"] == 2 and img["launches"]["patches_from_vals"] > 0,
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    (this,) = got["ranks"]
+    img = dict(seconds=wall, launches=got["launches"], **command_stats(got, "imager"), **this)
+    require(img["routes"] == {"idg": 1} and img["mesh_row_size"] == 2 and img["launches"]["patches_from_vals"] > 0,
             "(b): the imager on a 2-rank row mesh, B1 launched")
     ref, got = TreeStore(imaged), TreeStore(str(dt))
     img["products_rel_vs_one_process"] = {
@@ -3276,7 +3259,7 @@ def _par_row_hessian(rank: int, world: int, workdir: Path, dev_s: str, nx: int, 
 
     from pfb_imaging_tpu_torch.ops.hessian import HessianCube
     from pfb_imaging_tpu_torch.opt.pcg import pcg
-    from pfb_imaging_tpu_torch.parallel.mesh import COLLECTIVE_STATS, make_mesh
+    from pfb_imaging_tpu_torch.parallel.mesh import make_mesh
 
     t_start = time.perf_counter()
     dev = torch.device(dev_s)
@@ -3302,10 +3285,10 @@ def _par_row_hessian(rank: int, world: int, workdir: Path, dev_s: str, nx: int, 
         return (time.perf_counter() - t0) * 1e3 / reps
 
     y = hess.dot(x)
-    c0 = {k: dict(v) for k, v in COLLECTIVE_STATS.items()}
+    zero_counts()
     rec = dict(nx=nx, nx_psf=nx_psf, row_size=mesh.row_size, ms_per_apply=wall_ms(lambda: hess.dot(x), 5))
-    rec["collectives_per_apply"] = {k: {f: (v[f] - c0.get(k, {}).get(f, 0)) / 6 for f in ("count", "bytes")}
-                                    for k, v in COLLECTIVE_STATS.items()}
+    rec["collectives_per_apply"] = {k: {f: n / 6 for f, n in v.items()}
+                                    for k, v in collectives_of(read_counts()["counters"]).items()}
     dist.barrier()
     if rank == 0:  # the unsharded operator, alone on the card
         h0 = HessianCube.build(ph, np.ones(1), 1e-3, nx_psf, nx_psf, device=dev)
@@ -3360,7 +3343,7 @@ def phase_parallel(dev, workdir: Path, imaged: Path, store: Path, cell_arcsec: f
     t_bc = time.perf_counter()
     for tag in ("on_a_input", "chained"):
         require(b[0]["sara"][tag]["rms"] == b[1]["sara"][tag]["rms"] and
-                b[0]["sara"][tag]["model_abs_sum"] == b[1]["sara"][tag]["model_abs_sum"] and
+                b[0]["sara"][tag]["tree_model_abs_sum"] == b[1]["sara"][tag]["tree_model_abs_sum"] and
                 np.array_equal(np.load(workdir / f"b_{tag}_model_0.npy"), np.load(workdir / f"b_{tag}_model_1.npy")),
                 f"(b): both ranks report the same rms, model checksum and model ({tag})")
     a = _par_run("a", 1, workdir, dev_s, a=dict(imaged=str(imaged)))["a"]
@@ -3410,40 +3393,96 @@ def k1_chunk_fields(launches: dict, main_asm: dict, wide_asm: dict) -> dict:
                 **{k: main_asm[k] for k in keys}, **{f"{k}_widefield_launch": wide_asm[k] for k in keys})
 
 
-def zero_counts() -> None:
-    """Every kernel's launch count to 0."""
-    from pfb_imaging_tpu_torch.ops import gridder_idg as GI
-    from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
-    from pfb_imaging_tpu_torch.ops import idg_fused as F
-    from pfb_imaging_tpu_torch.ops import psi as PS
+# the kernels whose launches the recorder counts (``launch.<kernel>``)
+KERNELS = (*REPLACES, "idg_chunk_sums")
 
-    for counts in (F.LAUNCHES, GP.LAUNCHES, GI.LAUNCHES, PS.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+
+class Logged(logging.Handler):
+    """The port's log records that carry figures: each major cycle's
+    (``extra={"cycle": ...}``: deconv's and kclean's) and each imager
+    rank's (``extra={"rank": ...}``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        if hasattr(record, "cycle") or hasattr(record, "rank"):
+            self.records.append(record)
+
+
+LOGGED = Logged()
+
+
+def zero_counts() -> None:
+    """The port's recorder on and emptied, the log's figures forgotten:
+    what the port does from here is counted."""
+    from pfb_imaging_tpu_torch.utils import profiling
+
+    for name in ("DECONV", "KCLEAN", "IMAGER"):
+        logging.getLogger(f"pfb_tpu.{name}").addHandler(LOGGED)
+    profiling.enable()
+    profiling.take()
+    LOGGED.records.clear()
 
 
 def read_counts() -> dict:
-    from pfb_imaging_tpu_torch.ops import gridder_idg as GI
-    from pfb_imaging_tpu_torch.ops import gridder_pallas as GP
-    from pfb_imaging_tpu_torch.ops import idg_fused as F
-    from pfb_imaging_tpu_torch.ops import psi as PS
+    """What the port reported since ``zero_counts``, then forgotten: every
+    kernel's launches (``launches``, 0 where it had none), the recorder's
+    ``counters``, the seconds of its spans by name (``spans``), and the
+    log's ``cycles`` and ``ranks``."""
+    from pfb_imaging_tpu_torch.utils import profiling
 
-    return {**F.LAUNCHES, **GP.LAUNCHES, **GI.LAUNCHES, **PS.LAUNCHES}
+    got, recs = profiling.take(), list(LOGGED.records)
+    LOGGED.records.clear()
+    spans: dict = {}
+    for sp in got["spans"]:
+        if sp.end_ns is not None:
+            spans[sp.name] = spans.get(sp.name, 0.0) + (sp.end_ns - sp.start_ns) / 1e9
+    c = got["counters"]
+    return dict(launches={k: c.get("launch." + k, 0) for k in KERNELS}, counters=c, spans=spans,
+                cycles=[r.cycle for r in recs if hasattr(r, "cycle")],
+                ranks=[r.rank for r in recs if hasattr(r, "rank")])
 
 
-def device_busy_ms(prof) -> float:
-    """Union of the device-side intervals (kernels, copies) of a
-    ``torch.profiler`` trace, in ms: the time the card was doing anything."""
-    import torch
+def under(d: dict, prefix: str) -> dict:
+    """The entries of ``d`` whose names start with ``prefix``, by the rest."""
+    return {k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)}
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy / 1e3
+
+def collectives_of(counters: dict) -> dict:
+    """The collectives counted (``collective.<kind>``, ``.bytes``): {kind:
+    {"count", "bytes"}}."""
+    return {k: {"count": v, "bytes": counters[f"collective.{k}.bytes"]}
+            for k, v in under(counters, "collective.").items() if not k.endswith(".bytes")}
+
+
+def dispatch_of(counters: dict) -> dict:
+    """The residual's routes: partitions on the multiband route, bands that
+    fell back to the per-band one."""
+    return {k: counters.get(f"residual.{k}", 0) for k in ("multiband_parts", "fallback_bands")}
+
+
+def command_stats(got: dict, command: str) -> dict:
+    """``command``'s phases in seconds (its spans ``<command>.<phase>``) and
+    its routes (``<command>.route.<route>``), from ``read_counts``."""
+    return dict({f"{k}_seconds": v for k, v in under(got["spans"], command + ".").items()},
+                routes=under(got["counters"], command + ".route."))
+
+
+def degrid_stats(got: dict) -> dict:
+    """``command_stats`` of degrid, its visibilities and its bins on
+    wplanes IDG plans."""
+    c = got["counters"]
+    return dict(command_stats(got, "degrid"), nvis=c["degrid.nvis"], bins_wplanes=c.get("degrid.bins.wplanes", 0))
+
+
+def busy_ms(prof) -> float:
+    """The time the card was doing anything in a ``torch.profiler`` trace,
+    in ms (``utils.profiling.device_busy``)."""
+    from pfb_imaging_tpu_torch.utils.profiling import device_busy
+
+    return sum(e - s for s, e in device_busy(prof)) / 1e6
 
 
 def top_device_ops(prof, n: int = 6) -> list:
@@ -3486,7 +3525,7 @@ def device_ms_by_family(fn, reps: int = 3) -> dict:
         us = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
         key = e.key.lower()
         fam[next((n for n, k in KERNEL_FAMILIES if k in key), "other")] += us / 1e3 / reps
-    return dict(ms_per_call=fam, device_busy_ms_per_call=device_busy_ms(prof) / reps, top_kernels=top_device_ops(prof, 8))
+    return dict(ms_per_call=fam, device_busy_ms_per_call=busy_ms(prof) / reps, top_kernels=top_device_ops(prof, 8))
 
 
 def phase_profile(dev, dt_path: Path, lam: float, iters: int = 20):
@@ -3553,7 +3592,7 @@ def phase_profile(dev, dt_path: Path, lam: float, iters: int = 20):
             fn()
             torch.cuda.synchronize()
             wall_prof = (time.perf_counter() - t0) * 1e3
-        busy = device_busy_ms(prof)
+        busy = busy_ms(prof)
         rec.update({f"{name}_iter_wall_ms": wall / iters, f"{name}_iter_device_busy_ms": busy / iters,
                     f"{name}_idle_share": max(0.0, 1.0 - busy / wall), f"{name}_profiled_wall_ms": wall_prof,
                     f"{name}_top_kernels": top_device_ops(prof)})

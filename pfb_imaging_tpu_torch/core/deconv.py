@@ -14,7 +14,8 @@ Behaviour kept from the JAX ``deconv``:
     multiband route first (``residual_from_parts_multiband``, one B1 and one
     B2 launch per partition for all its bands); the bands that fall back run
     ``residual_from_parts`` one by one, all queued on the device before any
-    is fetched. ``RESIDUAL_DISPATCH_STATS`` counts both;
+    is fetched. The recorder counts both (``residual.multiband_parts``,
+    ``residual.fallback_bands``);
   * the mesh (``use_mesh``, the default as in JAX): a band x row mesh over
     every rank (``parallel/mesh.py``). The band axis is the largest divisor
     of the band count that is at most the world size; ranks the band axis
@@ -29,9 +30,11 @@ Behaviour kept from the JAX ``deconv``:
     every cycle. A rank outside the mesh (the world not a whole number of
     band x row grids) takes part in the gathers and sums only. Without
     the mesh, several ranks each run the whole solver and split the
-    residual's bands by node, then by local rank. ``CYCLE_STATS`` holds
-    each cycle's collectives (count and bytes by kind): the whole cycle's,
-    the forward CG's and the backward primal-dual's.
+    residual's bands by node, then by local rank.
+
+Each cycle's log line carries the cycle's figures as ``extra={"cycle":
+...}``: its number, lam, rms, rmax, the CG and PD iterations, the mesh, its
+seconds, the model fit's and the tree write's, and the bytes written.
 """
 
 from __future__ import annotations
@@ -39,26 +42,19 @@ from __future__ import annotations
 import time
 
 import numpy as np
-import torch
 
 from .. import checked_real_dtype, resolve_device, to_device, to_host
 from ..deconv.presets import PRESETS
 from ..parallel import multihost as mh
 from ..parallel.fft import psfhat_transposed
-from ..parallel.mesh import COLLECTIVE_STATS, band_sharding, make_mesh, shard_cube, stream_band_stack
+from ..parallel.mesh import band_sharding, make_mesh, shard_cube, stream_band_stack
 from ..utils.logging import get_logger
 from ..utils.modelspec import eval_coeffs_to_cube, fit_image_cube, save_mds
 from ..utils.profiling import count, memory_line, span
 from ..utils.store import TreeStore, require_complete
-from .imager import RESIDUAL_DISPATCH_STATS, residual_from_parts, residual_from_parts_multiband
+from .imager import residual_from_parts, residual_from_parts_multiband
 
 log = get_logger("DECONV")
-
-# per-cycle telemetry of the last ``deconv`` call (read by chip_smoke.py):
-# one dict per major cycle with seconds (the cycle to its residual; the
-# minor cycle, the model fit, the residual, the tree write), the bytes
-# written, rms, rmax, lam and iteration counts
-CYCLE_STATS: list = []
 
 
 def deconv(
@@ -97,7 +93,6 @@ def deconv(
     no fallback to the CPU."""
     rdt = checked_real_dtype(device, double_precision)
     dev = resolve_device(device)
-    CYCLE_STATS.clear()
     distributed, me = mh.is_distributed(), mh.rank()
     dt = TreeStore(dt_path, mode="w")
     require_complete(dt)
@@ -234,38 +229,28 @@ def deconv(
     def gather(t):
         return mh.host_gather(t, mesh, (nband, nx, ny)).astype(np.float64)
 
-    def collectives():
-        return {kind: dict(v) for kind, v in COLLECTIVE_STATS.items()}
-
-    def since(c0, c1):
-        return {kind: {f: v[f] - c0.get(kind, {}).get(f, 0) for f in ("count", "bytes")} for kind, v in c1.items()}
-
     for k in range(iter0, iter0 + niter):
         with span("deconv.cycle"):
             t0 = time.perf_counter()
-            coll0 = collectives()
             rin = residual if band_beam is None else residual * band_beam
             upd_t = mdl_t = None
             with span("deconv.forward"):
                 if solver is not None:
                     solver.first(shard_cube(mesh, rin / wsum, device=dev, dtype=rdt))
                     upd_t = solver.forward(None)
-                coll_cg = collectives()
                 update = gather(upd_t)
             lam = (init_factor if (iter0 == 0 and k == 0) else 1.0) * rmsfactor * rms  # D5
             with span("deconv.backward"):
-                coll_pd0 = collectives()
                 if solver is not None:
                     mdl_t = solver.backward(lam)
                     solver.last()
-                coll_pd = collectives()
                 model = gather(mdl_t)
                 iters = [int(getattr(solver.forward_alg, "niter_last", -1)), int(getattr(bwd, "niter_last", -1)),
                          solver.hess_norm] if solver is not None else [0, 0, 0.0]
                 if distributed:  # rank 0's counts on every rank
                     iters = mh.allsum(np.asarray(iters if me == 0 else [0, 0, 0.0], dtype=np.float64)).tolist()
-            t_minor = time.perf_counter() - t0
 
+            t1 = time.perf_counter()
             with span("deconv.fit"):
                 if fit_mds and model.any():
                     times_u = np.asarray(node_times).reshape(nband_f, ntime)[0]
@@ -277,8 +262,8 @@ def deconv(
                         save_mds(TreeStore(str(dt.path).replace(".dt", ".mds"), mode="w"), coeffs, ix, iy, mattrs)
                     mcube = eval_coeffs_to_cube(times_u, freqs_u, coeffs, ix, iy, mattrs)
                     model = mcube.transpose(1, 0, 2, 3).reshape(nband, nx, ny)
+            fit_seconds = time.perf_counter() - t1
 
-            t1 = time.perf_counter()
             with span("deconv.residual"):
                 by_time: dict = {}
                 for b, key in enumerate(band_nodes):
@@ -293,7 +278,7 @@ def deconv(
                         queued.append((idxs, out))
                     else:
                         serial.extend(items)
-                RESIDUAL_DISPATCH_STATS["fallback_bands"] += len(serial)
+                count("residual.fallback_bands", len(serial))
                 queued += [([b], residual_from_parts(dt.group(key), model[b], epsilon=epsilon,
                                                      do_wgridding=do_wgridding, as_device=True, device=dev)[None])
                            for b, key in serial]
@@ -304,19 +289,14 @@ def deconv(
                     keep = np.zeros(nband)
                     keep[list(owned)] = 1.0
                     residual = mh.allsum(residual * keep[:, None, None])
-            t_resid = time.perf_counter() - t1
 
             rms_p, rmax_p = rms, rmax
             mfs = residual.sum(axis=0) / wsum
             rms, rmax = float(np.std(mfs)), float(np.abs(mfs).max())
             hess_norm_k = iters[2]
-            stats = dict(iter=k + 1, seconds=time.perf_counter() - t0, minor_seconds=t_minor,
-                         fit_seconds=t1 - t0 - t_minor, residual_seconds=t_resid, lam=lam, rms=rms, rmax=rmax,
-                         model_abs_sum=float(np.abs(model).sum()), cg_iters=int(iters[0]), pd_iters=int(iters[1]),
-                         residual_dispatch=dict(RESIDUAL_DISPATCH_STATS),
-                         mesh=None if mesh is None else dict(mesh.shape, in_mesh=mesh.in_mesh),
-                         collectives=since(coll0, collectives()), collectives_cg=since(coll0, coll_cg),
-                         collectives_pd=since(coll_pd0, coll_pd))
+            cycle = dict(iter=k + 1, seconds=time.perf_counter() - t0, fit_seconds=fit_seconds, lam=lam, rms=rms,
+                         rmax=rmax, cg_iters=int(iters[0]), pd_iters=int(iters[1]),
+                         mesh=None if mesh is None else dict(mesh.shape, in_mesh=mesh.in_mesh))
 
             if rms < best_rms:
                 best_rms = rms
@@ -338,11 +318,10 @@ def deconv(
                         nbytes += np.asarray(a).nbytes
                     node.set_attrs(niters=k + 1, rms=rms, rmax=rmax, hess_norm=hess_norm_k)
                 count("deconv.write_bytes", nbytes)
-            stats.update(write_seconds=time.perf_counter() - t2, write_bytes=nbytes)
-            CYCLE_STATS.append(stats)
+            cycle.update(write_seconds=time.perf_counter() - t2, write_bytes=nbytes)
             log.info("iter %d: lam=%.3e rms=%.3e rmax=%.3e cg=%d pd=%d (%.2f s; fit %.2f s, write %.2f s %.1f MB) "
-                     "[%s]", k + 1, lam, rms, rmax, stats["cg_iters"], stats["pd_iters"], stats["seconds"],
-                     stats["fit_seconds"], stats["write_seconds"], nbytes / 1e6, memory_line())
+                     "[%s]", k + 1, lam, rms, rmax, cycle["cg_iters"], cycle["pd_iters"], cycle["seconds"],
+                     fit_seconds, cycle["write_seconds"], nbytes / 1e6, memory_line(), extra={"cycle": cycle})
             mh.barrier(f"deconv-iter-{k}")
 
             if rms > rms_p and rmax > rmax_p:

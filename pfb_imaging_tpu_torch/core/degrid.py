@@ -18,11 +18,15 @@ CPU, f32 on the card, where the IDG kernels are f32-only). "pallas" plans
 in f32 on every device: its gather is f32-only. The JAX ``degrid`` builds
 this route's plan without a dtype, so its plan is f64 and its own
 ``_require_f32`` always refuses it; the port repairs that on purpose.
+
+The recorder (``utils/profiling``) counts each bin's route
+(``degrid.route.<route>``), the bins on wplanes IDG plans
+(``degrid.bins.wplanes``) and the visibilities (``degrid.nvis``), and
+times the planning, each model render, each prediction and each write
+(spans ``degrid.plan``, ``.render``, ``.predict``, ``.write``).
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from ..ops.gridder_pallas import dirty2vis_scatter
 from ..utils.logging import get_logger
 from ..utils.modelspec import eval_coeffs_to_slice, load_mds
 from ..utils.msv4 import open_msv4
+from ..utils.profiling import count, span
 from ..utils.regions import region_masks
 from ..utils.stokes import _STOKES_IDX, stokes_to_corr
 from ..utils.store import TreeStore
@@ -44,8 +49,6 @@ log = get_logger("DEGRID")
 # occupancy budget for auto IDG routing (the same bound as the imager's)
 IDG_MAX_SLOT_FACTOR = 8.0
 GRIDDERS = ("auto", "idg", "stack", "pallas")
-# telemetry of the last ``degrid`` call (read by chip_smoke.py)
-DEGRID_STATS: dict = {}
 
 
 def _open_target(ms_path):
@@ -133,9 +136,6 @@ def degrid(
     use_pallas = gridder == "pallas"
     want_idg = not use_pallas and (gridder == "idg" or (gridder == "auto" and epsilon >= IDG_MIN_EPS))
     rdt = torch.float32 if use_pallas else real_dtype(dev)
-    DEGRID_STATS.clear()
-    DEGRID_STATS.update(plan_seconds=0.0, render_seconds=0.0, predict_seconds=0.0, write_seconds=0.0, nvis=0,
-                        bins=[])
 
     products = mds_paths if mds_paths is not None else {"I": mds_path}
     models = {p: load_mds(TreeStore(path)) for p, path in products.items()}
@@ -157,76 +157,70 @@ def degrid(
         which = np.clip(np.digitize(freqs, edges) - 1, 0, nbin - 1)
 
         # one plan per freq bin, shared by every mask and product render
-        t0 = time.perf_counter()
-        plans = {}
-        for bin_id in range(nbin):
-            chans = np.where(which == bin_id)[0]
-            if chans.size == 0:
-                continue
-            kw = dict(nx=nx, ny=ny, cellx=cell_rad, celly=cell_rad, l0=g.attrs.get("l0", 0.0),
-                      m0=g.attrs.get("m0", 0.0), epsilon=epsilon, do_wgridding=do_wgridding, divide_by_n=False,
-                      dtype=rdt, device=dev)
-            plan = None
-            if want_idg:
-                try:
-                    cap = IDG_MAX_SLOT_FACTOR if gridder == "auto" else None
-                    plan = plan_idg(uvw, freqs[chans], max_slot_factor=cap, **kw)
-                except ValueError as e:
-                    if gridder == "idg":
-                        raise
-                    log.info("degrid %s bin %d: %s", key, bin_id, e)
-            is_idg = plan is not None
-            if not is_idg:
-                plan = plan_wgridder(uvw, freqs[chans], **kw)
-            route = "idg" if is_idg else ("pallas" if use_pallas else "stack")
-            plans[bin_id] = (plan, route, chans)
-            shape = {"nbins": plan.nbins, "w_support": plan.w_support, "ngroups": plan.ngroups} if is_idg \
-                else {"nw": plan.nw}
-            DEGRID_STATS["bins"].append(dict(part=key, bin=bin_id, route=route, nvis=uvw.shape[0] * chans.size,
-                                             **shape))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        DEGRID_STATS["plan_seconds"] += time.perf_counter() - t0
-        DEGRID_STATS["nvis"] += uvw.shape[0] * freqs.size
+        with span("degrid.plan"):
+            plans = {}
+            for bin_id in range(nbin):
+                chans = np.where(which == bin_id)[0]
+                if chans.size == 0:
+                    continue
+                kw = dict(nx=nx, ny=ny, cellx=cell_rad, celly=cell_rad, l0=g.attrs.get("l0", 0.0),
+                          m0=g.attrs.get("m0", 0.0), epsilon=epsilon, do_wgridding=do_wgridding, divide_by_n=False,
+                          dtype=rdt, device=dev)
+                plan = None
+                if want_idg:
+                    try:
+                        cap = IDG_MAX_SLOT_FACTOR if gridder == "auto" else None
+                        plan = plan_idg(uvw, freqs[chans], max_slot_factor=cap, **kw)
+                    except ValueError as e:
+                        if gridder == "idg":
+                            raise
+                        log.info("degrid %s bin %d: %s", key, bin_id, e)
+                is_idg = plan is not None
+                if not is_idg:
+                    plan = plan_wgridder(uvw, freqs[chans], **kw)
+                route = "idg" if is_idg else ("pallas" if use_pallas else "stack")
+                plans[bin_id] = (plan, route, chans)
+                count("degrid.route." + route)
+                if is_idg and plan.w_support > 1:
+                    count("degrid.bins.wplanes")
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        count("degrid.nvis", uvw.shape[0] * freqs.size)
 
         for mi, mask in enumerate(masks):
             stokes = {}  # Stokes index -> (nrow, nfreq) complex prediction
             for bin_id, (plan, route, chans) in plans.items():
                 fc = float(freqs[chans].mean())
                 for p, (coeffs, ix, iy, ma) in models.items():
-                    t0 = time.perf_counter()
-                    img = eval_coeffs_to_slice(ttime, fc, coeffs, ix, iy, ma)
-                    if mask is not None:
-                        img = img * mask
-                    img = torch.from_numpy(img).to(device=dev, dtype=rdt)
-                    t1 = time.perf_counter()
-                    if route == "idg":
-                        mv = dirty2vis_idg(plan, img)
-                    elif route == "pallas":
-                        mv = dirty2vis_scatter(plan, img)
-                    else:
-                        mv = dirty2vis(plan, img)
-                    mv = mv.cpu().numpy()  # ends in a device sync
-                    t2 = time.perf_counter()
+                    with span("degrid.render"):
+                        img = eval_coeffs_to_slice(ttime, fc, coeffs, ix, iy, ma)
+                        if mask is not None:
+                            img = img * mask
+                        img = torch.from_numpy(img).to(device=dev, dtype=rdt)
+                    with span("degrid.predict"):
+                        if route == "idg":
+                            mv = dirty2vis_idg(plan, img)
+                        elif route == "pallas":
+                            mv = dirty2vis_scatter(plan, img)
+                        else:
+                            mv = dirty2vis(plan, img)
+                        mv = mv.cpu().numpy()  # ends in a device sync
                     s = _STOKES_IDX[p]
                     if s not in stokes:
                         stokes[s] = np.zeros((uvw.shape[0], freqs.size), np.complex128)
                     stokes[s][:, chans] = mv
-                    DEGRID_STATS["render_seconds"] += t1 - t0
-                    DEGRID_STATS["predict_seconds"] += t2 - t1
-            t0 = time.perf_counter()
-            zeros = np.zeros((uvw.shape[0], freqs.size), np.complex128)
-            if to_corr:
-                out = stokes_to_corr(np.stack([stokes.get(s, zeros) for s in range(4)]), feed_type=feed_type,
-                                     ncorr=ncorr)
-            else:
-                out = stokes.get(0, zeros)
-            col = column if mi == 0 else f"{column}{mi}"
-            if is_msv4:
-                g.write_column(col, out)
-            else:
-                g.write(col, out)
-            DEGRID_STATS["write_seconds"] += time.perf_counter() - t0
+            with span("degrid.write"):
+                zeros = np.zeros((uvw.shape[0], freqs.size), np.complex128)
+                if to_corr:
+                    out = stokes_to_corr(np.stack([stokes.get(s, zeros) for s in range(4)]), feed_type=feed_type,
+                                         ncorr=ncorr)
+                else:
+                    out = stokes.get(0, zeros)
+                col = column if mi == 0 else f"{column}{mi}"
+                if is_msv4:
+                    g.write_column(col, out)
+                else:
+                    g.write(col, out)
             log.info("degrid: wrote %s (%s) for %s", col, "".join(products), key)
     if is_msv4:
         consolidate(ms_path)

@@ -8,11 +8,12 @@ IDG (B1; B2 for an injection) is the operator wherever its envelope covers
 ``epsilon``, planned in the device's type (the card's IDG is f32-only);
 otherwise the classic ES w-stacking gridder. As in the JAX package there is
 no fallback when the IDG planner refuses a snapshot: its error propagates.
+The recorder counts the call's route (``hci.route.<route>``) and its
+snapshots (``hci.tasks``), and times each snapshot's plan (``hci.plan``).
 """
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -24,12 +25,10 @@ from ..models.transients import transient_spectrum
 from ..ops import gridder as classic
 from ..ops import gridder_idg as idg
 from ..utils.logging import get_logger
+from ..utils.profiling import count, span
 from ..utils.store import TreeStore
 
 log = get_logger("HCI")
-
-# telemetry of the last ``hci`` call (read by chip_smoke.py)
-HCI_STATS: dict = {}
 
 
 def hci(xds_path, output_store, nx: int = 128, cell_rad: float | None = None, freq_chunks: int = 1,
@@ -41,7 +40,6 @@ def hci(xds_path, output_store, nx: int = 128, cell_rad: float | None = None, fr
     + WSUM with ``per_scan_products``) to ``output_store``; returns it."""
     dev = resolve_device(device)
     rdt = real_dtype(dev)
-    t_start = time.perf_counter()
     xds = TreeStore(xds_path)
     cell = cell_rad or xds.attrs["cell_rad"]
     keys = xds.groups()
@@ -57,10 +55,8 @@ def hci(xds_path, output_store, nx: int = 128, cell_rad: float | None = None, fr
     wsums = np.zeros((ntime, freq_chunks))
     times = np.zeros(ntime)
     flags = np.zeros((ntime, freq_chunks), dtype=np.uint8)
-    plan_seconds = []
 
     def _prepare(t, c):
-        t0 = time.perf_counter()
         chans = splits[c]
         g = xds.group(keys[t])
         uvw = np.asarray(g.read("UVW"))
@@ -68,12 +64,14 @@ def hci(xds_path, output_store, nx: int = 128, cell_rad: float | None = None, fr
         vis = np.asarray(g.read("VIS"))[:, chans]
         wgt = np.asarray(g.read("WEIGHT"))[:, chans]
         mask = np.asarray(g.read("MASK"))[:, chans]
-        plan = planner(uvw, freqs, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=epsilon, do_wgridding=do_wgridding,
-                       divide_by_n=False, dtype=rdt, device=dev)
-        plan_seconds.append(time.perf_counter() - t0)
+        with span("hci.plan"):
+            plan = planner(uvw, freqs, nx=nx, ny=nx, cellx=cell, celly=cell, epsilon=epsilon,
+                           do_wgridding=do_wgridding, divide_by_n=False, dtype=rdt, device=dev)
         return t, c, g.attrs.get("time", float(t)), freqs, vis, wgt, mask, plan
 
     tasks = [(t, c) for t in range(ntime) for c in range(freq_chunks) if splits[c].size]
+    count("hci.route." + ("idg" if use_idg else "stack"))
+    count("hci.tasks", len(tasks))
     scan_dirty = np.zeros((ntime, nx, nx)) if per_scan_products else None
     window = max(2, min(plan_threads, 4))
     with ThreadPoolExecutor(max_workers=max(1, plan_threads)) as pool:
@@ -121,8 +119,5 @@ def hci(xds_path, output_store, nx: int = 128, cell_rad: float | None = None, fr
             sg.write("DIRTY", scan_dirty[t])
             sg.write("WSUM", np.asarray([wsums[t].sum()]))
             sg.set_attrs(time=float(times[t]))
-    HCI_STATS.clear()
-    HCI_STATS.update(route="idg" if use_idg else "stack", tasks=len(tasks), plan_seconds=sum(plan_seconds),
-                     seconds=time.perf_counter() - t_start)
     log.info("hci cube %s written", output_store)
     return out

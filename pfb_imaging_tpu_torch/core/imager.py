@@ -40,7 +40,6 @@ layout does not qualify, and the caller then goes band by band.
 
 from __future__ import annotations
 
-import time
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -75,13 +74,6 @@ _PLAN_CACHE_CAP = 256
 # byte-bounded LRU: a plan for ~4M visibilities holds ~0.3 GB of device tensors
 _PLAN_CACHE_BYTES_CAP = 32 << 30
 _PLAN_CACHE_BYTES = 0
-# residual planning telemetry (read by chip_smoke.py): plans built and their seconds
-PLAN_STATS = {"plans": 0, "seconds": 0.0}
-# which residual route ran (as in the JAX package): partitions taken by the
-# multiband route, and bands that fell back to ``residual_from_parts``
-RESIDUAL_DISPATCH_STATS = {"multiband_parts": 0, "fallback_bands": 0}
-# telemetry of the last ``imager`` call (read by chip_smoke.py)
-IMAGER_STATS: dict = {}
 
 
 def band_mapping(freqs: np.ndarray, nband: int):
@@ -152,10 +144,6 @@ def imager(
         rdt = real_dtype(dev)
     else:
         rdt = torch.float64 if double_precision else torch.float32
-    t_start = time.perf_counter()
-    IMAGER_STATS.clear()
-    IMAGER_STATS.update(plan_seconds=0.0, grid_seconds=0.0, wait_seconds=0.0, write_seconds=0.0,
-                        model_seconds=0.0, nvis=0, plans=[])
 
     xds = TreeStore(xds_path)
     attrs = xds.attrs
@@ -180,22 +168,22 @@ def imager(
     out.set_attrs(complete=False)
 
     # ── pass 1: counts over all partitions per band ──────────────────
-    t0 = time.perf_counter()
-    counts_per_band = [np.zeros((1, nx_psf, ny_psf)) for _ in range(nband)]
-    if robustness is not None:
-        for key in parts:
-            g = xds.group(key)
-            uvw = np.asarray(g.read("UVW"))
-            f = np.asarray(g.read("FREQ"))
-            wgt = np.asarray(g.read("WEIGHT"))
-            mask = np.asarray(g.read("MASK"))
-            for b, chans in enumerate(bands):
-                if chans.size:
-                    counts_per_band[b] += np.asarray(compute_counts(uvw, f[chans], mask[:, chans], wgt[None, :, chans],
-                                                                    nx_psf, ny_psf, cell_rad, cell_rad))
-        counts_per_band = [np.asarray(box_sum_counts(filter_extreme_counts(c, level=counts_level), super_uniform_pix))
-                           for c in counts_per_band]
-    IMAGER_STATS["counts_seconds"] = time.perf_counter() - t0
+    with span("imager.counts"):
+        counts_per_band = [np.zeros((1, nx_psf, ny_psf)) for _ in range(nband)]
+        if robustness is not None:
+            for key in parts:
+                g = xds.group(key)
+                uvw = np.asarray(g.read("UVW"))
+                f = np.asarray(g.read("FREQ"))
+                wgt = np.asarray(g.read("WEIGHT"))
+                mask = np.asarray(g.read("MASK"))
+                for b, chans in enumerate(bands):
+                    if chans.size:
+                        counts_per_band[b] += np.asarray(compute_counts(uvw, f[chans], mask[:, chans],
+                                                                        wgt[None, :, chans], nx_psf, ny_psf,
+                                                                        cell_rad, cell_rad))
+            counts_per_band = [np.asarray(box_sum_counts(filter_extreme_counts(c, level=counts_level),
+                                                         super_uniform_pix)) for c in counts_per_band]
 
     # ── routing ──────────────────────────────────────────────────────
     use_pallas = gridder == "pallas"
@@ -221,7 +209,7 @@ def imager(
     route = "pallas" if use_pallas else ("idg" if use_idg else "stack")
     if route == "idg" and dev.type == "cuda" and rdt == torch.float64:
         raise ValueError("the IDG kernels on the card are f32-only; pass double_precision=False")
-    IMAGER_STATS["route"] = route
+    count("imager.route." + route)
 
     # ── several ranks: bands by node, the node's ranks as a row mesh ──
     distributed, me = mh.is_distributed(), mh.rank()
@@ -231,54 +219,52 @@ def imager(
     mesh = make_mesh(band=1, row=lws) if use_mesh and use_idg else None
     my_bands = set(mh.owned_items(range(nband)) if mesh is not None else mh.rank_items(range(nband)))
     writer = mesh is None or mesh.row_index == 0  # one writer a band node
-    IMAGER_STATS.update(mesh_row_size=1 if mesh is None else mesh.row_size, bands=sorted(my_bands))
-    if distributed:
-        log.info("rank %d (node %d of %d): bands %s, %s", me, mh.process_index(), mh.process_count(),
-                 sorted(my_bands), f"{mesh.row_size}-way row mesh" if mesh is not None else "no mesh")
+    rank = dict(mesh_row_size=1 if mesh is None else mesh.row_size, bands=sorted(my_bands))
+    log.info("rank %d (node %d of %d): bands %s, %s", me, mh.process_index(), mh.process_count(), rank["bands"],
+             f"{mesh.row_size}-way row mesh" if mesh is not None else "no mesh", extra={"rank": rank})
 
     def _prepare_task(b, ip, key):
         """Read, weight and plan one (band, partition): host work plus the
         plans' transfer, run on the pool while the card grids."""
-        t0 = time.perf_counter()
-        chans = bands[b]
-        g = xds.group(key)
-        uvw = np.asarray(g.read("UVW"))
-        f = np.asarray(g.read("FREQ"))[chans]
-        vis = np.asarray(g.read("VIS"))[:, chans]
-        wgt = np.asarray(g.read("WEIGHT"))[:, chans]
-        mask = np.asarray(g.read("MASK"))[:, chans]
-        l0 = g.attrs.get("l0", 0.0)
-        m0 = g.attrs.get("m0", 0.0)
-        if robustness is not None:
-            wgt = np.asarray(counts_to_weights(counts_per_band[b], uvw, f, wgt[None], mask, nx_psf, ny_psf, cell_rad,
-                                               cell_rad, robustness))[0]
-        kw = dict(cellx=cell_rad, celly=cell_rad, l0=l0, m0=m0, epsilon=epsilon, do_wgridding=do_wgridding,
-                  divide_by_n=False, dtype=rdt, device=dev)
-        if mesh is not None:
-            # this rank's share of the rows, zero rows padding them to a
-            # multiple of the row size, on the layout every share has
-            d = mesh.row_size
-            pad = (-uvw.shape[0]) % d
-            uvw_p = np.concatenate([uvw, np.zeros((pad, 3))]) if pad else uvw
-            plan_im = plan_idg_sharded(uvw_p, f, d, mesh.row_index, nx=nx_im, ny=ny_im, **kw) + (pad,)
-            plan_psf = plan_idg_sharded(uvw_p, f, d, mesh.row_index, nx=nx_psf, ny=ny_psf, **kw) + (pad,)
-        else:
-            planner = plan_idg if use_idg else plan_wgridder
-            plan_im = planner(uvw, f, nx=nx_im, ny=ny_im, **kw)
-            plan_psf = planner(uvw, f, nx=nx_psf, ny=ny_psf, **kw)
-        wm = to_device(wgt * mask, dev, rdt)
-        beam_p = None
-        if g.has("BEAM_SMALL"):
-            from ..utils.beam import interp_beam
+        with span("imager.plan"):
+            chans = bands[b]
+            g = xds.group(key)
+            uvw = np.asarray(g.read("UVW"))
+            f = np.asarray(g.read("FREQ"))[chans]
+            vis = np.asarray(g.read("VIS"))[:, chans]
+            wgt = np.asarray(g.read("WEIGHT"))[:, chans]
+            mask = np.asarray(g.read("MASK"))[:, chans]
+            l0 = g.attrs.get("l0", 0.0)
+            m0 = g.attrs.get("m0", 0.0)
+            if robustness is not None:
+                wgt = np.asarray(counts_to_weights(counts_per_band[b], uvw, f, wgt[None], mask, nx_psf, ny_psf,
+                                                   cell_rad, cell_rad, robustness))[0]
+            kw = dict(cellx=cell_rad, celly=cell_rad, l0=l0, m0=m0, epsilon=epsilon, do_wgridding=do_wgridding,
+                      divide_by_n=False, dtype=rdt, device=dev)
+            if mesh is not None:
+                # this rank's share of the rows, zero rows padding them to a
+                # multiple of the row size, on the layout every share has
+                d = mesh.row_size
+                pad = (-uvw.shape[0]) % d
+                uvw_p = np.concatenate([uvw, np.zeros((pad, 3))]) if pad else uvw
+                plan_im = plan_idg_sharded(uvw_p, f, d, mesh.row_index, nx=nx_im, ny=ny_im, **kw) + (pad,)
+                plan_psf = plan_idg_sharded(uvw_p, f, d, mesh.row_index, nx=nx_psf, ny=ny_psf, **kw) + (pad,)
+            else:
+                planner = plan_idg if use_idg else plan_wgridder
+                plan_im = planner(uvw, f, nx=nx_im, ny=ny_im, **kw)
+                plan_psf = planner(uvw, f, nx=nx_psf, ny=ny_psf, **kw)
+            wm = to_device(wgt * mask, dev, rdt)
+            beam_p = None
+            if g.has("BEAM_SMALL"):
+                from ..utils.beam import interp_beam
 
-            lg_im = (np.arange(nx_im) - nx_im // 2) * cell_rad
-            ll, mm = np.meshgrid(lg_im, lg_im, indexing="ij")
-            beam_p = interp_beam(np.asarray(g.read("BEAM_SMALL")), np.asarray(g.read("BEAM_L")),
-                                 np.asarray(g.read("BEAM_M")), ll, mm)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        seconds = time.perf_counter() - t0
-        return b, ip, key, uvw, f, vis, wgt, mask, wm, l0, m0, plan_im, plan_psf, beam_p, seconds
+                lg_im = (np.arange(nx_im) - nx_im // 2) * cell_rad
+                ll, mm = np.meshgrid(lg_im, lg_im, indexing="ij")
+                beam_p = interp_beam(np.asarray(g.read("BEAM_SMALL")), np.asarray(g.read("BEAM_L")),
+                                     np.asarray(g.read("BEAM_M")), ll, mm)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return b, ip, key, uvw, f, vis, wgt, mask, wm, l0, m0, plan_im, plan_psf, beam_p
 
     def shard_rows(a, plan):
         """This rank's share of the rows of (nrow, nchan) ``a``, zero-padded."""
@@ -301,12 +287,15 @@ def imager(
             img = vis2dirty(plan, vr, wgt=wm, vis_im=vi)
         return img.double().cpu().numpy()
 
-    def plan_info(plan):
-        if mesh is not None:
-            plan = plan[0]
+    def count_plans(*plans):
+        """The plans made, and those on w: IDG's wplanes (w_support > 1),
+        the classic w-stack's planes (nw >= 1)."""
+        plans = [p[0] for p in plans] if mesh is not None else plans
+        count("imager.plans", len(plans))
         if use_idg:
-            return {"nbins": plan.nbins, "w_support": plan.w_support, "ngroups": plan.ngroups}
-        return {"nw": plan.nw, "support": plan.support, "nbig": plan.nbig_x}
+            count("imager.plans.wplanes", sum(p.w_support > 1 for p in plans))
+        else:
+            count("imager.plans.wstack", sum(p.nw >= 1 for p in plans))
 
     # time binning: partitions land in ntime contiguous bins over scan time
     part_times = np.asarray([xds.group(k).attrs.get("time", 0.0) for k in parts], dtype=float)
@@ -338,127 +327,117 @@ def imager(
             while ti < len(tasks) and len(pending) < window:
                 pending.append(pool.submit(_prepare_task, *tasks[ti]))
                 ti += 1
-            t0 = time.perf_counter()
-            b, ip, key, uvw, f, vis, wgt, mask, wm, l0, m0, plan_im, plan_psf, beam_p, plan_s = \
-                pending.popleft().result()
-            t1 = time.perf_counter()
+            with span("imager.wait"):
+                b, ip, key, uvw, f, vis, wgt, mask, wm, l0, m0, plan_im, plan_psf, beam_p = pending.popleft().result()
             if model is not None:
-                # residual visibilities, then optional Student-t reweighting
-                img = to_device(eval_coeffs_to_slice(float(part_times[ip]), float(f.mean()), *model), dev, rdt)
-                if mesh is not None:
-                    # each rank degrids its rows; the shares are gathered
-                    _, rows, _ = plan_im
-                    mv = mesh.row_all_gather(sharded_dirty2vis_idg(mesh, plan_im[0], img, axes="row"))
-                    mv = mv.transpose(0, 1).reshape(2, mesh.row_size * rows, -1)[:, : uvw.shape[0]].cpu().numpy()
-                    vis = vis - (mv[0] + 1j * mv[1])
-                else:
-                    vis = vis - (dirty2vis_idg if use_idg else dirty2vis)(plan_im, img).cpu().numpy()
-                if l2_reweight_dof:
-                    wgt = l2_reweight(vis, wgt, mask, l2_reweight_dof)
-                    wm = to_device(wgt * mask, dev, rdt)
-                t2 = time.perf_counter()
-                IMAGER_STATS["model_seconds"] += t2 - t1
-                t1 = t2
-            dirty_p = grid_image(plan_im, vis, wm)
-            psf_p = grid_image(plan_psf, _psf_vis(uvw, f, l0, m0), wm)
-            wsum_p = float(wgt[mask.astype(bool)].sum())
-            if do_noise:
-                # unit-variance noise projected with the same weights
-                nv = nrng.standard_normal(vis.shape) + 1j * nrng.standard_normal(vis.shape)
-                safe_w = np.where(wgt > 0, wgt, 1.0)
-                nv = np.where(wgt > 0, nv / np.sqrt(safe_w), 0.0)
-                noise_acc[b, int(tbin_of[ip])] += grid_image(plan_im, nv, wm)
-            t2 = time.perf_counter()
-            IMAGER_STATS["plan_seconds"] += plan_s
-            IMAGER_STATS["wait_seconds"] += t1 - t0
-            IMAGER_STATS["grid_seconds"] += t2 - t1
-            IMAGER_STATS["nvis"] += vis.size
-            IMAGER_STATS["plans"].append(dict(band=b, part=key, image=plan_info(plan_im), psf=plan_info(plan_psf)))
+                with span("imager.model"):
+                    # residual visibilities, then optional Student-t reweighting
+                    img = to_device(eval_coeffs_to_slice(float(part_times[ip]), float(f.mean()), *model), dev, rdt)
+                    if mesh is not None:
+                        # each rank degrids its rows; the shares are gathered
+                        _, rows, _ = plan_im
+                        mv = mesh.row_all_gather(sharded_dirty2vis_idg(mesh, plan_im[0], img, axes="row"))
+                        mv = mv.transpose(0, 1).reshape(2, mesh.row_size * rows, -1)[:, : uvw.shape[0]].cpu().numpy()
+                        vis = vis - (mv[0] + 1j * mv[1])
+                    else:
+                        vis = vis - (dirty2vis_idg if use_idg else dirty2vis)(plan_im, img).cpu().numpy()
+                    if l2_reweight_dof:
+                        wgt = l2_reweight(vis, wgt, mask, l2_reweight_dof)
+                        wm = to_device(wgt * mask, dev, rdt)
+            with span("imager.grid"):
+                dirty_p = grid_image(plan_im, vis, wm)
+                psf_p = grid_image(plan_psf, _psf_vis(uvw, f, l0, m0), wm)
+                wsum_p = float(wgt[mask.astype(bool)].sum())
+                if do_noise:
+                    # unit-variance noise projected with the same weights
+                    nv = nrng.standard_normal(vis.shape) + 1j * nrng.standard_normal(vis.shape)
+                    safe_w = np.where(wgt > 0, wgt, 1.0)
+                    nv = np.where(wgt > 0, nv / np.sqrt(safe_w), 0.0)
+                    noise_acc[b, int(tbin_of[ip])] += grid_image(plan_im, nv, wm)
+            count("imager.nvis", vis.size)
+            count_plans(plan_im, plan_psf)
             del plan_im, plan_psf, wm
 
-            t0 = time.perf_counter()
-            tb = int(tbin_of[ip])
-            if writer:
-                pg = out.group(band_key(b, tb)).group(part_key(ip))
-                pg.set_attrs(l0=l0, m0=m0, wsum=wsum_p, key=key)
-                pg.write("VIS", vis)
-                pg.write("WEIGHT", wgt)
-                pg.write("MASK", mask)
-                pg.write("UVW", uvw)
-                pg.write("FREQ", f)
-                pg.write("PSF", psf_p)
-                pg.write("PSFHAT", _psfhat(psf_p, dev))
+            with span("imager.write"):
+                tb = int(tbin_of[ip])
+                if writer:
+                    pg = out.group(band_key(b, tb)).group(part_key(ip))
+                    pg.set_attrs(l0=l0, m0=m0, wsum=wsum_p, key=key)
+                    pg.write("VIS", vis)
+                    pg.write("WEIGHT", wgt)
+                    pg.write("MASK", mask)
+                    pg.write("UVW", uvw)
+                    pg.write("FREQ", f)
+                    pg.write("PSF", psf_p)
+                    pg.write("PSFHAT", _psfhat(psf_p, dev))
+                    if beam_p is not None:
+                        pg.write("BEAM", beam_p)
                 if beam_p is not None:
-                    pg.write("BEAM", beam_p)
-            if beam_p is not None:
-                beam_acc[b, tb] += wsum_p * beam_p
-                any_beam = True
-            dirty_acc[b, tb] += dirty_p
-            psf_acc[b, tb] += psf_p
-            wsum_acc[b, tb] += wsum_p
-            IMAGER_STATS["write_seconds"] += time.perf_counter() - t0
+                    beam_acc[b, tb] += wsum_p * beam_p
+                    any_beam = True
+                dirty_acc[b, tb] += dirty_p
+                psf_acc[b, tb] += psf_p
+                wsum_acc[b, tb] += wsum_p
             log.info("gridded band %d %s: wsum=%.3e [%s]", b, key, wsum_p, memory_line())
     finally:
         pool.shutdown(wait=False, cancel_futures=True)
 
-    t0 = time.perf_counter()
-    dirty_mfs = np.zeros((nx_im, ny_im))
-    psf_mfs = np.zeros((nx_psf, ny_psf))
-    wsum_tot = 0.0
-    for b in range(nband):
-        if b not in my_bands or not writer:
-            continue  # another rank writes this band's nodes
-        for tb in range(ntime):
-            node = out.group(band_key(b, tb))
-            dirty_b, psf_b, wsum_b = dirty_acc[b, tb], psf_acc[b, tb], wsum_acc[b, tb]
-            node.write("DIRTY", dirty_b)
-            node.write("PSF", psf_b)
-            node.write("PSFHAT", _psfhat(psf_b, dev))
-            node.write("WSUM", np.asarray([wsum_b]))
-            if do_noise:
-                node.write("NOISE", noise_acc[b, tb])
-            if any_beam:
-                node.write("BEAM", beam_acc[b, tb] / max(wsum_b, 1e-300))
-            node.write("PSFPARSN", np.asarray(fitcleanbeam((psf_b / max(wsum_b, 1e-300))[None])[0]))
-            node.set_attrs(freq_out=freq_out[b], wsum=wsum_b, niters=0, time_out=time_out[tb])
-            dirty_mfs += dirty_b
-            psf_mfs += psf_b
-            wsum_tot += wsum_b
-            log.info("band %d time %d: wsum=%.3e, dirty peak=%.3e", b, tb, wsum_b, dirty_b.max() / max(wsum_b, 1e-300))
-
-    if distributed:
-        # every band node is on disk before rank 0 assembles the MFS products
-        mh.barrier("imager-band-writes")
-        if me != 0:
-            mh.barrier("imager-complete")
-            IMAGER_STATS["seconds"] = time.perf_counter() - t_start
-            return out
-        # the band nodes of every rank, in band order, whoever imaged them
-        dirty_mfs[:], psf_mfs[:], wsum_tot = 0.0, 0.0, 0.0
+    with span("imager.finish"):
+        dirty_mfs = np.zeros((nx_im, ny_im))
+        psf_mfs = np.zeros((nx_psf, ny_psf))
+        wsum_tot = 0.0
         for b in range(nband):
+            if b not in my_bands or not writer:
+                continue  # another rank writes this band's nodes
             for tb in range(ntime):
                 node = out.group(band_key(b, tb))
-                dirty_mfs += np.asarray(node.read("DIRTY"))
-                psf_mfs += np.asarray(node.read("PSF"))
-                wsum_tot += float(np.asarray(node.read("WSUM"))[0])
+                dirty_b, psf_b, wsum_b = dirty_acc[b, tb], psf_acc[b, tb], wsum_acc[b, tb]
+                node.write("DIRTY", dirty_b)
+                node.write("PSF", psf_b)
+                node.write("PSFHAT", _psfhat(psf_b, dev))
+                node.write("WSUM", np.asarray([wsum_b]))
+                if do_noise:
+                    node.write("NOISE", noise_acc[b, tb])
+                if any_beam:
+                    node.write("BEAM", beam_acc[b, tb] / max(wsum_b, 1e-300))
+                node.write("PSFPARSN", np.asarray(fitcleanbeam((psf_b / max(wsum_b, 1e-300))[None])[0]))
+                node.set_attrs(freq_out=freq_out[b], wsum=wsum_b, niters=0, time_out=time_out[tb])
+                dirty_mfs += dirty_b
+                psf_mfs += psf_b
+                wsum_tot += wsum_b
+                log.info("band %d time %d: wsum=%.3e, dirty peak=%.3e", b, tb, wsum_b,
+                         dirty_b.max() / max(wsum_b, 1e-300))
 
-    psfpars = fitcleanbeam((psf_mfs / max(wsum_tot, 1e-300))[None])[0]
-    out.set_attrs(nband=nband, ntime=ntime, nx=nx_im, ny=ny_im, nx_psf=nx_psf, ny_psf=ny_psf, cell_rad=cell_rad,
-                  ra=attrs.get("ra", 0.0), dec=attrs.get("dec", 0.0), freq_out=freq_out, wsum=wsum_tot,
-                  psfpars=list(psfpars), product=attrs.get("product", "I"), complete=True)
+        if distributed:
+            # every band node is on disk before rank 0 assembles the MFS products
+            mh.barrier("imager-band-writes")
+            if me != 0:
+                mh.barrier("imager-complete")
+                return out
+            # the band nodes of every rank, in band order, whoever imaged them
+            dirty_mfs[:], psf_mfs[:], wsum_tot = 0.0, 0.0, 0.0
+            for b in range(nband):
+                for tb in range(ntime):
+                    node = out.group(band_key(b, tb))
+                    dirty_mfs += np.asarray(node.read("DIRTY"))
+                    psf_mfs += np.asarray(node.read("PSF"))
+                    wsum_tot += float(np.asarray(node.read("WSUM"))[0])
 
-    if fits_out:
-        cell_deg = np.rad2deg(cell_rad)
-        radec = (attrs.get("ra", 0.0), attrs.get("dec", 0.0))
-        hdr = set_wcs(cell_deg, cell_deg, nx_im, ny_im, radec, np.asarray(freq_out), gausspar=psfpars)
-        base = str(out.path)[:-3] if str(out.path).endswith(".dt") else str(out.path)
-        save_fits(dirty_mfs / max(wsum_tot, 1e-300), f"{base}_dirty_mfs.fits", hdr)
-        hdr_psf = set_wcs(cell_deg, cell_deg, nx_psf, ny_psf, radec, np.asarray(freq_out))
-        save_fits(psf_mfs / max(wsum_tot, 1e-300), f"{base}_psf_mfs.fits", hdr_psf)
-    if distributed:
-        mh.barrier("imager-complete")
-    IMAGER_STATS["finish_seconds"] = time.perf_counter() - t0
-    IMAGER_STATS["seconds"] = time.perf_counter() - t_start
+        psfpars = fitcleanbeam((psf_mfs / max(wsum_tot, 1e-300))[None])[0]
+        out.set_attrs(nband=nband, ntime=ntime, nx=nx_im, ny=ny_im, nx_psf=nx_psf, ny_psf=ny_psf, cell_rad=cell_rad,
+                      ra=attrs.get("ra", 0.0), dec=attrs.get("dec", 0.0), freq_out=freq_out, wsum=wsum_tot,
+                      psfpars=list(psfpars), product=attrs.get("product", "I"), complete=True)
+
+        if fits_out:
+            cell_deg = np.rad2deg(cell_rad)
+            radec = (attrs.get("ra", 0.0), attrs.get("dec", 0.0))
+            hdr = set_wcs(cell_deg, cell_deg, nx_im, ny_im, radec, np.asarray(freq_out), gausspar=psfpars)
+            base = str(out.path)[:-3] if str(out.path).endswith(".dt") else str(out.path)
+            save_fits(dirty_mfs / max(wsum_tot, 1e-300), f"{base}_dirty_mfs.fits", hdr)
+            hdr_psf = set_wcs(cell_deg, cell_deg, nx_psf, ny_psf, radec, np.asarray(freq_out))
+            save_fits(psf_mfs / max(wsum_tot, 1e-300), f"{base}_psf_mfs.fits", hdr_psf)
+        if distributed:
+            mh.barrier("imager-complete")
     return out
 
 
@@ -529,13 +508,11 @@ def _plan_partition(pg: TreeStore, pk: str, kw: dict, gridder: str, want_idg: bo
 
 
 def _timed_plan(fn, dev):
-    """fn() with its seconds, to the device's sync, added to ``PLAN_STATS``."""
-    t0 = time.perf_counter()
+    """fn(), then the device's sync, so that the enclosing ``residual.plan``
+    span holds the plan's uploads."""
     out = fn()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    PLAN_STATS["plans"] += 1
-    PLAN_STATS["seconds"] += time.perf_counter() - t0
     return out
 
 
@@ -607,8 +584,9 @@ def residual_from_parts_multiband(dt: TreeStore, band_keys: list, model, epsilon
     ``gridder="auto"`` included); the caller then runs
     :func:`residual_from_parts` band by band. Every partition is planned
     before any is computed; a refusal is cached with the plans, so later
-    major cycles decline at once, and ``RESIDUAL_DISPATCH_STATS`` counts the
-    partitions only when the whole slice ran. The beam multiplies the model
+    major cycles decline at once, and the counter
+    ``residual.multiband_parts`` counts the partitions only when the whole
+    slice ran. The beam multiplies the model
     once, as in the per-band route (the JAX multiband route also multiplies
     the result by it, which its per-band route does not). ``double_precision``
     as in :func:`residual_from_parts`."""
@@ -681,7 +659,7 @@ def residual_from_parts_multiband(dt: TreeStore, band_keys: list, model, epsilon
                 mplan, wgt, _, beam, _ = plans[pk]
                 conv += multiband_hessian_vis_idg(mplan, xs if beam is None else [x * beam[b] for b, x in
                                                                                   enumerate(xs)], wgt)
-        RESIDUAL_DISPATCH_STATS["multiband_parts"] += len(part_keys)
+        count("residual.multiband_parts", len(part_keys))
         # DIRTY is read while the card works through the queued round trips
         with span("residual.dirty"):
             for b, n in enumerate(nodes):

@@ -7,7 +7,9 @@ with a plain C interface, which is loaded with ``ctypes`` (pointers and the
 stream pass as ``c_void_p``). The library's name carries a hash of the
 sources, so an edited kernel is rebuilt. Output goes to
 ``build/torch_kernels/`` at the repository root (``PFB_TORCH_BUILD_DIR``
-overrides it). A failed build raises; there is no fallback.
+overrides it). A failed build raises; there is no fallback. Each
+launch that ``check`` passes is counted as ``launch.<kernel>`` by the
+recorder (``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from ..utils.profiling import count
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -125,7 +129,16 @@ def _load():
 
 
 def check(code: int, what: str) -> None:
-    """Raise if a launch returned a non-zero cudaGetLastError()."""
+    """Raise if the launch of kernel ``what`` returned a non-zero
+    cudaGetLastError(); else count it as ``launch.<what>``."""
     if code != 0:
         msg = "unsupported arguments" if code == -1 else load().pfb_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: {msg} (code {code})")
+    count("launch." + what)
+
+
+def stream(dev) -> int:
+    """The current CUDA stream of ``dev``, as the C entry points take it."""
+    import torch
+
+    return torch.cuda.current_stream(dev).cuda_stream

@@ -6,8 +6,8 @@ source into ``build/torch_kernels/`` at the repository root
 (``PFB_TORCH_BUILD_DIR`` overrides it), under a name that carries a hash of
 the source. This is host code (bucketing, counting sorts, NN histograms):
 where ``g++`` is missing or fails, every entry point keeps the reference's
-numpy fallback. ``PLAN_STATS`` records which planner ran: ``native`` or
-``numpy`` calls.
+numpy fallback. The recorder (``utils/profiling``) counts which planner
+served each call: ``plan.native`` or ``plan.numpy``.
 """
 
 from __future__ import annotations
@@ -22,11 +22,10 @@ from pathlib import Path
 import numpy as np
 
 from .kernels.build import build_dir
+from .utils.profiling import count
 
 SRC = Path(__file__).resolve().parent / "csrc" / "plan_kernels.cpp"
 GXX_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
-# which host planner served each call (read by the tests and chip_smoke.py)
-PLAN_STATS = {"native": 0, "numpy": 0}
 
 _LIB = None
 _TRIED = False
@@ -81,7 +80,7 @@ def _build_and_load_locked():
 def _lib():
     """The loaded library or None, counting which planner serves the call."""
     lib = _build_and_load()
-    PLAN_STATS["numpy" if lib is None else "native"] += 1
+    count("plan.numpy" if lib is None else "plan.native")
     return lib
 
 

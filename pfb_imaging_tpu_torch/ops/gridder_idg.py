@@ -887,11 +887,9 @@ def delivered_accuracy(plan: IDGPlan) -> dict:
 # so the threads of a cell share their buckets. A cell sums, from 0, by
 # wrap (u, then v), then quarter (a, then b), then in
 # the bucket either its groups in CSR order (short) or its chunk partials in
-# chunk order (long), so two runs give the same bits. ``LAUNCHES`` counts
-# kernel launches: K1 is ``idg_chunk_sums`` (bins with a long bucket) and
-# ``idg_assemble``, K2 ``idg_extract``.
-
-LAUNCHES = {"idg_chunk_sums": 0, "idg_assemble": 0, "idg_extract": 0}
+# chunk order (long), so two runs give the same bits. K1 is
+# ``idg_chunk_sums`` (bins with a long bucket) and ``idg_assemble``, K2
+# ``idg_extract``.
 
 
 def _ext_dims(plan):
@@ -1213,15 +1211,14 @@ def _launch_chunk_sums(plan, patches, csr, b: int, lib):
     if patches.data_ptr() % 16 or patches.stride(0) % 4:
         raise ValueError("patches: K1 reads 16-byte vectors; the tensor's start or plane stride is not aligned to them")
     part = torch.empty((2, c1 - c0, plan.S, plan.S), dtype=torch.float32, device=patches.device)  # written whole
-    from ..kernels.build import check
+    from ..kernels.build import check, stream
 
     code = lib.pfb_idg_chunk_sums(
         patches.data_ptr(), patches.stride(0), None if csr.order is None else csr.order.data_ptr(),
         csr.chunks.data_ptr() + 8 * c0, c1 - c0, part.data_ptr(), part.stride(0), plan.S,
-        idg_fused._stream(patches.device),
+        stream(patches.device),
     )
     check(code, "idg_chunk_sums")
-    LAUNCHES["idg_chunk_sums"] += 1
     return part
 
 
@@ -1248,7 +1245,7 @@ def assemble_bin(plan, patches, b: int):
         return _assemble_bin(plan, patches[:, gs : gs + gc], plan.bid[gs : gs + gc])
     _check_patches(plan, patches)
     _check_k1_layout(plan)
-    from ..kernels.build import check, load
+    from ..kernels.build import check, load, stream
 
     lib, csr, nb = load(), bucket_csr(plan), plan.nbu * plan.nbv
     part = _launch_chunk_sums(plan, patches, csr, b, lib)
@@ -1259,10 +1256,9 @@ def assemble_bin(plan, patches, b: int):
         None if part is None else part.data_ptr(), 0 if part is None else part.stride(0),
         None if part is None else csr.pstarts.data_ptr() + 4 * b * nb, csr.bin_chunk0[b], out.data_ptr(),
         plan.nbig_x, plan.nbig_y, plan.S, plan.half, plan.k0_off, plan.nbu, plan.nbv,
-        idg_fused._stream(patches.device),
+        stream(patches.device),
     )
     check(code, "idg_assemble")
-    LAUNCHES["idg_assemble"] += 1
     return out
 
 
@@ -1277,15 +1273,14 @@ def extract_bin(plan, grid, b: int, out):
     _check_grid(plan, grid)
     _check_patches(plan, out)
     if gc:
-        from ..kernels.build import check, load
+        from ..kernels.build import check, load, stream
 
         S = plan.S
         code = load().pfb_idg_extract(
             grid.data_ptr(), plan.bid.data_ptr() + 8 * gs, out.data_ptr() + 4 * gs * S * S, out.stride(0), gc, S,
-            plan.half, plan.k0_off, plan.nbv, plan.nbig_x, plan.nbig_y, idg_fused._stream(grid.device),
+            plan.half, plan.k0_off, plan.nbv, plan.nbig_x, plan.nbig_y, stream(grid.device),
         )
         check(code, "idg_extract")
-        LAUNCHES["idg_extract"] += 1
     return out
 
 

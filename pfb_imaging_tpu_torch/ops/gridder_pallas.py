@@ -23,7 +23,7 @@ sum_p ww_p(w) sum_ij es es grid_p[iu + i, iv + j] over a chunk of planes.
 On a CUDA tensor it launches ``csrc/gridder_gather.cu``, which replaces
 ``pallas_gather_grid`` (B4); on a CPU tensor it runs
 ``gather_grid_wstack_ref`` (the classic ``dirty2vis`` loop over each
-plane's bucket). ``LAUNCHES`` counts kernel launches.
+plane's bucket). Each launch is counted as ``launch.<kernel>``.
 
 The tile plan is the port's own, sized for Hopper's shared memory: a block
 owns a ``TILE`` x ``TILE`` uv tile plus a W-1 cell apron for at most
@@ -52,7 +52,6 @@ TILE = 32  # uv cells per tile side
 BLOCK_VIS = 2048  # visibilities per block at most (a busy tile gets several blocks)
 PLANE_CHUNK = 8  # w-planes per kernel pass
 MAX_SUPPORT = 16
-LAUNCHES = {"scatter_grid_wstack": 0, "gather_grid_wstack": 0}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -259,7 +258,7 @@ def scatter_grid_wstack(plan: WGridderPlan, tiles: ScatterTiles, vre, vim, p0: i
     ch = chunk_plan(plan, tiles, p0, nw)
     out = torch.empty((nw, 2, plan.nbig_x, plan.nbig_y), dtype=torch.float32, device=vre.device)  # written whole
     scratch = torch.empty(max(ch.scratch, 1), dtype=torch.float32, device=vre.device)
-    from ..kernels.build import check, load
+    from ..kernels.build import check, load, stream
 
     code = load().pfb_scatter_grid_wstack(
         ch.act.data_ptr(), ch.act.numel(), tiles.blk_start.data_ptr(), tiles.blk_count.data_ptr(), ch.qa.data_ptr(),
@@ -267,10 +266,9 @@ def scatter_grid_wstack(plan: WGridderPlan, tiles: ScatterTiles, vre, vim, p0: i
         tiles.cmp_oxy.data_ptr(), tiles.lu.data_ptr(), tiles.lv.data_ptr(), tiles.du.data_ptr(), tiles.dv.data_ptr(),
         tiles.w_rel.data_ptr(), vre.data_ptr(), vim.data_ptr(), scratch.data_ptr(), out.data_ptr(), plan.support,
         float(plan.beta), plan.nbig_x, plan.nbig_y, tiles.ntx, tiles.nty, plan.w_support, int(plan.do_wgridding), p0,
-        nw, torch.cuda.current_stream(vre.device).cuda_stream,
+        nw, stream(vre.device),
     )
     check(code, "scatter_grid_wstack")
-    LAUNCHES["scatter_grid_wstack"] += 1
     return out
 
 
@@ -321,17 +319,16 @@ def gather_grid_wstack(plan: WGridderPlan, tiles: ScatterTiles, grids, p0: int, 
     _check_tensor("out", out, (2, plan.nvis), tiles)
     ch = chunk_plan(plan, tiles, p0, nw)
     if ch.act.numel():
-        from ..kernels.build import check, load
+        from ..kernels.build import check, load, stream
 
         code = load().pfb_gather_grid_wstack(
             ch.act.data_ptr(), ch.act.numel(), tiles.blk_tile.data_ptr(), tiles.blk_start.data_ptr(),
             tiles.blk_count.data_ptr(), ch.qa.data_ptr(), ch.nq.data_ptr(), ch.nq_max, tiles.lu.data_ptr(),
             tiles.lv.data_ptr(), tiles.du.data_ptr(), tiles.dv.data_ptr(), tiles.w_rel.data_ptr(), grids.data_ptr(),
             out.data_ptr(), plan.nvis, plan.support, float(plan.beta), plan.nbig_x, plan.nbig_y, tiles.nty,
-            plan.w_support, int(plan.do_wgridding), p0, torch.cuda.current_stream(grids.device).cuda_stream,
+            plan.w_support, int(plan.do_wgridding), p0, stream(grids.device),
         )
         check(code, "gather_grid_wstack")
-        LAUNCHES["gather_grid_wstack"] += 1
     return out
 
 

@@ -28,8 +28,7 @@ accurate as plain f32 here; one TF32 pass would miss the 2e-6 contract
 taken as it is. The header of ``csrc/idg_fused.cu`` gives the design.
 
 The wrappers run the plain version only for tensors on the CPU. For CUDA
-tensors they launch the kernel (f32 only) or raise; ``LAUNCHES`` counts
-kernel launches.
+tensors they launch the kernel (f32 only) or raise.
 """
 
 from __future__ import annotations
@@ -39,7 +38,6 @@ import torch
 
 G = 128
 SUPPORTED_S = (16, 24, 32)
-LAUNCHES = {"patches_from_vals": 0, "vals_from_patches": 0}
 
 # groups per chunk of the plain versions (bounds their (S, chunk, G)
 # complex temporaries to ~0.1-0.3 GB)
@@ -141,10 +139,6 @@ def _check_cuda(S: int, ng: int, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def patches_from_vals(scal, vals, wcu, wcv, S: int):
     """Adjoint patch evaluation: (2, ng, G) values -> (2, ng, S, S) patches."""
     if scal.device.type == "cpu":
@@ -153,14 +147,13 @@ def patches_from_vals(scal, vals, wcu, wcv, S: int):
     _check_cuda(S, ng, scal=scal, vals=vals, wcu=wcu, wcv=wcv)
     out = torch.empty((2, ng, S, S), dtype=torch.float32, device=scal.device)
     if ng:
-        from ..kernels.build import check, load
+        from ..kernels.build import check, load, stream
 
         code = load().pfb_patches_from_vals(
             scal.data_ptr(), vals.data_ptr(), wcu.data_ptr(), wcv.data_ptr(), out.data_ptr(), ng, S,
-            _stream(scal.device),
+            stream(scal.device),
         )
         check(code, "patches_from_vals")
-        LAUNCHES["patches_from_vals"] += 1
     return out
 
 
@@ -172,12 +165,11 @@ def vals_from_patches(patches, scal, wcu, wcv, S: int):
     _check_cuda(S, ng, patches=patches, scal=scal, wcu=wcu, wcv=wcv)
     out = torch.empty((2, ng, G), dtype=torch.float32, device=scal.device)
     if ng:
-        from ..kernels.build import check, load
+        from ..kernels.build import check, load, stream
 
         code = load().pfb_vals_from_patches(
             patches.data_ptr(), scal.data_ptr(), wcu.data_ptr(), wcv.data_ptr(), out.data_ptr(), ng, S,
-            _stream(scal.device),
+            stream(scal.device),
         )
         check(code, "vals_from_patches")
-        LAUNCHES["vals_from_patches"] += 1
     return out

@@ -12,14 +12,13 @@ level). CUDA tensors take the hand-written kernels of
 ``csrc/psi_wavelets.cu``, P1 ``psi_analysis`` and P2 ``psi_synthesis``: one
 launch a level for every basis and band, reading and writing the packed
 layout directly, f32 only, no fallback. Their per-level tables
-(:func:`kernel_levels`) go to each launch by value; ``LAUNCHES`` counts the
-launches, and so does the tracer's ``psi.launch`` counter.
+(:func:`kernel_levels`) go to each launch by value.
 
 ``hdot_extrapolated(vn, v)`` is ``hdot(2 vn - v)``, the synthesis a
 primal-dual iteration asks for: on the card P2 reads both cubes and forms
 ``2 vn - v`` as it stages them (the same bits as torch's ``2.0 * vn - v``
 through P2), so the extrapolated cube is never written; its launches count
-under ``psi_synthesis_ext``, and each call once in the counter
+under ``launch.psi_synthesis_ext``, and each call once in the counter
 ``psi.extrap``.
 """
 
@@ -38,8 +37,6 @@ from .wavelets import coeff_size, conv_weights, dwt2d_level, dwt_max_level, filt
 # PSI_KMAX taps (db16), PSI_MAXB bases
 KMAX = 32
 MAXB = 16
-
-LAUNCHES = {"psi_analysis": 0, "psi_synthesis": 0, "psi_synthesis_ext": 0}
 
 
 class PsiMember(ctypes.Structure):
@@ -197,27 +194,23 @@ class Psi:
                 for lv in self._levels[:-1]]
 
     def _dot_cuda(self, x: torch.Tensor) -> torch.Tensor:
-        from ..kernels.build import check, load
-        from .idg_fused import _stream
+        from ..kernels.build import check, load, stream
 
         self._check_cuda(x, "x", (self.nx, self.ny))
         nband = x.shape[0]
         out = torch.empty((nband, self.nbasis, self.nymax, self.nxmax), dtype=torch.float32, device=x.device)
         scr = self._scratch(nband, x.device)  # the cube is written whole, margins included
-        lib, stream = load(), _stream(x.device)
+        lib, st = load(), stream(x.device)
         for i, lv in enumerate(self._levels):
             code = lib.pfb_psi_analysis(ctypes.addressof(lv), nband, x.data_ptr(), out.data_ptr(),
                                         scr[i - 1].data_ptr() if i else None,
-                                        scr[i].data_ptr() if i < len(scr) else None, stream)
+                                        scr[i].data_ptr() if i < len(scr) else None, st)
             check(code, "psi_analysis")
-            LAUNCHES["psi_analysis"] += 1
-        profiling.count("psi.launch", len(self._levels))
         return out
 
     def _hdot_cuda(self, alpha: torch.Tensor, v: torch.Tensor | None = None) -> torch.Tensor:
         """P2 on ``alpha``, or with ``v`` on ``2 alpha - v``."""
-        from ..kernels.build import check, load
-        from .idg_fused import _stream
+        from ..kernels.build import check, load, stream
 
         tail = (self.nbasis, self.nymax, self.nxmax)
         self._check_cuda(alpha, "alpha", tail)
@@ -233,15 +226,13 @@ class Psi:
         nband = alpha.shape[0]
         out = torch.empty((nband, self.nx, self.ny), dtype=torch.float32, device=alpha.device)
         scr = self._scratch(nband, alpha.device)
-        lib, stream = load(), _stream(alpha.device)
+        lib, st = load(), stream(alpha.device)
         for i in reversed(range(len(self._levels))):
             code = lib.pfb_psi_synthesis(ctypes.addressof(self._levels[i]), nband, alpha.data_ptr(),
                                          None if v is None else v.data_ptr(),
                                          scr[i].data_ptr() if i < len(scr) else None,
-                                         scr[i - 1].data_ptr() if i else None, out.data_ptr(), stream)
+                                         scr[i - 1].data_ptr() if i else None, out.data_ptr(), st)
             check(code, key)
-            LAUNCHES[key] += 1
-        profiling.count("psi.launch", len(self._levels))
         return out
 
 

@@ -31,18 +31,7 @@ from .. import real_dtype, resolve_device, to_device
 from ..utils.profiling import count
 from . import multihost
 
-__all__ = ["Mesh", "make_mesh", "band_sharding", "band_sum", "shard_cube", "stream_band_stack",
-           "COLLECTIVE_STATS", "count_collective"]
-
-# count and bytes of every collective this process ran, by kind (read per
-# cycle by core/deconv.py and by chip_smoke.py)
-COLLECTIVE_STATS: dict = {}
-
-
-def count_collective(kind: str, t: torch.Tensor) -> None:
-    rec = COLLECTIVE_STATS.setdefault(kind, {"count": 0, "bytes": 0})
-    rec["count"] += 1
-    rec["bytes"] += t.numel() * t.element_size()
+__all__ = ["Mesh", "make_mesh", "band_sharding", "band_sum", "shard_cube", "stream_band_stack"]
 
 
 def _default_order(block: int) -> list:
@@ -139,8 +128,7 @@ class Mesh:
         the sum."""
         if self.size(axes) == 1:
             return t
-        t = t.contiguous()
-        count_collective("all_reduce", t)
+        t = multihost.counted("all_reduce", t.contiguous())
         dist.all_reduce(t, group=self._group(axes))
         return t
 
@@ -149,8 +137,7 @@ class Mesh:
         in band order."""
         if self.band_size == 1:
             return t
-        t = t.contiguous()
-        count_collective("all_gather", t)
+        t = multihost.counted("all_gather", t.contiguous())
         parts = [torch.empty_like(t) for _ in range(self.band_size)]
         dist.all_gather(parts, t, group=self.band_group)
         return torch.cat([parts[k] for k in self._band_order])
@@ -160,8 +147,7 @@ class Mesh:
         rank i, and chunk i of the result came from row rank i."""
         if self.row_size == 1:
             return t
-        t = t.contiguous()
-        count_collective("all_to_all", t)
+        t = multihost.counted("all_to_all", t.contiguous())
         out = torch.empty_like(t)
         dist.all_to_all_single(out, t, group=self.row_group)
         return out
@@ -170,8 +156,7 @@ class Mesh:
         """(...) -> (d, ...): every row rank's ``t``, in row order."""
         if self.row_size == 1:
             return t[None]
-        t = t.contiguous()
-        count_collective("all_gather", t)
+        t = multihost.counted("all_gather", t.contiguous())
         parts = [torch.empty_like(t) for _ in range(self.row_size)]
         dist.all_gather(parts, t, group=self.row_group)
         return torch.stack(parts)

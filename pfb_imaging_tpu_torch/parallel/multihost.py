@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..utils.profiling import count
 
 __all__ = [
     "init_distributed",
@@ -185,6 +186,15 @@ def _comm_device() -> torch.device:
     return torch.device("cpu")
 
 
+def counted(kind: str, t: torch.Tensor) -> torch.Tensor:
+    """``t``, the operand of a collective of ``kind``, counted by the
+    recorder as ``collective.<kind>`` and its bytes as
+    ``collective.<kind>.bytes``."""
+    count("collective." + kind)
+    count("collective." + kind + ".bytes", t.numel() * t.element_size())
+    return t
+
+
 def allsum(x) -> np.ndarray:
     """Sum a host numpy array over every rank (disjoint per-rank band
     contributions -> the full cube on every rank). The identity on one
@@ -192,10 +202,7 @@ def allsum(x) -> np.ndarray:
     x = np.asarray(x)
     if not is_distributed():
         return x
-    t = torch.from_numpy(np.ascontiguousarray(x)).to(_comm_device())
-    from .mesh import count_collective
-
-    count_collective("all_reduce", t)
+    t = counted("all_reduce", torch.from_numpy(np.ascontiguousarray(x)).to(_comm_device()))
     dist.all_reduce(t)
     return t.cpu().numpy()
 

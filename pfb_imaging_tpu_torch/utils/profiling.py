@@ -6,7 +6,10 @@ counterparts of pfb_imaging_tpu/utils/profiling.py).
     ``disable``; ``take`` hands back what was recorded and clears it). Off,
     a span costs one flag read and allocates nothing. On, a span records
     its name, its host start and end, the index of the span enclosing it
-    on the same thread and the thread's id. A span never syncs the device:
+    on the same thread and the thread's id. It is the port's one report of
+    what it did: kernel launches (``launch.<kernel>``), collectives
+    (``collective.<kind>`` and ``.bytes``), routes taken and the phases of
+    every command are counters and spans here. A span never syncs the device:
     it measures host time, and where the host waits, the wait is a span of
     its own. Stamps are ``time.time_ns()``, the Unix-epoch nanoseconds on
     which ``torch.profiler`` (kineto) stamps host and device events, so a
@@ -114,6 +117,10 @@ def enable() -> None:
 def disable() -> None:
     global _ON
     _ON = False
+
+
+def enabled() -> bool:
+    return _ON
 
 
 def take() -> dict:

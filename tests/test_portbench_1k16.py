@@ -95,24 +95,21 @@ def _solver(nband=16, nx=64):
 
 
 def test_the_band_loops_count_their_bands():
+    from torch_recorder import recording
+
     from pfb_imaging_tpu_torch.utils import profiling
 
     off = _solver().backward(0.01).clone()
     solver = _solver()
-    profiling.take()
-    profiling.enable()
-    try:
+    with recording() as pd:
         on = solver.backward(0.01).clone()  # one PD iteration
-        pd = profiling.take()["counters"]
+    with recording() as hess:
         solver.hess.dot(on)  # one Hessian application
-        hess = profiling.take()["counters"]
-    finally:
-        profiling.disable()
     assert solver.backward_alg.niter_last == 1
     # the dual update's band sum and the stop test's (its three terms'
     # per-band reductions, then their band sum); the gradient's Hessian;
     # Psi's synthesis of the iteration's 2 vn - v
-    assert pd == {"band.sum": 2 * 16, "band.dots": 3 * 16, "hess.band": 16, "psi.extrap": 1}
-    assert hess == {"hess.band": 16}
+    assert pd["counters"] == {"band.sum": 2 * 16, "band.dots": 3 * 16, "hess.band": 16, "psi.extrap": 1}
+    assert hess["counters"] == {"hess.band": 16}
     assert torch.equal(on, off) and bool(on.abs().sum() > 0)
-    assert profiling.take()["counters"] == {}
+    assert not profiling.enabled() and profiling.take()["counters"] == {}

@@ -8,6 +8,7 @@ native ``uvw_to_pix`` to its numpy fallback (reached by emptying
 import numpy as np
 import pytest
 import torch
+from torch_recorder import recording
 
 from pfb_imaging_tpu import native as JN
 from pfb_imaging_tpu.utils import beam as JB
@@ -82,15 +83,16 @@ def _uvw_args():
 
 def test_uvw_to_pix_native_matches_fallback_and_jax(monkeypatch):
     args = _uvw_args()
-    before = dict(TN.PLAN_STATS)
-    native = TN.uvw_to_pix(*args)
-    assert TN.PLAN_STATS["native"] == before["native"] + 1
+    with recording() as got:
+        native = TN.uvw_to_pix(*args)
+    assert got["counters"]["plan.native"] == 1
     for got, want in zip(native, JN.uvw_to_pix(*args)):
         assert _rel(got, want) <= 1e-14
     monkeypatch.setattr(TN, "_LIB", None)
     monkeypatch.setattr(TN, "_TRIED", True)
-    fallback = TN.uvw_to_pix(*args)
-    assert TN.PLAN_STATS["numpy"] == before["numpy"] + 1
+    with recording() as got:
+        fallback = TN.uvw_to_pix(*args)
+    assert got["counters"]["plan.numpy"] == 1
     for got, want in zip(native[:3], fallback[:3]):
         np.testing.assert_allclose(got, want, rtol=1e-14)
     np.testing.assert_allclose(native[3], fallback[3], rtol=1e-12)

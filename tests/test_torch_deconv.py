@@ -16,6 +16,7 @@ from collections import OrderedDict
 import numpy as np
 import pytest
 import torch
+from torch_recorder import logged, recording
 
 from pfb_imaging_tpu.constants import LIGHTSPEED
 from pfb_imaging_tpu.utils.store import TreeStore
@@ -108,6 +109,8 @@ def _rel(a, b):
 
 
 def _deconv_both(src, hess_norm, tmp_path, niter=2):
+    """Both packages' deconv on copies of ``src``; with the port's recorder
+    and its cycles' log records."""
     import pfb_imaging_tpu.core.deconv as jdeconv
 
     from pfb_imaging_tpu_torch.core import deconv as tdeconv
@@ -117,19 +120,18 @@ def _deconv_both(src, hess_norm, tmp_path, niter=2):
     shutil.copytree(src, pt)
     kw = dict(SOLVE, niter=niter)
     mj, rj = jdeconv.deconv(str(pj), hess_norm=hess_norm, use_mesh=False, **kw)
-    mt, rt = tdeconv.deconv(str(pt), hess_norm=hess_norm, device="cpu", **kw)
-    return pj, pt, mj, rj, mt, rt
+    with recording() as got, logged("DECONV") as cycles:
+        mt, rt = tdeconv.deconv(str(pt), hess_norm=hess_norm, device="cpu", **kw)
+    return pj, pt, mj, rj, mt, rt, got, cycles
 
 
 def test_deconv_matches_jax(tree, tmp_path):
     """Both runs take their default residual route, the multiband one."""
-    from pfb_imaging_tpu_torch.core import deconv as tdeconv
-
     src, hess_norm = tree
-    pj, pt, mj, rj, mt, rt = _deconv_both(src, hess_norm, tmp_path)
-    assert tdeconv.CYCLE_STATS[-1]["residual_dispatch"]["multiband_parts"] >= 2
-    assert [s["cg_iters"] for s in tdeconv.CYCLE_STATS] == [SOLVE["cg_maxit"]] * 2
-    assert [s["pd_iters"] for s in tdeconv.CYCLE_STATS] == [SOLVE["pd_maxit"]] * 2
+    pj, pt, mj, rj, mt, rt, got, stats = _deconv_both(src, hess_norm, tmp_path)
+    assert got["counters"]["residual.multiband_parts"] >= 2
+    assert [s["cg_iters"] for s in stats] == [SOLVE["cg_maxit"]] * 2
+    assert [s["pd_iters"] for s in stats] == [SOLVE["pd_maxit"]] * 2
     assert np.abs(mt).max() > 0
     assert _rel(mt, mj) < 1e-8
     assert _rel(rt, rj) < 1e-8
@@ -143,14 +145,21 @@ def test_deconv_matches_jax(tree, tmp_path):
             assert abs(nt.attrs[a] - nj.attrs[a]) / abs(nj.attrs[a]) < 1e-8, a
     assert TreeStore(pt).attrs["hess_norm"] == pytest.approx(hess_norm, rel=1e-15)
     # the residual shrinks from cycle 1 to cycle 2
-    stats = tdeconv.CYCLE_STATS
     assert stats[-1]["rms"] < stats[0]["rms"]
     # each cycle's parts in seconds, and the bytes of the arrays written to the band nodes
     written = sum(np.asarray(TreeStore(pt).group(f"band{b:04d}_time0000").read(name)).nbytes for b in range(2)
                   for name in ("MODEL", "UPDATE", "RESIDUAL", "MODEL_BEST", "DUAL"))
     for s in stats:
         assert s["write_bytes"] == written and s["write_seconds"] > 0
-        assert 0 <= s["fit_seconds"] and s["minor_seconds"] + s["fit_seconds"] + s["residual_seconds"] <= s["seconds"]
+        assert 0 <= s["fit_seconds"] <= s["seconds"]
+    assert got["counters"]["deconv.write_bytes"] == 2 * written
+    spans = got["spans"]
+    cycle_spans = [i for i, s in enumerate(spans) if s.name == "deconv.cycle"]
+    assert len(cycle_spans) == 2
+    for i in cycle_spans:  # the minor cycle, the fit and the residual inside each cycle's span
+        parts = {s.name: s.end_ns - s.start_ns for s in spans if s.parent == i}
+        assert set(parts) == {f"deconv.{p}" for p in ("forward", "backward", "fit", "residual", "write")}
+        assert sum(parts.values()) <= spans[i].end_ns - spans[i].start_ns
 
 
 def test_deconv_per_band_route_matches_jax(tree, tmp_path, monkeypatch):
@@ -164,20 +173,18 @@ def test_deconv_per_band_route_matches_jax(tree, tmp_path, monkeypatch):
     src, hess_norm = tree
     monkeypatch.setattr(jdeconv, "residual_from_parts_multiband", lambda *a, **k: None)
     monkeypatch.setattr(tdeconv, "residual_from_parts_multiband", lambda *a, **k: None)
-    pj, pt, mj, rj, mt, rt = _deconv_both(src, hess_norm, tmp_path)
-    d = [s["residual_dispatch"]["fallback_bands"] for s in tdeconv.CYCLE_STATS]
-    assert d[1] - d[0] == 2
+    pj, pt, mj, rj, mt, rt, got, _ = _deconv_both(src, hess_norm, tmp_path)
+    assert got["counters"]["residual.fallback_bands"] == 2 * 2  # both bands in both cycles
+    assert got["counters"].get("residual.multiband_parts", 0) == 0
     assert _rel(mt, mj) < 1e-8 and _rel(rt, rj) < 1e-8
 
 
 def test_deconv_wide_field_matches_jax(wide_tree, tmp_path):
     """One cycle on the wide-w tree: the residual runs on wplanes plans
     through the multiband route in both packages."""
-    from pfb_imaging_tpu_torch.core import deconv as tdeconv
-
     src, hess_norm = wide_tree
-    pj, pt, mj, rj, mt, rt = _deconv_both(src, hess_norm, tmp_path, niter=1)
-    assert tdeconv.CYCLE_STATS[0]["residual_dispatch"]["multiband_parts"] >= 1
+    pj, pt, mj, rj, mt, rt, got, _ = _deconv_both(src, hess_norm, tmp_path, niter=1)
+    assert got["counters"]["residual.multiband_parts"] >= 1
     assert np.abs(mt).max() > 0
     assert _rel(mt, mj) < 1e-8 and _rel(rt, rj) < 1e-8
 
@@ -197,10 +204,10 @@ def test_multiband_residual_matches_jax(which, request):
     keys = [k for k in dt.groups() if k.startswith("band")]
     model = np.stack([_residual_model() * s for s in (1.0, 0.8)])
     rj = jmultiband(dt, keys, model, epsilon=1e-7)
-    n0 = TI.RESIDUAL_DISPATCH_STATS["multiband_parts"]
-    rt = TI.residual_from_parts_multiband(dt, keys, model, epsilon=1e-7, device="cpu")
+    with recording() as got:
+        rt = TI.residual_from_parts_multiband(dt, keys, model, epsilon=1e-7, device="cpu")
     assert rj is not None and rt is not None
-    assert TI.RESIDUAL_DISPATCH_STATS["multiband_parts"] == n0 + 1
+    assert got["counters"]["residual.multiband_parts"] == 1
     mplan = next(v for k, v in reversed(TI._PLAN_CACHE.items()) if k[0] == "multiband")[0]
     assert (mplan.w_support > 1) == (which == "wide_tree")
     assert _rel(rt, rj) < 1e-10
@@ -280,18 +287,21 @@ def test_multiband_decline_is_cached_and_counts_nothing(tree, tmp_path, monkeypa
     model = np.stack([_residual_model() * s for s in (1.0, 0.8)])
     monkeypatch.setattr(TI, "_PLAN_CACHE", OrderedDict())
     monkeypatch.setattr(TI, "_PLAN_CACHE_BYTES", 0)
-    n0, p0 = TI.RESIDUAL_DISPATCH_STATS["multiband_parts"], TI.PLAN_STATS["plans"]
-    assert TI.residual_from_parts_multiband(dt, keys, model, device="cpu") is None
+    with recording() as got:
+        assert TI.residual_from_parts_multiband(dt, keys, model, device="cpu") is None
     assert jmultiband(dt, keys, model) is None
-    assert TI.RESIDUAL_DISPATCH_STATS["multiband_parts"] == n0 and TI.PLAN_STATS["plans"] == p0 + 1
+    # the first partition planned, the second refused before its plan
+    assert got["counters"].get("residual.multiband_parts", 0) == 0 and got["counters"]["residual.plan_miss"] == 2
+    assert [s.name for s in got["spans"]].count("plan.multiband") == 1
     assert list(TI._PLAN_CACHE.values()) == [None] and TI._PLAN_CACHE_BYTES == 0
 
     def refuse(*a, **k):
         raise AssertionError("a cached decline plans again")
 
     monkeypatch.setattr(sharded, "plan_idg_multiband_freqs", refuse)
-    assert TI.residual_from_parts_multiband(dt, keys, model, device="cpu") is None
-    assert TI.RESIDUAL_DISPATCH_STATS["multiband_parts"] == n0
+    with recording() as got:
+        assert TI.residual_from_parts_multiband(dt, keys, model, device="cpu") is None
+    assert got["counters"] == {}
 
 
 def test_deconv_resumes_from_checkpoint(tree, tmp_path):
@@ -303,10 +313,11 @@ def test_deconv_resumes_from_checkpoint(tree, tmp_path):
     shutil.copytree(src, pt)
     kw = dict(SOLVE, niter=1)
     tdeconv.deconv(str(pt), hess_norm=hess_norm, device="cpu", **kw)
-    tdeconv.deconv(str(pt), hess_norm=None, device="cpu", **kw)  # hess_norm from attrs
+    with logged("DECONV") as cycles:
+        tdeconv.deconv(str(pt), hess_norm=None, device="cpu", **kw)  # hess_norm from attrs
     node = TreeStore(pt).group("band0000_time0000")
     assert node.attrs["niters"] == 2
-    assert tdeconv.CYCLE_STATS[0]["iter"] == 2
+    assert cycles[0]["iter"] == 2
     assert node.has("DUAL")
 
 
@@ -356,11 +367,11 @@ def test_residual_stack_matches_jax(tree, gridder, eps):
     src, _ = tree
     node = TreeStore(src).group("band0001_time0000")
     rj = jresidual(node, _residual_model(), epsilon=eps, gridder=gridder)
-    n0 = TI.PLAN_STATS["plans"]
-    rt = TI.residual_from_parts(node, _residual_model(), epsilon=eps, gridder=gridder, device="cpu")
-    assert _rel(rt, rj) < 1e-9
-    rt2 = TI.residual_from_parts(node, _residual_model(), epsilon=eps, gridder=gridder, device="cpu")
-    assert TI.PLAN_STATS["plans"] == n0 + 1 and np.array_equal(rt2, rt)  # the cached plan
+    with recording() as got:
+        rt = TI.residual_from_parts(node, _residual_model(), epsilon=eps, gridder=gridder, device="cpu")
+        assert _rel(rt, rj) < 1e-9
+        rt2 = TI.residual_from_parts(node, _residual_model(), epsilon=eps, gridder=gridder, device="cpu")
+    assert got["counters"]["residual.plan_miss"] == 1 and np.array_equal(rt2, rt)  # the cached plan
 
 
 def test_residual_auto_falls_back_per_partition(tree, monkeypatch):

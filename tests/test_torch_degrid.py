@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_recorder import recording, routes
 
 from pfb_imaging_tpu.core.degrid import degrid as jax_degrid
 from pfb_imaging_tpu.core.simulate import simulate_vis_store
@@ -112,10 +113,10 @@ def test_dirty2vis_idg_matches_jax(wscale, eps):
 def test_degrid_matches_jax(sparse, gridder, eps, tol):
     d, ms, truth, mds = sparse
     col = f"M_{gridder}"
-    TD.degrid(mds, ms, truth["cell_rad"], column=col + "_T", gridder=gridder, epsilon=eps, device=CPU)
+    with recording() as got:
+        TD.degrid(mds, ms, truth["cell_rad"], column=col + "_T", gridder=gridder, epsilon=eps, device=CPU)
     jax_degrid(mds, ms, truth["cell_rad"], column=col + "_J", gridder=gridder, epsilon=eps)
-    routes = {b["route"] for b in TD.DEGRID_STATS["bins"]}
-    assert routes == {"stack" if gridder == "auto" else gridder}
+    assert set(routes(got["counters"], "degrid")) == {"stack" if gridder == "auto" else gridder}
     for a, b in _columns(ms, col + "_T", col + "_J"):
         assert a.shape == b.shape == (36, 3)
         assert _rel(a, b) < tol
@@ -125,10 +126,11 @@ def test_degrid_auto_takes_idg_where_jax_does(dense):
     """On a dense layout "auto" routes every bin to IDG; the 1e-9 match with
     JAX, which IDG and stack (1e-7 apart) would break, says JAX did too."""
     d, ms, truth, mds = dense
-    TD.degrid(mds, ms, truth["cell_rad"], column="A_T", gridder="auto", epsilon=1e-7, device=CPU)
+    with recording() as got:
+        TD.degrid(mds, ms, truth["cell_rad"], column="A_T", gridder="auto", epsilon=1e-7, device=CPU)
     jax_degrid(mds, ms, truth["cell_rad"], column="A_J", gridder="auto", epsilon=1e-7)
-    assert {b["route"] for b in TD.DEGRID_STATS["bins"]} == {"idg"}
-    assert TD.DEGRID_STATS["nvis"] == sum(a.size for a, _ in _columns(ms, "A_T", "A_J"))
+    assert set(routes(got["counters"], "degrid")) == {"idg"}
+    assert got["counters"]["degrid.nvis"] == sum(a.size for a, _ in _columns(ms, "A_T", "A_J"))
     for a, b in _columns(ms, "A_T", "A_J"):
         assert _rel(a, b) < 1e-9
 
@@ -137,9 +139,10 @@ def test_degrid_pallas_f32_matches_jax_stack(sparse):
     """The port's "pallas" route (f32 plans, the gather's plain version here)
     against the JAX "stack" route at the same epsilon."""
     d, ms, truth, mds = sparse
-    TD.degrid(mds, ms, truth["cell_rad"], column="P_T", gridder="pallas", epsilon=1e-5, device=CPU)
+    with recording() as got:
+        TD.degrid(mds, ms, truth["cell_rad"], column="P_T", gridder="pallas", epsilon=1e-5, device=CPU)
     jax_degrid(mds, ms, truth["cell_rad"], column="P_J", gridder="stack", epsilon=1e-5)
-    assert {b["route"] for b in TD.DEGRID_STATS["bins"]} == {"pallas"}
+    assert set(routes(got["counters"], "degrid")) == {"pallas"}
     for a, b in _columns(ms, "P_T", "P_J"):
         assert _rel(a, b) < 2e-5
 
@@ -223,12 +226,12 @@ def test_degrid_auto_on_wide_field_matches_jax(which, eps, route, request):
     bins fall back to stack. Either way MODEL_DATA matches JAX's to 1e-9,
     which IDG and stack (1e-7 apart) would break."""
     d, ms, truth, mds = request.getfixturevalue(which)
-    TD.degrid(mds, ms, 1e-3, column="W_T", gridder="auto", epsilon=eps, device=CPU)
+    with recording() as got:
+        TD.degrid(mds, ms, 1e-3, column="W_T", gridder="auto", epsilon=eps, device=CPU)
     jax_degrid(mds, ms, 1e-3, column="W_J", gridder="auto", epsilon=eps)
-    bins = TD.DEGRID_STATS["bins"]
-    assert {b["route"] for b in bins} == {route}
+    assert set(routes(got["counters"], "degrid")) == {route}
     if route == "idg":
-        assert all(b["w_support"] > 1 for b in bins)
+        assert got["counters"]["degrid.bins.wplanes"] == got["counters"]["degrid.route.idg"]
     for a, b in _columns(ms, "W_T", "W_J"):
         assert _rel(a, b) < 1e-9
 

@@ -22,6 +22,7 @@ import itertools
 import numpy as np
 import pytest
 import torch
+from torch_recorder import recording
 
 from pfb_imaging_tpu_torch.ops import gridder as TG
 from pfb_imaging_tpu_torch.ops import gridder_pallas as TP
@@ -540,11 +541,11 @@ def test_gather_kernel_matches_plain_on_cuda():
         rng = np.random.default_rng(17)
         grids = torch.as_tensor(rng.standard_normal((nw, 2, pt.nbig_x, pt.nbig_y)), device=dev).float()
         p0 = max(0, pt.nw // 2 - nw // 2)
-        before = TP.LAUNCHES["gather_grid_wstack"]
         tiles = TP.tiles_for(pt)
-        out = TP.gather_grid_wstack(pt, tiles, grids, p0, nw)
+        with recording() as got:
+            out = TP.gather_grid_wstack(pt, tiles, grids, p0, nw)
         torch.cuda.synchronize()
-        assert TP.LAUNCHES["gather_grid_wstack"] == before + 1
+        assert got["counters"]["launch.gather_grid_wstack"] == 1
         ref = TP.gather_grid_wstack_ref(pt, tiles, grids.double(), p0, nw)
         assert _rel(out.cpu(), ref.cpu()) < 1e-5
 
@@ -566,11 +567,11 @@ def test_kernel_matches_plain_on_cuda():
         rng = np.random.default_rng(12)
         vre, vim = (torch.as_tensor(a, device=dev).float() for a in rng.standard_normal((2, pt.nvis)))
         p0 = max(0, pt.nw // 2 - nw // 2)
-        before = TP.LAUNCHES["scatter_grid_wstack"]
         tiles = TP.tiles_for(pt)
         torch.full((nw, 2, pt.nbig_x, pt.nbig_y), float("nan"), device=dev)  # freed: the output reuses it
-        out = TP.scatter_grid_wstack(pt, tiles, vre, vim, p0, nw)
+        with recording() as got:
+            out = TP.scatter_grid_wstack(pt, tiles, vre, vim, p0, nw)
         torch.cuda.synchronize()
-        assert TP.LAUNCHES["scatter_grid_wstack"] == before + 1
+        assert got["counters"]["launch.scatter_grid_wstack"] == 1
         ref = TP.scatter_grid_wstack_ref(pt, tiles, vre.double(), vim.double(), p0, nw)
         assert _rel(out.cpu(), ref.cpu()) < 1e-5

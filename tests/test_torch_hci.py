@@ -9,6 +9,7 @@ tests check them."""
 import numpy as np
 import pytest
 import torch
+from torch_recorder import recording, routes
 
 from pfb_imaging_tpu.models.transients import transient_spectrum as jspectrum
 from pfb_imaging_tpu_torch.core import hci as TH
@@ -64,8 +65,9 @@ def test_hci_matches_jax(xds, tmp_path, epsilon, route):
     kw = dict(nx=NX, freq_chunks=2, epsilon=epsilon, rms_flag_level=1.0, per_scan_products=True,
               inject_transient=dict(kind="gaussian", amplitude=3.0, xfrac=0.3, yfrac=0.6))
     oj = jhci(xds, str(tmp_path / "j.cube"), **kw)
-    ot = TH.hci(xds, str(tmp_path / "t.cube"), device="cpu", **kw)
-    assert TH.HCI_STATS["route"] == route and TH.HCI_STATS["tasks"] == 4
+    with recording() as got:
+        ot = TH.hci(xds, str(tmp_path / "t.cube"), device="cpu", **kw)
+    assert routes(got["counters"], "hci") == {route: 1} and got["counters"]["hci.tasks"] == 4
     cube = np.asarray(ot.read("CUBE"))
     assert cube.shape == (2, 2, NX, NX) and np.isfinite(cube).all()
     for name in ("CUBE", "WSUMS", "TIMES", "FREQS"):

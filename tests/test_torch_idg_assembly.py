@@ -29,10 +29,10 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch_recorder import launches, recording
 
 from pfb_imaging_tpu_torch.ops import gridder as TG
 from pfb_imaging_tpu_torch.ops import gridder_idg as T
-from pfb_imaging_tpu_torch.ops import gridder_pallas as TP
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -315,15 +315,16 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     same bits) and launch nothing; the forward writes every group."""
     _, pt, _ = _plans("padded_wplanes")
     P, G = _seeded(pt, 11)
-    before = dict(T.LAUNCHES)
     out = torch.full_like(P, float("nan"))
-    for b in range(pt.nbins):
-        gs, gc = pt.bin_gstart[b], pt.bin_gcount[b]
-        assert torch.equal(T.assemble_bin(pt, P, b), T._assemble_bin(pt, P[:, gs : gs + gc], pt.bid[gs : gs + gc]))
-        T.extract_bin(pt, G, b, out)
-        assert torch.equal(out[:, gs : gs + gc], T._extract_bin(pt, G, pt.bid[gs : gs + gc]))
+    with recording() as got:
+        for b in range(pt.nbins):
+            gs, gc = pt.bin_gstart[b], pt.bin_gcount[b]
+            assert torch.equal(T.assemble_bin(pt, P, b),
+                               T._assemble_bin(pt, P[:, gs : gs + gc], pt.bid[gs : gs + gc]))
+            T.extract_bin(pt, G, b, out)
+            assert torch.equal(out[:, gs : gs + gc], T._extract_bin(pt, G, pt.bid[gs : gs + gc]))
     assert not out.isnan().any()
-    assert T.LAUNCHES == before
+    assert launches(got["counters"]) == {}
 
 
 def test_idg_round_trip_unchanged_on_the_cpu():
@@ -358,9 +359,9 @@ def test_classic_vis2dirty_is_plain_on_the_cpu():
     plan = TG.plan_wgridder(uvw, FREQ, nx=NX, ny=NX, cellx=CELL, celly=CELL, epsilon=1e-5, device=CPU)
     vis = torch.as_tensor(rng.standard_normal((NROW, 2)) + 1j * rng.standard_normal((NROW, 2)))
     wgt = torch.as_tensor(rng.random((NROW, 2)))
-    before = TP.LAUNCHES["scatter_grid_wstack"]
-    assert torch.equal(TG.vis2dirty(plan, vis, wgt=wgt), TG.vis2dirty_plain(plan, vis, wgt))
-    assert TP.LAUNCHES["scatter_grid_wstack"] == before
+    with recording() as got:
+        assert torch.equal(TG.vis2dirty(plan, vis, wgt=wgt), TG.vis2dirty_plain(plan, vis, wgt))
+    assert got["counters"].get("launch.scatter_grid_wstack", 0) == 0
 
 
 # ── on a CUDA card only ───────────────────────────────────────────────
@@ -397,15 +398,16 @@ def test_kernels_match_plain_on_cuda(case):
     out2 = torch.full_like(P, float("nan"))
     for b in range(plan.nbins):
         gs, gc = plan.bin_gstart[b], plan.bin_gcount[b]
-        before = dict(T.LAUNCHES)
-        g1, g2 = T.assemble_bin(plan, P, b), T.assemble_bin(plan, P, b)
-        T.extract_bin(plan, G, b, out1)
-        T.extract_bin(plan, G, b, out2)
+        with recording() as got:
+            g1, g2 = T.assemble_bin(plan, P, b), T.assemble_bin(plan, P, b)
+            T.extract_bin(plan, G, b, out1)
+            T.extract_bin(plan, G, b, out2)
         torch.cuda.synchronize()
         chunked = T.bucket_csr(plan).bin_chunk0[b + 1] > T.bucket_csr(plan).bin_chunk0[b]
-        assert T.LAUNCHES["idg_assemble"] == before["idg_assemble"] + 2
-        assert T.LAUNCHES["idg_chunk_sums"] == before["idg_chunk_sums"] + (2 if chunked else 0)
-        assert T.LAUNCHES["idg_extract"] == before["idg_extract"] + (2 if gc else 0)
+        c = got["counters"]
+        assert c.get("launch.idg_assemble", 0) == 2
+        assert c.get("launch.idg_chunk_sums", 0) == (2 if chunked else 0)
+        assert c.get("launch.idg_extract", 0) == (2 if gc else 0)
         assert torch.equal(g1, g2) and torch.equal(out1[:, gs : gs + gc], out2[:, gs : gs + gc])
         if gc == 0:
             assert not g1.any()
@@ -453,10 +455,10 @@ def test_classic_vis2dirty_runs_b3_on_cuda():
     plan64 = TG.plan_wgridder(uvw, FREQ, dtype=np.float64, **kw)
     vis = torch.as_tensor(rng.standard_normal((NROW, 2)) + 1j * rng.standard_normal((NROW, 2)), device=dev)
     wgt = torch.as_tensor(rng.random((NROW, 2)), device=dev)
-    before = TP.LAUNCHES["scatter_grid_wstack"]
-    d1, d2 = TG.vis2dirty(plan, vis, wgt=wgt), TG.vis2dirty(plan, vis, wgt=wgt)
+    with recording() as got:
+        d1, d2 = TG.vis2dirty(plan, vis, wgt=wgt), TG.vis2dirty(plan, vis, wgt=wgt)
     torch.cuda.synchronize()
-    assert TP.LAUNCHES["scatter_grid_wstack"] > before
+    assert got["counters"]["launch.scatter_grid_wstack"] > 0
     assert torch.equal(d1, d2)
     assert _rel(d1.cpu(), TG.vis2dirty_plain(plan64, vis, wgt).cpu()) < 1e-5
     with pytest.raises(ValueError, match="f32"):

@@ -12,6 +12,7 @@ tests also run where only PyTorch is installed:
 import numpy as np
 import pytest
 import torch
+from torch_recorder import launches, recording
 
 from pfb_imaging_tpu_torch.ops import idg_fused as F
 
@@ -141,13 +142,13 @@ def test_wc_from_perm_kron_round_trip(S):
 def test_cpu_wrappers_take_the_plain_version_without_launching():
     S = 16
     scal, vals, wcu, wcv = _inputs(S, 3)
-    before = dict(F.LAUNCHES)
     args = (_t(scal), _t(vals), _t(_ri(wcu)), _t(_ri(wcv)))
-    p = F.patches_from_vals(*args, S)
-    assert torch.equal(p, F.patches_from_vals_ref(*args, S))
-    v = F.vals_from_patches(p, args[0], args[2], args[3], S)
-    assert torch.equal(v, F.vals_from_patches_ref(p, args[0], args[2], args[3], S))
-    assert F.LAUNCHES == before
+    with recording() as got:
+        p = F.patches_from_vals(*args, S)
+        assert torch.equal(p, F.patches_from_vals_ref(*args, S))
+        v = F.vals_from_patches(p, args[0], args[2], args[3], S)
+        assert torch.equal(v, F.vals_from_patches_ref(p, args[0], args[2], args[3], S))
+    assert launches(got["counters"]) == {}
 
 
 def test_launch_checks_refuse_bad_inputs():
@@ -252,17 +253,17 @@ def test_cuda_kernels_match_plain_versions(S, ng):
     wcu = wcv = _ri(_fitted_wc(S))
     f32 = [_t(a, torch.float32, dev) for a in (scal, vals, wcu, wcv)]
     f64 = [a.double() for a in f32]
-    n0 = dict(F.LAUNCHES)
-    p = F.patches_from_vals(*f32, S)
     y = torch.randn((2, ng, S, S), generator=torch.Generator(dev).manual_seed(3), device=dev)
-    v = F.vals_from_patches(y, f32[0], f32[2], f32[3], S)
+    with recording() as got:
+        p = F.patches_from_vals(*f32, S)
+        v = F.vals_from_patches(y, f32[0], f32[2], f32[3], S)
     torch.cuda.synchronize()
     assert p.shape == (2, ng, S, S) and v.shape == (2, ng, G)
     if ng:
         assert _rel(p.double().cpu(), F.patches_from_vals_ref(*f64, S).cpu()) < 2e-6
         assert _rel(v.double().cpu(), F.vals_from_patches_ref(y.double(), f64[0], f64[2], f64[3], S).cpu()) < 2e-6
-    assert F.LAUNCHES["patches_from_vals"] == n0["patches_from_vals"] + (ng > 0)
-    assert F.LAUNCHES["vals_from_patches"] == n0["vals_from_patches"] + (ng > 0)
+    assert got["counters"].get("launch.patches_from_vals", 0) == (ng > 0)
+    assert got["counters"].get("launch.vals_from_patches", 0) == (ng > 0)
     with pytest.raises(TypeError):
         F.patches_from_vals(*f64, S)
 

@@ -13,6 +13,7 @@ fit to 1e-6, an L-BFGS-B run on those PSFs); the f32 "pallas" route to
 import numpy as np
 import pytest
 import torch
+from torch_recorder import logged, recording, routes
 
 from pfb_imaging_tpu.core import imager as JI
 from pfb_imaging_tpu.core.init import init
@@ -95,11 +96,12 @@ def _compare(sj, st, tol, names=("DIRTY", "PSF", "PSFHAT", "WSUM", "NOISE"), fit
 def test_stack_f64_matches_jax(xds):
     """Natural weights, two bands and two time bins (one partition each),
     the BEAM product, the NOISE image and the FITS output."""
-    sj, st = _run_both(xds, "stack", gridder="stack", ntime=2, fits_out=True)
+    with recording() as got:
+        sj, st = _run_both(xds, "stack", gridder="stack", ntime=2, fits_out=True)
     _compare(sj, st, 1e-9, names=("DIRTY", "PSF", "PSFHAT", "WSUM", "NOISE", "BEAM"))
     assert len(st.groups()) == 4
     assert (xds / "stack_t_dirty_mfs.fits").exists() and (xds / "stack_t_psf_mfs.fits").exists()
-    assert TI.IMAGER_STATS["route"] == "stack"
+    assert routes(got["counters"], "imager") == {"stack": 1}
 
 
 def test_briggs_weights_match_jax(xds):
@@ -114,16 +116,18 @@ def test_briggs_weights_match_jax(xds):
 def test_pallas_f32_matches_jax(xds):
     """The pallas route (the CUDA kernel's plain version here) against the
     JAX Pallas route in interpret mode, both f32."""
-    sj, st = _run_both(xds, "pallas", gridder="pallas", double_precision=False, epsilon=1e-5)
+    with recording() as got:
+        sj, st = _run_both(xds, "pallas", gridder="pallas", double_precision=False, epsilon=1e-5)
     _compare(sj, st, 2e-5, fit_tol=1e-3)
-    assert TI.IMAGER_STATS["route"] == "pallas"
-    assert all(p["psf"]["nw"] >= 1 for p in TI.IMAGER_STATS["plans"])
+    assert routes(got["counters"], "imager") == {"pallas": 1}
+    assert got["counters"]["imager.plans.wstack"] == got["counters"]["imager.plans"] > 0
 
 
 def test_idg_f64_matches_jax(xds):
-    sj, st = _run_both(xds, "idg", gridder="idg", epsilon=1e-7)
+    with recording() as got:
+        sj, st = _run_both(xds, "idg", gridder="idg", epsilon=1e-7)
     _compare(sj, st, 1e-9)
-    assert TI.IMAGER_STATS["route"] == "idg"
+    assert routes(got["counters"], "imager") == {"idg": 1}
 
 
 @pytest.mark.parametrize("layout, eps, route", [("dense", 1e-7, "idg"), ("sparse", 1e-7, "stack"),
@@ -134,19 +138,20 @@ def test_auto_routes_as_jax(xds, dense_xds, layout, eps, route):
     products match JAX's to 1e-9, which the two routes' 1e-7-level
     differences would break, so JAX took the same route."""
     d = dense_xds if layout == "dense" else xds
-    sj, st = _run_both(d, f"auto{eps:.0e}", gridder="auto", epsilon=eps)
-    assert TI.IMAGER_STATS["route"] == route
+    with recording() as got:
+        sj, st = _run_both(d, f"auto{eps:.0e}", gridder="auto", epsilon=eps)
+    assert routes(got["counters"], "imager") == {route: 1}
     _compare(sj, st, 1e-9)
 
 
 def test_auto_wide_field_grids_on_wplanes_as_jax(wide_xds):
     """``gridder="auto"`` on a wide field: the probe keeps IDG, every image
     and PSF plan is a wplanes plan, and the products match JAX's to 1e-9."""
-    sj, st = _run_both(wide_xds, "wide", gridder="auto", epsilon=1e-7, cell_size=100.0, nband=1,
-                        use_mesh=False)
-    assert TI.IMAGER_STATS["route"] == "idg"
-    plans = [p[k] for p in TI.IMAGER_STATS["plans"] for k in ("image", "psf")]
-    assert plans and all(p["w_support"] > 1 for p in plans)
+    with recording() as got:
+        sj, st = _run_both(wide_xds, "wide", gridder="auto", epsilon=1e-7, cell_size=100.0, nband=1,
+                           use_mesh=False)
+    assert routes(got["counters"], "imager") == {"idg": 1}
+    assert got["counters"]["imager.plans.wplanes"] == got["counters"]["imager.plans"] > 0
     _compare(sj, st, 1e-9)
 
 
@@ -170,8 +175,9 @@ def test_unported_options_raise(port_xds):
     unknown gridder raises."""
     xds = port_xds
     kw = dict(nband=2, nx=24, epsilon=1e-7, gridder="idg", fits_out=False, device="cpu")
-    TI.imager(str(xds / "sim.xds"), str(xds / "mesh.dt"), use_mesh=True, **kw)
-    assert TI.IMAGER_STATS["route"] == "idg" and TI.IMAGER_STATS["mesh_row_size"] == 1
+    with recording() as got, logged("IMAGER", "rank") as ranks:
+        TI.imager(str(xds / "sim.xds"), str(xds / "mesh.dt"), use_mesh=True, **kw)
+    assert routes(got["counters"], "imager") == {"idg": 1} and [r["mesh_row_size"] for r in ranks] == [1]
     TI.imager(str(xds / "sim.xds"), str(xds / "plain.dt"), use_mesh=False, **kw)
     a, b = TreeStore(str(xds / "plain.dt")), TreeStore(str(xds / "mesh.dt"))
     for g in a.groups():

@@ -12,6 +12,7 @@ route in f64, as ``tests/test_torch_imager.py``).
 import numpy as np
 import pytest
 import torch
+from torch_recorder import recording, seconds
 
 from pfb_imaging_tpu.core import imager as JI
 from pfb_imaging_tpu.core.init import init
@@ -100,10 +101,11 @@ def test_imager_model_transfer_matches_jax(xds, dof):
               model_mds=str(xds / "m.mds"), l2_reweight_dof=dof)
     tag = "l2" if dof else "sub"
     JI.imager(str(xds / "sim.xds"), str(xds / f"{tag}_j.dt"), **kw)
-    TI.imager(str(xds / "sim.xds"), str(xds / f"{tag}_t.dt"), device="cpu", **kw)
+    with recording() as got:
+        TI.imager(str(xds / "sim.xds"), str(xds / f"{tag}_t.dt"), device="cpu", **kw)
     sj, st = TreeStore(str(xds / f"{tag}_j.dt")), TreeStore(str(xds / f"{tag}_t.dt"))
     plain = TreeStore(str(xds / "sim.xds"))
-    assert TI.IMAGER_STATS["model_seconds"] > 0
+    assert seconds(got["spans"], "imager.model") > 0
     assert st.groups() == sj.groups()
     assert st.attrs["wsum"] == pytest.approx(sj.attrs["wsum"], rel=1e-9)
     for key in sj.groups():

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from torch_ranks import load, run_ranks, save
+from torch_recorder import logged, recording
 
 torch.set_num_threads(1)
 DKW = dict(preset="sara", niter=2, eta=1e-4, cg_maxit=20, pd_maxit=100, l1_reweight_from=-1, epsilon=1e-9,
@@ -59,21 +60,22 @@ def _copy(src, dst):
 
 def _deconv_ranks(rank, world, outdir, dt, row_shard_above):
     from pfb_imaging_tpu_torch.core import deconv as D
-    from pfb_imaging_tpu_torch.parallel.mesh import COLLECTIVE_STATS
 
-    model, residual = D.deconv(dt, use_mesh=True, row_shard_above=row_shard_above, device="cpu", **DKW)
+    with recording() as got, logged("DECONV") as cycles:
+        model, residual = D.deconv(dt, use_mesh=True, row_shard_above=row_shard_above, device="cpu", **DKW)
     save(outdir, "model", model, rank)
     save(outdir, "residual", residual, rank)
-    save(outdir, "stats", [[c["rms"], c["cg_iters"], c["pd_iters"]] for c in D.CYCLE_STATS], rank)
-    save(outdir, "mesh", [D.CYCLE_STATS[0]["mesh"]["band"], D.CYCLE_STATS[0]["mesh"]["row"]], rank)
-    save(outdir, "all_to_all", COLLECTIVE_STATS.get("all_to_all", {}).get("count", 0), rank)
+    save(outdir, "stats", [[c["rms"], c["cg_iters"], c["pd_iters"]] for c in cycles], rank)
+    save(outdir, "mesh", [cycles[0]["mesh"]["band"], cycles[0]["mesh"]["row"]], rank)
+    save(outdir, "all_to_all", got["counters"].get("collective.all_to_all", 0), rank)
 
 
 def _single(dt):
     from pfb_imaging_tpu_torch.core import deconv as D
 
-    model, _ = D.deconv(dt, use_mesh=True, device="cpu", **DKW)
-    return model, [[c["rms"], c["cg_iters"], c["pd_iters"]] for c in D.CYCLE_STATS]
+    with logged("DECONV") as cycles:
+        model, _ = D.deconv(dt, use_mesh=True, device="cpu", **DKW)
+    return model, [[c["rms"], c["cg_iters"], c["pd_iters"]] for c in cycles]
 
 
 def _check_ranks(out, model1, stats1, world=2):
@@ -145,9 +147,10 @@ def test_deconv_use_mesh_on_one_process_is_bitwise(trees, tmp_path):
 
     outs = []
     for flag in (True, False):
-        model, residual = D.deconv(_copy(trees / "b2.dt", tmp_path / f"{flag}.dt"), use_mesh=flag, device="cpu",
-                                   **DKW)
-        outs.append((model, residual, [(c["cg_iters"], c["pd_iters"]) for c in D.CYCLE_STATS]))
+        with logged("DECONV") as cycles:
+            model, residual = D.deconv(_copy(trees / "b2.dt", tmp_path / f"{flag}.dt"), use_mesh=flag,
+                                       device="cpu", **DKW)
+        outs.append((model, residual, [(c["cg_iters"], c["pd_iters"]) for c in cycles]))
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
     assert outs[0][2] == outs[1][2]

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from torch_ranks import load, run_ranks, save
+from torch_recorder import logged
 
 torch.set_num_threads(1)
 SRC = ((0.4, 0.3, 0.8, -0.7),)
@@ -61,8 +62,10 @@ def _imager_ranks(rank, world, outdir, d, kw):
     from pfb_imaging_tpu_torch.core import imager as TI
 
     for name, ckw in _cases(d, kw).items():
-        TI.imager(str(d / "m.xds"), str(d / f"ranks_{name}.dt"), use_mesh=True, device="cpu", **ckw)
-        save(outdir, f"row_size_{name}", TI.IMAGER_STATS["mesh_row_size"], rank)
+        with logged("IMAGER", "rank") as ranks:
+            TI.imager(str(d / "m.xds"), str(d / f"ranks_{name}.dt"), use_mesh=True, device="cpu", **ckw)
+        (this,) = ranks
+        save(outdir, f"row_size_{name}", this["mesh_row_size"], rank)
 
 
 def test_imager_row_mesh_matches_jax_and_one_process(store, tmp_path):
@@ -100,8 +103,11 @@ def _no_mesh_ranks(rank, world, outdir, d, kw):
     from pfb_imaging_tpu_torch.core import imager as TI
 
     for name, nkw in NO_MESH.items():
-        TI.imager(str(d / "m.xds"), str(d / f"nomesh_{name}.dt"), device="cpu", **dict(kw, fits_out=True, **nkw))
-        save(outdir, f"stats_{name}", [TI.IMAGER_STATS["mesh_row_size"], *TI.IMAGER_STATS["bands"]], rank)
+        with logged("IMAGER", "rank") as ranks:
+            TI.imager(str(d / "m.xds"), str(d / f"nomesh_{name}.dt"), device="cpu",
+                      **dict(kw, fits_out=True, **nkw))
+        (this,) = ranks
+        save(outdir, f"stats_{name}", [this["mesh_row_size"], *this["bands"]], rank)
 
 
 def test_imager_no_mesh_two_ranks_match_one_process(store, tmp_path):
@@ -141,8 +147,8 @@ DEC = dict(niter=1, epsilon=1e-9, cg_maxit=6, pd_maxit=6, use_mesh=True)
 
 
 def _pipeline(d, dist=False):
-    from pfb_imaging_tpu_torch.core.deconv import CYCLE_STATS, deconv
-    from pfb_imaging_tpu_torch.core.imager import IMAGER_STATS, imager
+    from pfb_imaging_tpu_torch.core.deconv import deconv
+    from pfb_imaging_tpu_torch.core.imager import imager
     from pfb_imaging_tpu_torch.core.init import init
     from pfb_imaging_tpu_torch.core.simulate import simulate_vis_store
     from pfb_imaging_tpu_torch.parallel.multihost import barrier, rank
@@ -151,11 +157,13 @@ def _pipeline(d, dist=False):
         simulate_vis_store(str(d / "mh.ms"), device="cpu", **SIM)
         init(str(d / "mh.ms"), str(d / "mh.xds"), product="I", device="cpu")
     barrier("data-ready")
-    imager(str(d / "mh.xds"), str(d / "mh.dt"), device="cpu", **IMG)
-    stats = dict(IMAGER_STATS)
+    with logged("IMAGER", "rank") as ranks:
+        imager(str(d / "mh.xds"), str(d / "mh.dt"), device="cpu", **IMG)
     barrier("imaged")
-    model, residual = deconv(str(d / "mh.dt"), device="cpu", **DEC)
-    return model, residual, stats, CYCLE_STATS[-1]
+    with logged("DECONV") as cycles:
+        model, residual = deconv(str(d / "mh.dt"), device="cpu", **DEC)
+    (stats,) = ranks
+    return model, residual, stats, cycles[-1]
 
 
 def _two_node_ranks(rank, world, outdir, d):

@@ -25,7 +25,7 @@ from pfb_imaging_tpu_torch.prox.l1 import L1
 from pfb_imaging_tpu_torch.prox.l21 import L21
 from pfb_imaging_tpu_torch.prox.positivity import positivity
 from pfb_imaging_tpu_torch.prox.prox_21m import dual_update
-from pfb_imaging_tpu_torch.utils import profiling
+from torch_recorder import recording
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -39,15 +39,6 @@ def _cubes(psi, nband, dtype, seed):
     g = torch.Generator().manual_seed(seed)
     shape = (nband, psi.nbasis, psi.nymax, psi.nxmax)
     return torch.randn(shape, generator=g, dtype=dtype), torch.randn(shape, generator=g, dtype=dtype)
-
-
-@pytest.fixture
-def counters():
-    profiling.take()
-    profiling.enable()
-    yield lambda: profiling.take()["counters"]
-    profiling.disable()
-    profiling.take()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -86,41 +77,42 @@ def test_primal_dual_loop_same_bits_with_and_without_the_fused_synthesis(tol):
     assert not torch.equal(xa, x0)
 
 
-def test_extrap_counts_one_a_pd_iteration_with_psi(counters):
+def test_extrap_counts_one_a_pd_iteration_with_psi():
     psi, b, _ = _pd_problem()
     pd = PrimalDual(tol=0.0, maxit=7, verbosity=0)
     pd.setup(L21(psi, DECONV), hessnorm=1.0)
     pd.set_grad(lambda x: x - b)
-    pd.solve(torch.zeros_like(b), 0.05)
+    with recording() as got:
+        pd.solve(torch.zeros_like(b), 0.05)
     assert pd.niter_last == 7
-    c = counters()
-    assert c["psi.extrap"] == 7
+    assert got["counters"]["psi.extrap"] == 7
 
 
-def test_extrap_counts_nothing_with_identity_psi(counters):
+def test_extrap_counts_nothing_with_identity_psi():
     b = torch.randn((1, 8, 8), generator=torch.Generator().manual_seed(5), dtype=torch.float64)
     psi = IdentityPsi(1, 8, 8, device=CPU)
     assert not hasattr(psi, "hdot_extrapolated")
     pd = PrimalDual(tol=0.0, maxit=6, verbosity=0)
     pd.setup(L1(psi), hessnorm=1.0)
     pd.set_grad(lambda x: x - b)
-    pd.solve(torch.zeros_like(b), 0.3)
+    with recording() as got:
+        pd.solve(torch.zeros_like(b), 0.3)
     assert pd.niter_last == 6
-    assert counters().get("psi.extrap", 0) == 0
+    assert got["counters"].get("psi.extrap", 0) == 0
 
 
-def test_extrap_counts_nothing_in_forward_backward(counters):
+def test_extrap_counts_nothing_in_forward_backward():
     psi, b, _ = _pd_problem()
     fb = ForwardBackward(tol=0.0, maxit=5, verbosity=0)
     fb.setup(L21(psi, DECONV), hessnorm=1.0)
     fb.set_grad(lambda x: x - b)
-    fb.solve(torch.zeros_like(b), 0.05)
+    with recording() as got:
+        fb.solve(torch.zeros_like(b), 0.05)
     assert fb.niter_last == 5
-    c = counters()
-    assert c.get("psi.extrap", 0) == 0
+    assert got["counters"].get("psi.extrap", 0) == 0
 
 
-def test_major_step_takes_the_fused_synthesis(counters):
+def test_major_step_takes_the_fused_synthesis():
     nband, nx, nxp = 2, 24, 48
     psi, b, l1w = _pd_problem(nband, nx, nx)
     kx = np.fft.fftfreq(nxp)[:, None]
@@ -131,6 +123,7 @@ def test_major_step_takes_the_fused_synthesis(counters):
     dual = torch.zeros((nband, psi.nbasis, psi.nymax, psi.nxmax), dtype=torch.float64)
     step = partial(pfb_major_step, hess, b, torch.zeros_like(b), torch.zeros_like(b), dual, l1w, 0.01, psi=psi,
                    sigma=0.5, tau=0.5, cg_maxit=5, pd_tol=0.0, pd_maxit=4)
-    model, _, dual_out = step()
-    assert counters()["psi.extrap"] == 4
+    with recording() as got:
+        model, _, dual_out = step()
+    assert got["counters"]["psi.extrap"] == 4
     assert not torch.equal(dual_out, dual) and bool((model >= 0).all())

@@ -13,16 +13,17 @@ products a pass in f32, two passes a level, ~1e-7 relative each, which
 grows with the levels; the f64 plain path's own rounding is ~1e-15. The
 adjoint identity and the frame identity hdot(dot(x)) = nbasis x in f32
 (sums in f64) to 1e-5; the cube's cells that no slot covers exactly 0 from
-an allocation left full of NaN; two calls the same bits; ``LAUNCHES`` up by
-nlevel a call; f64 and non-contiguous input refused.
+an allocation left full of NaN; two calls the same bits; nlevel launches a
+call (the recorder's ``launch.psi_analysis`` / ``launch.psi_synthesis``);
+f64 and non-contiguous input refused.
 
 The two-cube P2 (``Psi.hdot_extrapolated(vn, v)``, PD's ``hdot(2 vn - v)``)
 at every case above and at the sara cells' shapes (4 x 2048^2 and 16 x
 1024^2, nine bases): within 2e-6 of the f64 plain path on ``2 vn - v``, the
 same bits as the one-cube P2 on torch's ``2.0 * vn - v`` and from call to
 call, its output and scratch from allocations left full of NaN,
-``LAUNCHES["psi_synthesis_ext"]`` up by nlevel a call (the one-cube key
-unchanged); and five PD iterations at the 2k cell's shape the same bits
+nlevel launches a call of ``psi_synthesis_ext`` (none of the one-cube
+``psi_synthesis``); and five PD iterations at the 2k cell's shape the same bits
 with and without it.
 
 This file imports no JAX, so it runs where only PyTorch is installed:
@@ -32,6 +33,7 @@ This file imports no JAX, so it runs where only PyTorch is installed:
 import numpy as np
 import pytest
 import torch
+from torch_recorder import launches, recording
 
 from pfb_imaging_tpu_torch.ops import psi as P
 
@@ -91,11 +93,12 @@ def test_adjoint_frame_margins_bits_launches(case):
     # leave the allocator's next block of the cube's size full of NaN
     junk = torch.full((x.shape[0], psi.nbasis, psi.nymax, psi.nxmax), float("nan"), device=dev)
     del junk
-    before = dict(P.LAUNCHES)
-    a1 = psi.dot(x)
-    assert P.LAUNCHES["psi_analysis"] == before["psi_analysis"] + nlevel
-    h1 = psi.hdot(alpha)
-    assert P.LAUNCHES["psi_synthesis"] == before["psi_synthesis"] + nlevel
+    with recording() as got:
+        a1 = psi.dot(x)
+    assert launches(got["counters"]) == {"psi_analysis": nlevel}
+    with recording() as got:
+        h1 = psi.hdot(alpha)
+    assert launches(got["counters"]) == {"psi_synthesis": nlevel}
     a2, h2 = psi.dot(x), psi.hdot(alpha)
     torch.cuda.synchronize()
     assert torch.equal(a1, a2) and torch.equal(h1, h2)
@@ -140,10 +143,10 @@ def test_extrapolated_synthesis(case):
     junk = [torch.full((nband, psi.nx, psi.ny), float("nan"), device=dev)]
     junk += [torch.full_like(t, float("nan")) for t in psi._scratch(nband, dev)]
     del junk
-    before = dict(P.LAUNCHES)
-    h1 = psi.hdot_extrapolated(vn, v)
-    assert P.LAUNCHES["psi_synthesis_ext"] == before["psi_synthesis_ext"] + nlevel
-    assert P.LAUNCHES["psi_synthesis"] == before["psi_synthesis"]
+    with recording() as got:
+        h1 = psi.hdot_extrapolated(vn, v)
+    assert got["counters"]["launch.psi_synthesis_ext"] == nlevel
+    assert got["counters"].get("launch.psi_synthesis", 0) == 0
     h2 = psi.hdot_extrapolated(vn, v)
     h_one = psi.hdot(2.0 * vn - v)
     torch.cuda.synchronize()
@@ -163,13 +166,13 @@ def test_pd_iterations_same_bits_with_and_without_the_fused_synthesis():
     b = x.abs()
     l1w = torch.ones((psi.nbasis, psi.nymax, psi.nxmax), device=dev)
     v0 = torch.zeros((x.shape[0], psi.nbasis, psi.nymax, psi.nxmax), device=dev)
-    before = P.LAUNCHES["psi_synthesis_ext"]
-    runs = [primal_dual_loop(torch.zeros_like(b), v0, 1e-3, l1w, 0.1, 0.5, lambda z: z - b, psi_dot=psi.dot,
-                             psi_hdot=psi.hdot, primal_prox=positivity, dual_update=dual_update, tol=0.0, maxit=5,
-                             psi_hdot_ext=ext)
-            for ext in (None, psi.hdot_extrapolated)]
+    with recording() as got:
+        runs = [primal_dual_loop(torch.zeros_like(b), v0, 1e-3, l1w, 0.1, 0.5, lambda z: z - b, psi_dot=psi.dot,
+                                 psi_hdot=psi.hdot, primal_prox=positivity, dual_update=dual_update, tol=0.0,
+                                 maxit=5, psi_hdot_ext=ext)
+                for ext in (None, psi.hdot_extrapolated)]
     torch.cuda.synchronize()
-    assert P.LAUNCHES["psi_synthesis_ext"] == before + 5 * psi.nlevel
+    assert got["counters"]["launch.psi_synthesis_ext"] == 5 * psi.nlevel
     (xa, va, ka, _), (xb, vb, kb, _) = runs
     assert ka == kb == 5
     assert torch.equal(xa, xb) and torch.equal(va, vb)

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_recorder import recording
 
 from pfb_imaging_tpu import geometry as JGEO
 from pfb_imaging_tpu.ops import weighting as JW
@@ -42,9 +43,9 @@ def test_counts_match_jax_native_and_torch():
     uvw, freq, mask, wgt = _data()
     cj = np.asarray(JW._compute_counts_jax(jnp.asarray(uvw), jnp.asarray(freq), jnp.asarray(mask), jnp.asarray(wgt),
                                            NX, NX, CELL, CELL))
-    before = TN.PLAN_STATS["native"] + TN.PLAN_STATS["numpy"]
-    cn = TW.compute_counts(uvw, freq, mask, wgt, NX, NX, CELL, CELL)
-    assert TN.PLAN_STATS["native"] + TN.PLAN_STATS["numpy"] == before + 1
+    with recording() as got:
+        cn = TW.compute_counts(uvw, freq, mask, wgt, NX, NX, CELL, CELL)
+    assert got["counters"].get("plan.native", 0) + got["counters"].get("plan.numpy", 0) == 1
     ct = TW.compute_counts_torch(torch.as_tensor(uvw), torch.as_tensor(freq), torch.as_tensor(mask),
                                  torch.as_tensor(wgt), NX, NX, CELL, CELL)
     assert isinstance(cn, np.ndarray) and cn.shape == (2, NX, NX)
@@ -84,12 +85,12 @@ def test_numpy_fallback_matches_native(monkeypatch):
     assert TN._build_and_load() is not None  # the native kernels were the reference
     monkeypatch.setattr(TN, "_LIB", None)
     monkeypatch.setattr(TN, "_TRIED", True)
-    before = TN.PLAN_STATS["numpy"]
-    assert _rel(TW.compute_counts(uvw, freq, mask, wgt, NX, NX, CELL, CELL), counts) < 1e-12
-    assert _rel(TW.counts_to_weights(counts, uvw, freq, wgt, mask, NX, NX, CELL, CELL, 0.0), weights) < 1e-12
-    for got, want in zip(TN.wplane_buckets(i0, 14, 3), buckets):
-        assert np.array_equal(got, want)
-    assert TN.PLAN_STATS["numpy"] == before + 3
+    with recording() as rec:
+        assert _rel(TW.compute_counts(uvw, freq, mask, wgt, NX, NX, CELL, CELL), counts) < 1e-12
+        assert _rel(TW.counts_to_weights(counts, uvw, freq, wgt, mask, NX, NX, CELL, CELL, 0.0), weights) < 1e-12
+        for got, want in zip(TN.wplane_buckets(i0, 14, 3), buckets):
+            assert np.array_equal(got, want)
+    assert rec["counters"]["plan.numpy"] == 3
 
 
 @pytest.mark.parametrize("level", [0.0, 10.0, 3.0])
