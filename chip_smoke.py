@@ -35,9 +35,15 @@ exits non-zero:
                formed as it stages) likewise, the same bits as P2 on torch's
                2.0 * vn - v, timed beside that (two torch passes and P2) and
                its bound (2 cubes, x, the scratch written and read); at the
-               nine, 2 + 2 launches a primal-dual iteration (P2 on two cubes),
-               and no cuDNN or ``cat`` kernel in Psi's trace nor cuDNN in a PD
-               iteration's;
+               nine, 2 + 2 launches a primal-dual iteration (P2 on two cubes)
+               and one of the dual update's kernel, and no cuDNN or ``cat``
+               kernel in Psi's trace nor cuDNN in a PD iteration's; then the
+               dual update's kernel (dual_update_21m) on the sara cells'
+               cubes, (4, 9, 2077, 2077) and (16, 9, 1053, 1053)
+               (``phase_dual_update``): bit for bit the torch composition,
+               two calls the same bits, one launch a call, ms by CUDA events
+               beside the byte bound (3 cubes and a weight plane) and the
+               composition's ms;
   3. accuracy — the port's f32 ``vis2dirty_idg`` at 256^2, 100k vis and
                epsilon 1e-7 against a direct f64 DFT on the card, within the
                plan's ``delivered_accuracy`` budgets; and the f32
@@ -221,8 +227,10 @@ and rank, with
 B1/B2 at rank 0's shard plans under ``*_parallel_*`` keys; P1/P2 last, at
 the sara cell's shapes and under ``*_deconv_default`` keys at the deconv's
 default bases, with their launches a PD iteration there besides the main
-path's; their widefield, pipeline and parallel launches must be positive),
-the
+path's; their widefield, pipeline and parallel launches must be positive;
+then the dual update's kernel at the sara cells' cubes, with its launches
+on the deconv, the widefield deconv, the pipeline, (a) and every rank of
+(b)'s band split, all positive), the
 ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this file, it exits non-zero and prints no result.
@@ -271,6 +279,7 @@ REPLACES = {
     "psi_synthesis": "pfb_imaging_tpu/ops/wavelets.py:139 (conv_general_dilated, through ops/psi.py Psi.hdot)",
     "psi_synthesis_ext": "pfb_imaging_tpu/ops/wavelets.py:139 (conv_general_dilated, through ops/psi.py Psi.hdot of "
                          "opt/primal_dual.py's 2.0 * vn - v)",
+    "dual_update_21m": "pfb_imaging_tpu/prox/prox_21m.py:33 (dual_update, XLA element-wise ops)",
 }
 SARA_BASES = ("self",) + tuple(f"db{p}" for p in range(1, 9))
 DECONV_BASES = ("self", "db1", "db2")  # the deconv's default (deconv/presets)
@@ -738,7 +747,7 @@ def phase_psi(dev, nband: int = 4, nx: int = 2048, nlevel: int = 2, reps: int = 
     torch.cuda.synchronize()
     launches = read_counts()["launches"]
     rec["launches_pd_iteration"] = {k: launches[k] / pd_iters for k in ("psi_analysis", "psi_synthesis",
-                                                                       "psi_synthesis_ext")}
+                                                                       "psi_synthesis_ext", "dual_update_21m")}
     for what, fn in (("psi", lambda: (psi.dot(x), psi.hdot(v))), ("pd_iteration", lambda: pd(1))):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
@@ -747,13 +756,65 @@ def phase_psi(dev, nband: int = 4, nx: int = 2048, nlevel: int = 2, reps: int = 
                                          if e.device_type == torch.autograd.DeviceType.CUDA})
     emit({"phase": "psi", **rec})
     require(rec["launches_pd_iteration"] == {"psi_analysis": nlevel, "psi_synthesis": 0,
-                                             "psi_synthesis_ext": nlevel},
-            "Psi's kernels launched nlevel + nlevel times a PD iteration, P2 on two cubes")
+                                             "psi_synthesis_ext": nlevel, "dual_update_21m": 1},
+            "Psi's kernels launched nlevel + nlevel times a PD iteration, P2 on two cubes, the dual update's once")
     require(not any("cudnn" in n.lower() or "CatArrayBatchedCopy" in n for n in rec["kernels_psi"]),
             "no cuDNN convolution and no cat in Psi's trace")
     require(not any("cudnn" in n.lower() for n in rec["kernels_pd_iteration"]),
             "no cuDNN convolution in a PD iteration")
     require(rec["pd_fused_same_bits"], "PD with P2 on two cubes: the bits of PD on torch's 2.0 * vn - v")
+    return rec
+
+
+def dual_update_at(dev, shape: tuple, reps: int, plain_reps: int, seed: int) -> dict:
+    """PD's dual update (``prox_21m.dual_update``: the kernel
+    ``dual_update_21m`` on the card) on coefficient cubes of ``shape``
+    (nband, nbasis, nymax, nxmax), with a reweighting-like weight and lam
+    at the median |band sum| (both branches of the scale taken): bit for bit
+    ``dual_update_plain`` (the torch composition, the path the card took
+    before the kernel), two calls the same bits, one launch a call; ms by
+    CUDA events beside the byte bound (vp, v and vn whole, the weight plane
+    once: 3C + p) and the composition's ms."""
+    import torch
+
+    from pfb_imaging_tpu_torch.prox.prox_21m import dual_update, dual_update_plain
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vp, v = torch.randn(shape, generator=g, device=dev), torch.randn(shape, generator=g, device=dev)
+    weight = torch.rand(shape[1:], generator=g, device=dev) + 0.5
+    sigma = 0.7
+    lam = float((vp + sigma * v).sum(0).abs().median())
+    zero_counts()
+    k1 = dual_update(vp, v, lam, sigma, weight)
+    torch.cuda.synchronize()
+    launches = read_counts()["launches"]["dual_update_21m"]
+    same = torch.equal(k1, dual_update_plain(vp, v, lam, sigma, weight))
+    again = torch.equal(k1, dual_update(vp, v, lam, sigma, weight))
+    del k1
+    torch.cuda.empty_cache()
+    nbytes = (3 * vp.numel() + weight.numel()) * 4
+    rec = dict(shape=list(shape), launches_a_call=launches, same_bits_as_plain=same,
+               two_calls_identical=again, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               ms=cuda_ms(lambda: dual_update(vp, v, lam, sigma, weight), reps),
+               plain_ms=cuda_ms(lambda: dual_update_plain(vp, v, lam, sigma, weight), plain_reps))
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    require(launches == 1, f"dual_update_21m launched once a call at {shape}")
+    require(same, f"dual_update_21m: the composition's bits at {shape}")
+    require(again, f"dual_update_21m: two calls give the same bits at {shape}")
+    return rec
+
+
+def phase_dual_update(dev, reps: int = 20, plain_reps: int = 5) -> dict:
+    """The dual update's kernel at the sara cells' cubes (``dual_update_at``):
+    the 2k cell's (4, 9, 2077, 2077) and the 1k16 cell's (``cell_1k16``),
+    (16, 9, 1053, 1053): nine bases over two levels at 2048^2 and 1024^2."""
+    import torch
+
+    rec = dual_update_at(dev, (4, len(SARA_BASES), 2077, 2077), reps, plain_reps, seed=19)
+    torch.cuda.empty_cache()
+    rec["cell_1k16"] = dual_update_at(dev, (16, len(SARA_BASES), 1053, 1053), reps, plain_reps, seed=20)
+    torch.cuda.empty_cache()
+    emit({"phase": "dual_update", **rec})
     return rec
 
 
@@ -3631,6 +3692,7 @@ def main(argv=None) -> int:
     kern = phase_kernels(dev)
     phase_kernels_assembly(dev)
     psi_rec = phase_psi(dev)
+    dual_rec = phase_dual_update(dev)
     scat, gath = phase_kernels_scatter(dev)
     phase_accuracy(dev)
     phase_accuracy_pallas(dev)
@@ -3656,6 +3718,7 @@ def main(argv=None) -> int:
         "multiband_hessian_widefield_launch_identical": wide_asm["hessian_two_runs_identical"],
         "fluxtractor_hessian_vis_identical": cmd_steps["fluxtractor"]["hessian_vis_two_runs_identical"],
         "pd_fused_extrapolation_identical": psi_rec["pd_fused_same_bits"],
+        "dual_update_kernel_identical": dual_rec["two_calls_identical"],
     })
     par_launches, par_kern, _ = phase_parallel(dev, ROOT / "build" / "chip_smoke_parallel", imaged, store,
                                                sky["cell_rad"] * 180.0 / np.pi * 3600.0)
@@ -3806,6 +3869,30 @@ def main(argv=None) -> int:
         require(k["launches_widefield_deconv"] > 0, f"{name} launched by the widefield deconv")
         require(k["launches_pipeline"] > 0, f"{name} launched on the pipeline")
         require(all(n > 0 for n in k["launches_parallel"].values()), f"{name} launched by every rank of (a), (b)")
+    # the dual update (S1): ms and bits at the sara cells' shapes; launches on
+    # the main path's deconv, a PD iteration, and every path that runs PD
+    # with SARA's prior, (b)'s band split too (given the gathered band sum);
+    # the commands run no l2,1 primal-dual (kclean, fluxtractor, hci; ista
+    # takes the prox)
+    c16 = dual_rec["cell_1k16"]
+    kernels.append(dict(
+        name="dual_update_21m", route="cuda", source="pfb_imaging_tpu_torch/csrc/prox_21m.cu",
+        replaces=REPLACES["dual_update_21m"], launches=launches["dual_update_21m"],
+        launches_pd_iteration=psi_rec["launches_pd_iteration"]["dual_update_21m"], ms=dual_rec["ms"],
+        plain_ms=dual_rec["plain_ms"], bound_ms=dual_rec["bound_ms"], bound_by="bytes",
+        bound_share=dual_rec["bound_share"], library_ms=None, same_bits_as_plain=dual_rec["same_bits_as_plain"],
+        two_calls_identical=dual_rec["two_calls_identical"], shape=dual_rec["shape"], ms_1k16=c16["ms"],
+        plain_ms_1k16=c16["plain_ms"], bound_ms_1k16=c16["bound_ms"], bound_share_1k16=c16["bound_share"],
+        same_bits_as_plain_1k16=c16["same_bits_as_plain"], shape_1k16=c16["shape"],
+        launches_widefield_deconv=wf_launches["dual_update_21m"], launches_pipeline=pipe_launches["dual_update_21m"],
+        launches_commands=cmd_launches["dual_update_21m"],
+        launches_parallel={k: v["dual_update_21m"] for k, v in par_launches.items()},
+    ))
+    k = kernels[-1]
+    require(k["launches"] > 0 and k["launches_widefield_deconv"] > 0 and k["launches_pipeline"] > 0,
+            "dual_update_21m launched by the deconv, the widefield deconv and the pipeline")
+    require(all(n > 0 for n in k["launches_parallel"].values()),
+            "dual_update_21m launched by (a)'s one rank and by every rank of (b)'s band split")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

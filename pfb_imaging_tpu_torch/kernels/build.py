@@ -123,6 +123,9 @@ def _load():
     # level, nband, cube, ll (or NULL), img (or NULL), x, stream
     lib.pfb_psi_synthesis.argtypes = [vp, i, vp, vp, vp, vp, vp, vp]
     lib.pfb_psi_synthesis.restype = i
+    # vp, v, weight (or NULL), band sum (or NULL), out, nband, plane, sigma, lam, stream
+    lib.pfb_dual_update_21m.argtypes = [vp, vp, vp, vp, vp, i, ll, f, f, vp]
+    lib.pfb_dual_update_21m.restype = i
     lib.pfb_error_string.argtypes = [i]
     lib.pfb_error_string.restype = ctypes.c_char_p
     return lib

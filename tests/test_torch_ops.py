@@ -280,15 +280,29 @@ def test_psi_hdot_left_inverse():
     assert _rel(pt.hdot(pt.dot(x)), 3 * x) < 1e-10
 
 
-@pytest.mark.parametrize("sigma", [1.0, 0.7])
-def test_prox_21m_and_dual_update_match_jax(sigma):
+# (sigma, cube shape, lam at the median |band sum| with some weights 0):
+# the last four odd planes, both branches of the scale taken, scale 0 where
+# a weight is 0
+PROX_21M_CASES = [(1.0, (3, 2, 10, 12), False), (0.7, (3, 2, 10, 12), False), (0.7, (1, 3, 21, 19), True),
+                  (0.7, (3, 9, 33, 35), True), (0.7, (4, 9, 41, 41), True), (0.7, (16, 9, 17, 23), True)]
+
+
+@pytest.mark.parametrize("sigma,shape,median", PROX_21M_CASES,
+                         ids=["1.0", "0.7"] + [f"0.7-odd{s[0]}x{s[2]}x{s[3]}" for _, s, _ in PROX_21M_CASES[2:]])
+def test_prox_21m_and_dual_update_match_jax(sigma, shape, median):
     rng = np.random.default_rng(7)
-    v = rng.standard_normal((3, 2, 10, 12))
-    vp = rng.standard_normal((3, 2, 10, 12))
-    w = rng.uniform(0.5, 2.0, (2, 10, 12))
+    v = rng.standard_normal(shape)
+    vp = rng.standard_normal(shape)
+    w = rng.uniform(0.5, 2.0, shape[1:])
     v[:, 0, 0, 0] = 0.0  # exercise the zero-band-sum branch
     vp[:, 0, 0, 0] = 0.0
     lam = 0.8
+    if median:
+        mag = np.abs((vp + sigma * v).sum(0))
+        lam = float(np.median(mag))
+        w[(mag > 2 * lam) & (rng.uniform(size=mag.shape) < 0.2)] = 0.0
+        over = mag > lam * w
+        assert over.sum() > 20 and (~over).sum() > 20 and (over & (w == 0)).any()
     assert _rel(tp21.prox_21m(_t(v), lam, sigma, _t(w)), j_prox_21m(jnp.asarray(v), lam, sigma, jnp.asarray(w))) < 1e-12
     assert _rel(tp21.prox_21m(_t(v), lam, sigma), j_prox_21m(jnp.asarray(v), lam, sigma)) < 1e-12
     got = tp21.dual_update(_t(vp), _t(v), lam, sigma, _t(w))
